@@ -101,3 +101,9 @@ try:  # pragma: no cover - exercised implicitly by collection
     import hypothesis  # noqa: F401
 except ImportError:
     _install_hypothesis_fallback()
+
+
+def pytest_configure(config):
+    config.addinivalue_line(
+        "markers",
+        "cuda: needs an NVIDIA GPU; the test skips itself where there is none")
