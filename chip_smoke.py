@@ -6,17 +6,27 @@
 Phases; any failure raises, so the exit code is non-zero:
 
 1. the card's name and power limit (``nvidia-smi``), torch and CUDA versions;
-2. build the CUDA kernels from ``src/repro_torch/kernels/cim_popcount/csrc``;
+2. build the CUDA kernels from ``src/repro_torch/kernels/*/csrc`` (one
+   ``nvcc`` per library, all started together);
 3. each kernel against its plain PyTorch version on the card, bit for bit,
-   at the main path's shapes and more, timed against its bound;
-4. the main path: ``repro_torch.launch.serve --esam`` at the paper topology
-   768:256:256:256:10, max_batch 128, telemetry on, 4096 digit requests,
-   with the launch counters set to 0 just before and read just after; the
-   served logits are held against the port's functional plan on the card and
-   the per-request cycles and energy against the float64 cost model;
+   at the paths' shapes and more, timed against its bound;
+4. the serving path: ``repro_torch.launch.serve --esam`` at the paper
+   topology 768:256:256:256:10, max_batch 128, telemetry on, 4096 digit
+   requests, with the launch counters set to 0 just before and read just
+   after; the served logits are held against the port's functional plan on
+   the card and the per-request cycles and energy against the float64 cost
+   model;
 5. the one-tile path: a 768:10 network served through ``SpikeEngine``
    (``popcount_mac``), counted and checked the same way;
-6. one JSON line of the kernels, then the result line.
+6. the learning path: ``repro_torch.train.online.train_online`` on the paper
+   topology (4096 training and 1024 eval digits, 3 shuffled epochs,
+   checkpoints), counted the same way (``popcount_fire`` per hidden tile and
+   split, ``stdp_column_event`` twice per sample) and held bit for bit
+   against the same call on the CPU (the plain versions); then
+   ``learning.online_learning_epoch`` through the packed prefix
+   (``fused_fire_packed``) and ``online_learning_epoch_scan`` with the matrix
+   RNG (``stdp_update``), each against its CPU twin;
+7. one JSON line of the kernels, then the result line.
 
 It needs a CUDA device and exits non-zero without one.
 """
@@ -28,6 +38,7 @@ import statistics
 import subprocess
 import sys
 import time
+from contextlib import contextmanager, nullcontext
 from pathlib import Path
 
 import numpy as np
@@ -42,6 +53,16 @@ BUCKET = 128                   # the engine's max_batch: one round's batch
 POPC_PER_CLOCK_PER_SM = 16
 #: device memory rate of an H100 SXM (NVIDIA data sheet)
 HBM_BYTES_PER_S = 3.35e12
+#: dense int8 tensor-core rate of an H100 SXM (NVIDIA data sheet)
+INT8_OPS_PER_S = 1979e12
+#: float32 rate outside the tensor cores of an H100 SXM (NVIDIA data sheet)
+F32_OPS_PER_S = 67e12
+
+#: the learning path: the port's twin of examples/online_learning.py
+LEARN_TRAIN, LEARN_EVAL, LEARN_EPOCHS = 4096, 1024, 3
+LEARN_P_POT, LEARN_P_DEP = 0.2, 0.1
+#: samples of the matrix-RNG scan path (two stdp_update launches each)
+SCAN_SAMPLES = 64
 
 
 def nvidia_smi(query: str, units: bool = True) -> str:
@@ -113,9 +134,12 @@ class Card:
         self.max_sm_mhz = float(nvidia_smi("clocks.max.sm", units=False))
         self.popc_per_s = POPC_PER_CLOCK_PER_SM * self.sms * self.max_sm_mhz * 1e6
 
-    def bound(self, n_bytes: float, n_popc: float) -> tuple[float, str]:
+    def bound(self, n_bytes: float, n_ops: float,
+              ops_per_s: float | None = None) -> tuple[float, str]:
+        """(ms, what bounds it): the larger of bytes over the memory rate
+        and operations over their rate (popc by default)."""
         t_bytes = n_bytes / HBM_BYTES_PER_S
-        t_ops = n_popc / self.popc_per_s
+        t_ops = n_ops / (ops_per_s or self.popc_per_s)
         return (max(t_bytes, t_ops) * 1e3,
                 "bytes" if t_bytes >= t_ops else "operations")
 
@@ -205,10 +229,10 @@ def check_mac(card, rng, batch, n_in, n_out, kernels):
     x = random_words(rng, batch, n_in).cuda()
     out = ops.cim_popcount_matmul(x, planes)
     ref = ops.cim_popcount_ref(x, planes)
-    torch.backends.cuda.matmul.allow_tf32 = False
     s = packing.unpack_spikes(x, n_in, torch.float32)
     w = 2.0 * bits.to(torch.float32) - 1.0
-    lib = torch.matmul(s, w)
+    with tf32_off():
+        lib = torch.matmul(s, w)
     torch.cuda.synchronize()
     err = int((out.long() - ref.long()).abs().max())
     if err or not torch.equal(out, ref) or not torch.equal(
@@ -227,7 +251,216 @@ def check_mac(card, rng, batch, n_in, n_out, kernels):
         "call_ms": call_ms(lambda: ops.cim_popcount_matmul(x, planes)),
         "plain_ms": graph_ms(lambda: ops.cim_popcount_ref(x, planes)),
         "bound_ms": bound_ms, "bound_by": bound_by,
-        "library_ms": graph_ms(lambda: torch.matmul(s, w)),
+        "library_ms": _matmul_yardstick(x, bits, n_in),
+    }
+    print("kernel_check " + json.dumps(row), flush=True)
+    kernels.append(row)
+
+
+@contextmanager
+def tf32_off():
+    """TF32 off for the float32 products inside, the caller's setting
+    restored after them (cuBLAS picks its kernel when a graph is captured,
+    so a captured product keeps the exact float32 path on replay)."""
+    import torch
+
+    allow_tf32 = torch.backends.cuda.matmul.allow_tf32
+    torch.backends.cuda.matmul.allow_tf32 = False
+    try:
+        yield
+    finally:
+        torch.backends.cuda.matmul.allow_tf32 = allow_tf32
+
+
+def _matmul_yardstick(x, bits, n_in):
+    """torch.matmul on the unpacked ±1 float32 operands, TF32 off: the
+    library call that computes the tile's V_mem."""
+    import torch
+
+    from repro_torch.core import packing
+
+    s = packing.unpack_spikes(x, n_in, torch.float32)
+    w = 2.0 * bits.to(torch.float32) - 1.0
+    with tf32_off():
+        return graph_ms(lambda: torch.matmul(s, w))
+
+
+def _word_err(out, ref) -> int:
+    """Largest absolute difference of two integer outputs (words as int)."""
+    return int((out.long() - ref.long()).abs().max()) if out.numel() else 0
+
+
+def check_fire(card, rng, batch, n_in, n_out, kernels, pack_output=True):
+    """popcount_fire (one tile's MAC, fire, re-pack) vs its plain version."""
+    import torch
+
+    from repro_torch.core import packing
+    from repro_torch.kernels.cim_popcount import ops
+
+    bits = torch.from_numpy(
+        rng.integers(0, 2, size=(n_in, n_out), dtype=np.int8)).cuda()
+    planes = packing.pack_weight_planes(bits)
+    vth = torch.from_numpy(
+        rng.integers(-8, 9, size=(n_out,), dtype=np.int32)).cuda()
+    x = random_words(rng, batch, n_in).cuda()
+
+    def run():
+        return ops.esam_layer_popcount(x, planes, vth, pack_output=pack_output)
+
+    out = run()
+    ref = ops.esam_layer_popcount_ref(x, planes, vth, pack_output=pack_output)
+    torch.cuda.synchronize()
+    err = _word_err(out, ref)
+    if err or not torch.equal(out, ref):
+        raise AssertionError(f"popcount_fire != plain at B={batch} "
+                             f"{n_in}->{n_out} pack={pack_output}: err={err}")
+    words = packing.packed_width(n_in)
+    out_bytes = batch * (n_out // 8 if pack_output else n_out)
+    n_bytes = 4 * (batch * words + n_out * words + n_out) + out_bytes
+    bound_ms, bound_by = card.bound(n_bytes, batch * n_out * words + batch * words)
+    row = {
+        "kernel": "popcount_fire", "shape": f"{batch}x{n_in}->{n_out}",
+        "pack_output": pack_output, "batch": batch, "max_abs_err": err,
+        "ms": graph_ms(run), "call_ms": call_ms(run),
+        "plain_ms": graph_ms(lambda: ops.esam_layer_popcount_ref(
+            x, planes, vth, pack_output=pack_output)),
+        "bound_ms": bound_ms, "bound_by": bound_by,
+        "library_ms": _matmul_yardstick(x, bits, n_in),
+    }
+    print("kernel_check " + json.dumps(row), flush=True)
+    kernels.append(row)
+
+
+def check_packed_fire(card, rng, batch, n_in, n_out, kernels,
+                      pack_output=True):
+    """fused_fire_packed (spike words x {0,1} int8 weights, fire, re-pack)
+    vs its plain version."""
+    import torch
+
+    from repro_torch.core import packing
+    from repro_torch.kernels.cim_matmul_packed import ops
+
+    bits = torch.from_numpy(
+        rng.integers(0, 2, size=(n_in, n_out), dtype=np.int8)).cuda()
+    vth = torch.from_numpy(
+        rng.integers(-8, 9, size=(n_out,), dtype=np.int32)).cuda()
+    x = random_words(rng, batch, n_in).cuda()
+
+    def run():
+        return ops.esam_layer_packed(x, bits, vth, pack_output=pack_output)
+
+    out = run()
+    ref = ops.esam_layer_packed_ref(x, bits, vth, pack_output=pack_output)
+    torch.cuda.synchronize()
+    err = _word_err(out, ref)
+    if err or not torch.equal(out, ref):
+        raise AssertionError(f"fused_fire_packed != plain at B={batch} "
+                             f"{n_in}->{n_out} pack={pack_output}: err={err}")
+    words = packing.packed_width(n_in)
+    out_bytes = batch * (n_out // 8 if pack_output else n_out)
+    n_bytes = 4 * batch * words + n_in * n_out + 4 * n_out + out_bytes
+    # the data's work: one multiply-add per active synapse
+    active = int(packing.popcount32(x).sum())
+    bound_ms, bound_by = card.bound(n_bytes, 2 * active * n_out,
+                                    INT8_OPS_PER_S)
+    row = {
+        "kernel": "fused_fire_packed", "shape": f"{batch}x{n_in}->{n_out}",
+        "pack_output": pack_output, "batch": batch, "max_abs_err": err,
+        "ms": graph_ms(run), "call_ms": call_ms(run),
+        "plain_ms": graph_ms(lambda: ops.esam_layer_packed_ref(
+            x, bits, vth, pack_output=pack_output)),
+        "bound_ms": bound_ms, "bound_by": bound_by,
+        "library_ms": _matmul_yardstick(x, bits, n_in),
+    }
+    print("kernel_check " + json.dumps(row), flush=True)
+    kernels.append(row)
+
+
+def _stdp_operands(rng, n_out, n_in, u_shape):
+    import torch
+
+    bits_t = torch.from_numpy(
+        rng.integers(0, 2, size=(n_out, n_in), dtype=np.int8)).cuda()
+    pre = torch.from_numpy(rng.random(n_in) < 0.4).cuda()
+    u_pot = torch.from_numpy(rng.random(u_shape, dtype=np.float32)).cuda()
+    u_dep = torch.from_numpy(rng.random(u_shape, dtype=np.float32)).cuda()
+    return bits_t, pre, u_pot, u_dep
+
+
+def check_column_event(card, rng, n_out, n_in, kernels):
+    """stdp_column_event (one row, in place, index and gate on the device)
+    vs its plain version: the teacher event and the wrong-winner event
+    (p_pot 0, inverted trace), gated on and off."""
+    import torch
+
+    from repro_torch.kernels.stdp import ops
+
+    bits_t, pre, u_pot, u_dep = _stdp_operands(rng, n_out, n_in, (n_in,))
+    col = torch.tensor(n_out // 2, device="cuda")
+    err = 0
+    for apply in (True, False):
+        gate = torch.tensor(apply, device="cuda")
+        for trace, p_pot in ((pre, LEARN_P_POT), (~pre, 0.0)):
+            got = ops.stdp_column_event(
+                bits_t.clone(), col, gate, trace, u_pot, u_dep,
+                p_pot=p_pot, p_dep=LEARN_P_DEP)
+            want = ops.stdp_column_event_ref(
+                bits_t, col, gate, trace, u_pot, u_dep, p_pot, LEARN_P_DEP)
+            err = max(err, _word_err(got, want))
+            if not torch.equal(got, want):
+                raise AssertionError(
+                    f"stdp_column_event != plain at [{n_out}, {n_in}] "
+                    f"apply={apply} p_pot={p_pot}")
+    gate = torch.tensor(True, device="cuda")
+    work = bits_t.clone()
+
+    def run():
+        return ops.stdp_column_event(work, col, gate, pre, u_pot, u_dep,
+                                     p_pot=LEARN_P_POT, p_dep=LEARN_P_DEP)
+
+    # one row read and written, the trace, two uniforms, index and gate
+    n_bytes = n_in * (1 + 1 + 4 + 4 + 1) + 8 + 1
+    bound_ms, bound_by = card.bound(n_bytes, 4 * n_in, F32_OPS_PER_S)
+    row = {
+        "kernel": "stdp_column_event", "shape": f"{n_out}x{n_in}",
+        "max_abs_err": err, "ms": graph_ms(run), "call_ms": call_ms(run),
+        "plain_ms": graph_ms(lambda: ops.stdp_column_event_ref(
+            bits_t, col, gate, pre, u_pot, u_dep, LEARN_P_POT, LEARN_P_DEP)),
+        "bound_ms": bound_ms, "bound_by": bound_by, "library_ms": None,
+    }
+    print("kernel_check " + json.dumps(row), flush=True)
+    kernels.append(row)
+
+
+def check_stdp_update(card, rng, n_out, n_in, kernels):
+    """stdp_update (the full-matrix rule masked by post) vs its plain
+    version."""
+    import torch
+
+    from repro_torch.kernels.stdp import ops
+
+    bits_t, pre, u_pot, u_dep = _stdp_operands(
+        rng, n_out, n_in, (n_out, n_in))
+    post = torch.from_numpy(rng.random(n_out) < 0.3).cuda()
+
+    def run():
+        return ops.stdp_update(bits_t, pre, post, u_pot, u_dep,
+                               p_pot=LEARN_P_POT, p_dep=LEARN_P_DEP)
+
+    got = run()
+    want = ops.stdp_update_ref(bits_t, pre, post, u_pot, u_dep,
+                               LEARN_P_POT, LEARN_P_DEP)
+    err = _word_err(got, want)
+    if not torch.equal(got, want):
+        raise AssertionError(f"stdp_update != plain at [{n_out}, {n_in}]")
+    n_bytes = n_out * n_in * (1 + 4 + 4 + 1) + n_in + n_out
+    bound_ms, bound_by = card.bound(n_bytes, 4 * n_out * n_in, F32_OPS_PER_S)
+    row = {
+        "kernel": "stdp_update", "shape": f"{n_out}x{n_in}",
+        "max_abs_err": err, "ms": graph_ms(run), "call_ms": call_ms(run),
+        "plain_ms": graph_ms(lambda: ops.stdp_update_ref(
+            bits_t, pre, post, u_pot, u_dep, LEARN_P_POT, LEARN_P_DEP)),
+        "bound_ms": bound_ms, "bound_by": bound_by, "library_ms": None,
     }
     print("kernel_check " + json.dumps(row), flush=True)
     kernels.append(row)
@@ -267,28 +500,49 @@ def profile_serve(net, spikes) -> None:
 
 
 class PlainForbidden:
-    """Within the block, the wrappers' plain versions raise: the path being
-    driven must go through the kernels."""
+    """Within the block, every wrapper's plain version raises: the path
+    being driven must go through the kernels.  Every launch count is set to
+    0 on entry; ``counts`` holds them all on exit."""
+
+    #: (kernel module, its plain versions that the wrappers dispatch to)
+    PLAIN = (
+        ("repro_torch.kernels.cim_popcount.ops",
+         ("esam_cascade_popcount_ref", "cim_popcount_ref",
+          "esam_layer_popcount_ref")),
+        ("repro_torch.kernels.cim_matmul_packed.ops",
+         ("esam_layer_packed_ref",)),
+        ("repro_torch.kernels.stdp.ops",
+         ("stdp_column_event_ref", "stdp_update_ref")),
+    )
 
     def __enter__(self):
-        from repro_torch.kernels.cim_popcount import ops
-
-        self.ops = ops
-        self.saved = (ops.esam_cascade_popcount_ref, ops.cim_popcount_ref)
+        import importlib
 
         def forbid(*_a, **_k):
             raise AssertionError("a plain version ran on a CUDA path")
 
-        ops.esam_cascade_popcount_ref = forbid
-        ops.cim_popcount_ref = forbid
-        ops.reset_launch_counts()
+        self.mods = [importlib.import_module(m) for m, _ in self.PLAIN]
+        self.saved = []
+        for mod, (_, names) in zip(self.mods, self.PLAIN):
+            for name in names:
+                self.saved.append((mod, name, getattr(mod, name)))
+                setattr(mod, name, forbid)
+            mod.reset_launch_counts()
         return self
 
     def __exit__(self, *exc):
-        self.counts = self.ops.launch_counts()
-        self.ops.esam_cascade_popcount_ref, self.ops.cim_popcount_ref = (
-            self.saved)
+        self.counts = {}
+        for mod in self.mods:
+            self.counts.update(mod.launch_counts())
+        for mod, name, fn in self.saved:
+            setattr(mod, name, fn)
         return False
+
+    def expect(self, what: str, want: dict) -> None:
+        """Raise unless the counts are ``want`` (kernels not named: 0)."""
+        full = {k: want.get(k, 0) for k in self.counts}
+        if self.counts != full:
+            raise AssertionError(f"{what}: launches {self.counts}, want {full}")
 
 
 def check_served(net, spikes, requests, read_ports: int) -> None:
@@ -322,6 +576,191 @@ def check_served(net, spikes, requests, read_ports: int) -> None:
             raise AssertionError(f"served {key} off by {rel:.3g} relative")
 
 
+def learning_network(device):
+    """The paper topology with the reference example's random weights:
+    ``bernoulli(fold_in(PRNGKey(0), t), 0.5)`` per tile (the port's prng),
+    hidden vth 0, readout vth 2^31-1, no offset."""
+    import torch
+
+    from repro_torch.core import prng
+    from repro_torch.core.esam.network import EsamNetwork
+
+    topo = PAPER_TOPOLOGY
+    key = prng.PRNGKey(0)
+    bits = [prng.bernoulli(prng.fold_in(key, t), 0.5,
+                           (topo[t], topo[t + 1])).to(torch.int8)
+            for t in range(len(topo) - 1)]
+    vth = [torch.zeros((n,), dtype=torch.int32) for n in topo[1:-1]]
+    vth.append(torch.full((topo[-1],), 2**31 - 1, dtype=torch.int32))
+    return EsamNetwork(bits, vth, torch.zeros((topo[-1],)), device=device)
+
+
+def train_twice(x, y, xe, ye):
+    """train_online on the card (plain versions forbidden, launches counted)
+    and on the CPU; raises unless weights, accuracies and update counts are
+    the same.  Returns (card result, CPU result, card launch counts)."""
+    import tempfile
+
+    import torch
+
+    from repro_torch.checkpoint import io as ckpt_io
+    from repro_torch.core import prng
+    from repro_torch.train.online import train_online
+
+    results = {}
+    for device in ("cuda", "cpu"):
+        net = learning_network(device)
+        with tempfile.TemporaryDirectory() as ckpt:
+            kw = dict(epochs=LEARN_EPOCHS, key=prng.PRNGKey(10),
+                      p_pot=LEARN_P_POT, p_dep=LEARN_P_DEP, eval_spikes=xe,
+                      eval_labels=ye, shuffle=True, checkpoint_dir=ckpt)
+            if device == "cuda":
+                with PlainForbidden() as guard:
+                    res = train_online(net, x, y, **kw)
+                    torch.cuda.synchronize()
+            else:
+                res = train_online(net, x, y, **kw)
+            step = ckpt_io.latest_step(ckpt)
+            saved, manifest = ckpt_io.restore(
+                {"weight_bits": res.network.weight_bits}, ckpt, step)
+        if step != LEARN_EPOCHS or not torch.equal(
+                saved["weight_bits"][-1], res.network.weight_bits[-1]):
+            raise AssertionError(f"{device}: checkpoint step {step} does not "
+                                 "hold the final readout")
+        results[device] = res
+    gpu, cpu = results["cuda"], results["cpu"]
+    if not torch.equal(gpu.network.weight_bits[-1].cpu(),
+                       cpu.network.weight_bits[-1]):
+        raise AssertionError("learned readout differs between card and CPU")
+    if gpu.accuracy != cpu.accuracy or gpu.n_updates != cpu.n_updates:
+        raise AssertionError(f"card {gpu.accuracy} {gpu.n_updates} != CPU "
+                             f"{cpu.accuracy} {cpu.n_updates}")
+    hidden = len(PAPER_TOPOLOGY) - 2
+    guard.expect("learning path", {
+        "popcount_fire": 2 * hidden,
+        "stdp_column_event": 2 * len(y) * LEARN_EPOCHS})
+    return gpu, cpu, guard.counts
+
+
+def profile_learning(net, pre, y, n: int = 512) -> None:
+    """Where a learning epoch's time goes: ``column_event_epoch`` on ``n``
+    samples under torch.profiler; device time, busy share of the same wall,
+    launches per sample."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    from repro_torch.core import prng
+    from repro_torch.core.esam import learning
+
+    bits_t = net.weight_bits[-1].T.contiguous()
+    key = prng.PRNGKey(10).cuda()
+    learning.column_event_epoch(bits_t.clone(), pre[:8], y[:8], key,
+                                p_pot=LEARN_P_POT, p_dep=LEARN_P_DEP)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        learning.column_event_epoch(bits_t, pre[:n], y[:n], key,
+                                    p_pot=LEARN_P_POT, p_dep=LEARN_P_DEP,
+                                    out_offset=net.out_offset)
+        torch.cuda.synchronize()
+        wall_s = time.perf_counter() - t0
+    on_device = [e for e in prof.key_averages()
+                 if e.device_type == torch.autograd.DeviceType.CUDA]
+    device_s = sum(e.self_device_time_total for e in on_device) / 1e6
+    launches = sum(e.count for e in on_device)
+    top = sorted(on_device, key=lambda e: -e.self_device_time_total)[:8]
+    print("learning_profile " + json.dumps({
+        "samples": n, "device_s": device_s, "profiled_wall_s": wall_s,
+        "device_busy_share": device_s / wall_s,
+        "device_launches": launches, "launches_per_sample": launches / n,
+        "top": [{"name": e.key[:60], "count": e.count,
+                 "device_ms": e.self_device_time_total / 1e3} for e in top],
+    }), flush=True)
+
+
+def learning_phase() -> dict:
+    """Phase 6; returns the launch counts of each learning path."""
+    import torch
+
+    from repro_torch.core import prng
+    from repro_torch.core.esam import learning
+    from repro_torch.data import digits
+
+    x, y = digits.make_spike_dataset(LEARN_TRAIN, seed=3)
+    xe, ye = digits.make_spike_dataset(LEARN_EVAL, seed=4)
+    gpu, cpu, counts_train = train_twice(x, y, xe, ye)
+    c4, c0 = learning.column_update_cost(4), learning.column_update_cost(0)
+    for epoch, (acc, n, sec, sec_cpu) in enumerate(zip(
+            gpu.accuracy, gpu.n_updates, gpu.epoch_s, cpu.epoch_s)):
+        print("learning_epoch " + json.dumps({
+            "epoch": epoch, "accuracy": acc, "column_updates": n,
+            "wall_s": sec, "samples_per_s": LEARN_TRAIN / sec,
+            "cpu_twin_wall_s": sec_cpu,
+            "t_4r_us": n * (c4.read_ns + c4.write_ns) * 1e-3,
+            "t_1rw_us": n * (c0.read_ns + c0.write_ns) * 1e-3,
+            "e_4r_nj": n * c4.energy_pj * 1e-3,
+            "e_1rw_nj": n * c0.energy_pj * 1e-3}), flush=True)
+    print(f"learning path: {LEARN_TRAIN} samples x {LEARN_EPOCHS} epochs, "
+          f"launches {counts_train}, accuracy {gpu.accuracy}, updates "
+          f"{gpu.n_updates}, identical to the CPU twin; column update "
+          f"1RW {c0.read_ns:.1f}/{c0.write_ns:.1f} ns, 1RW+4R "
+          f"{c4.read_ns}/{c4.write_ns} ns ({c4.speedup_read_vs_1rw:.1f}x / "
+          f"{c4.speedup_write_vs_1rw:.1f}x)", flush=True)
+
+    # online_learning_epoch through the packed prefix (fused_fire_packed)
+    out = {}
+    for device in ("cuda", "cpu"):
+        net = learning_network(device)
+        with PlainForbidden() if device == "cuda" else nullcontext() as guard:
+            t0 = time.perf_counter()
+            bits, n = learning.online_learning_epoch(
+                net.weight_bits, net.vth, x, y, prng.PRNGKey(10),
+                p_pot=LEARN_P_POT, p_dep=LEARN_P_DEP)
+            n = int(n)
+            wall = time.perf_counter() - t0
+        out[device] = (bits.cpu(), n, wall, guard)
+    if not torch.equal(out["cuda"][0], out["cpu"][0]) or (
+            out["cuda"][1] != out["cpu"][1]):
+        raise AssertionError("online_learning_epoch differs card vs CPU")
+    hidden = len(PAPER_TOPOLOGY) - 2
+    guard = out["cuda"][3]
+    guard.expect("online_learning_epoch", {
+        "fused_fire_packed": hidden, "stdp_column_event": 2 * LEARN_TRAIN})
+    counts_epoch = guard.counts
+    print(f"online_learning_epoch: {LEARN_TRAIN} samples, "
+          f"{out['cuda'][1]} column updates, wall {out['cuda'][2]:.3f} s "
+          f"(CPU twin {out['cpu'][2]:.3f} s), launches {counts_epoch}, "
+          "identical to the CPU twin", flush=True)
+
+    # the full-matrix plane with the matrix RNG (stdp_update)
+    for device in ("cuda", "cpu"):
+        net = learning_network(device)
+        pre = learning.last_hidden_spikes(net.weight_bits, net.vth,
+                                          x[:SCAN_SAMPLES])
+        with PlainForbidden() if device == "cuda" else nullcontext() as guard:
+            bits, n = learning.online_learning_epoch_scan(
+                net.weight_bits, net.vth, None, y[:SCAN_SAMPLES],
+                prng.PRNGKey(11), p_pot=LEARN_P_POT, p_dep=LEARN_P_DEP,
+                pre_spikes=pre, rng_scheme="matrix")
+            n = int(n)
+        out[device] = (bits.cpu(), n, 0.0, guard)
+    if not torch.equal(out["cuda"][0], out["cpu"][0]) or (
+            out["cuda"][1] != out["cpu"][1]):
+        raise AssertionError("online_learning_epoch_scan differs card vs CPU")
+    guard = out["cuda"][3]
+    guard.expect("scan path", {"stdp_update": 2 * SCAN_SAMPLES})
+    counts_scan = guard.counts
+    print(f"scan path (matrix RNG): {SCAN_SAMPLES} samples, {out['cuda'][1]} "
+          f"column updates, launches {counts_scan}, identical to the CPU twin",
+          flush=True)
+
+    net = learning_network("cuda")
+    pre = learning.last_hidden_spikes(net.weight_bits, net.vth, x)
+    profile_learning(net, pre, torch.as_tensor(y).cuda())
+    return {"train": counts_train, "epoch": counts_epoch, "scan": counts_scan}
+
+
 def main() -> int:
     import torch
 
@@ -330,7 +769,7 @@ def main() -> int:
               file=sys.stderr)
         return 1
     sys.path.insert(0, str(ROOT / "src"))
-    from repro_torch.kernels.cim_popcount import _build
+    from repro_torch.kernels import _build
 
     # 1. the card
     print(nvidia_smi("name,power.limit"), flush=True)
@@ -341,14 +780,16 @@ def main() -> int:
           f"popc bound rate {card.popc_per_s:.4g}/s, "
           f"memory bound rate {HBM_BYTES_PER_S:.4g} B/s", flush=True)
 
-    # 2. build
+    # 2. build: one nvcc per library, all started together
     t0 = time.perf_counter()
-    kl = _build.load_library()
-    print(f"build: {kl.path.name} nvcc {kl.build_s:.2f} s, loaded in "
-          f"{time.perf_counter() - t0:.2f} s", flush=True)
-    for line in kl.ptxas.splitlines():
-        if "registers" in line or "spill" in line or "Compiling" in line:
-            print("ptxas: " + line.strip(), flush=True)
+    reports = _build.build_all()
+    print(f"build: {len(reports)} libraries in "
+          f"{time.perf_counter() - t0:.2f} s wall", flush=True)
+    for rep in reports:
+        print(f"build: {rep.path.name} nvcc {rep.build_s:.2f} s", flush=True)
+        for line in rep.ptxas.splitlines():
+            if "registers" in line or "spill" in line or "Compiling" in line:
+                print("ptxas: " + line.strip(), flush=True)
 
     # 3. kernels vs plain, on the card
     rng = np.random.default_rng(2024)
@@ -360,6 +801,16 @@ def main() -> int:
     check_mega(card, rng, (768, 256, 10), BUCKET, mega_rows)
     check_mac(card, rng, BUCKET, 768, 10, mac_rows)
     check_mac(card, rng, 37, 100, 77, mac_rows)
+    fire_rows, packed_rows, event_rows, update_rows = [], [], [], []
+    for check, rows in ((check_fire, fire_rows),
+                        (check_packed_fire, packed_rows)):
+        check(card, rng, LEARN_TRAIN, 768, 256, rows)
+        check(card, rng, LEARN_TRAIN, 256, 256, rows)
+        check(card, rng, 1000, 777, 256, rows)
+        check(card, rng, 37, 100, 96, rows, pack_output=False)
+    for n_out, n_in in ((10, 256), (256, 768)):
+        check_column_event(card, rng, n_out, n_in, event_rows)
+        check_stdp_update(card, rng, n_out, n_in, update_rows)
 
     # 4. the main path
     from repro_torch.launch import serve as serve_mod
@@ -370,9 +821,7 @@ def main() -> int:
                               "--device", "cuda"])
     st = run.engine.stats()
     rounds = run.warm_rounds + st["rounds_static"]
-    if guard.counts["mega_cascade"] != rounds or guard.counts["popcount_mac"]:
-        raise AssertionError(f"main path launches {guard.counts}, "
-                             f"{rounds} rounds")
+    guard.expect("serving path", {"mega_cascade": rounds})
     if run.net.topology != PAPER_TOPOLOGY:
         raise AssertionError(f"served topology {run.net.topology}")
     check_served(run.net, run.spikes, run.requests, 4)
@@ -398,31 +847,49 @@ def main() -> int:
                            device="cuda")
         eng1.serve(reqs1)
     rounds1 = eng1.stats()["rounds_static"]
-    if guard.counts["popcount_mac"] != rounds1 or guard.counts["mega_cascade"]:
-        raise AssertionError(f"one-tile path launches {guard.counts}, "
-                             f"{rounds1} rounds")
+    guard.expect("one-tile path", {"popcount_mac": rounds1})
     check_served(net1, run.spikes[:1000], reqs1, 4)
     mac_launches = guard.counts["popcount_mac"]
     print(f"one-tile path: {len(reqs1)} requests, {rounds1} rounds, "
           f"launches {guard.counts}", flush=True)
 
-    # 6. the kernels at the main path's round shape, then the result
-    def line(name, replaces, row, launches):
+    # 6. the learning paths
+    learn = learning_phase()
+
+    # 7. each kernel at its path's shape, then the result
+    def line(name, source, replaces, row, launches):
         return {"name": name, "route": "cuda",
-                "source": "src/repro_torch/kernels/cim_popcount/csrc/cim_popcount.cu",
-                "replaces": replaces, "launches": launches,
+                "source": f"src/repro_torch/kernels/{source}",
+                "replaces": f"src/repro/kernels/{replaces}",
+                "launches": launches,
                 "max_abs_err": row["max_abs_err"], "ms": row["ms"],
                 "plain_ms": row["plain_ms"], "bound_ms": row["bound_ms"],
                 "bound_by": row["bound_by"], "library_ms": row["library_ms"]}
 
+    def pick(rows, shape):
+        return next(r for r in rows if r["shape"] == shape)
+
     mega_row = next(r for r in mega_rows if r["batch"] == BUCKET
                     and r["topology"] == ":".join(map(str, PAPER_TOPOLOGY)))
-    mac_row = next(r for r in mac_rows if r["shape"] == f"{BUCKET}x768->10")
+    pop_src = "cim_popcount/csrc/cim_popcount.cu"
+    stdp_src = "stdp/csrc/stdp.cu"
+    prefix_shape = f"{LEARN_TRAIN}x768->256"
     print(json.dumps({"kernels": [
-        line("mega_cascade", "src/repro/kernels/cim_popcount/kernel.py:98",
+        line("mega_cascade", pop_src, "cim_popcount/kernel.py:98",
              mega_row, mega_launches),
-        line("popcount_mac", "src/repro/kernels/cim_popcount/kernel.py:54",
-             mac_row, mac_launches),
+        line("popcount_fire", pop_src, "cim_popcount/kernel.py:74",
+             pick(fire_rows, prefix_shape),
+             learn["train"]["popcount_fire"]),
+        line("popcount_mac", pop_src, "cim_popcount/kernel.py:54",
+             pick(mac_rows, f"{BUCKET}x768->10"), mac_launches),
+        line("stdp_column_event", stdp_src, "stdp/kernel.py:75",
+             pick(event_rows, "10x256"),
+             learn["train"]["stdp_column_event"]),
+        line("stdp_update", stdp_src, "stdp/kernel.py:26",
+             pick(update_rows, "10x256"), learn["scan"]["stdp_update"]),
+        line("fused_fire_packed", "cim_matmul_packed/csrc/cim_matmul_packed.cu",
+             "cim_matmul_packed/kernel.py:66", pick(packed_rows, prefix_shape),
+             learn["epoch"]["fused_fire_packed"]),
     ]}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -189,6 +189,21 @@ def tile_geometry(n_in: int, n_out: int) -> tuple[int, int]:
     return -(-n_in // MAX_ARRAY_ROWS), -(-n_out // MAX_ARRAY_COLS)
 
 
+
+def column_update_cycles(read_ports: int, rows: int = 128) -> tuple[int, int]:
+    """(read_cycles, write_cycles) to read+write one weight column.
+
+    Without transposable multiport cells (the paper's 1RW baseline) updating
+    the synapses of one post-synaptic neuron touches every row: ``rows``
+    reads + ``rows`` writes.  With the transposed column port the column is
+    accessed through a ``COL_MUX_FACTOR``-to-1 mux: ``COL_MUX_FACTOR``
+    cycles each way (Sec 4.4.1).
+    """
+    if read_ports == 0:
+        return rows, rows
+    return COL_MUX_FACTOR, COL_MUX_FACTOR
+
+
 @dataclasses.dataclass(frozen=True)
 class RequestStats:
     """Per-request hardware cost of a batch of inferences (paper units).

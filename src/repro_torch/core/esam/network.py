@@ -69,6 +69,14 @@ class EsamNetwork(nn.Module):
             torch.tensor(np.asarray(out_offset, np.float32)),
             device=device)
 
+    def to_numpy(self) -> tuple[list[np.ndarray], list[np.ndarray], np.ndarray]:
+        """The inverse of :meth:`from_numpy`: host copies of (weight_bits
+        int8, vth int32, out_offset float32), ready for the reference's
+        ``EsamNetwork`` or another port network."""
+        return ([w.detach().cpu().numpy().copy() for w in self.weight_bits],
+                [v.detach().cpu().numpy().copy() for v in self.vth],
+                self.out_offset.detach().cpu().numpy().copy())
+
     @property
     def weight_bits(self) -> list[torch.Tensor]:
         return [getattr(self, f"weight_bits_{t}") for t in range(self._n_tiles)]
@@ -96,3 +104,4 @@ class EsamNetwork(nn.Module):
             cached = EsamPlan(self, spec)
             self._plan_cache[spec] = cached
         return cached
+

@@ -5,17 +5,22 @@ called per batch.  It hoists every operand transform out of the call — the
 ±1 decode, the weight bit planes, the cascade's stacked slabs — into a prep
 cache that is rebuilt only when a parameter tensor changes.
 
-Modes (this port carries the reference's serving modes):
+Modes (this port carries the reference's serving and learning modes):
 
 ``functional``  dense ±1 MAC cascade (bool spikes between tiles) — the oracle.
 ``packed``      the bit-packed cascade: 32-bit words on the wire, and on the
                 card the whole cascade in one CUDA launch
                 (``kernels/cim_popcount``).
+``prefix``      hidden tiles only; returns the last tile's *input* plane —
+                words from one ``popcount_fire`` launch per hidden tile when
+                every hidden width is 32-aligned, else bool spikes from the
+                dense tiles.  What the online-learning plane reuses across
+                epochs.
 
 Orthogonal flags: ``collect`` returns the inter-tile planes, ``telemetry``
 returns the per-tile arbiter loads (group popcounts straight off the wire).
-``read_ports`` is the cell option of the reference's spec (0..4); neither mode
-here depends on it.
+``read_ports`` is the cell option of the reference's spec (0..4); no mode here
+depends on it.
 """
 
 from __future__ import annotations
@@ -30,11 +35,12 @@ from repro_torch.core import packing
 from repro_torch.core.esam import arbiter as arb
 from repro_torch.core.esam import neuron as nrn
 from repro_torch.core.esam import tile as tile_mod
+from repro_torch.kernels.cim_matmul_packed import ops as packed_ops
 from repro_torch.kernels.cim_popcount import ops as pop_ops
 
-MODES = ("functional", "packed")
+MODES = ("functional", "packed", "prefix")
 #: reference modes that later slices of the port carry
-NOT_PORTED_MODES = ("prefix", "cycle", "temporal")
+NOT_PORTED_MODES = ("cycle", "temporal")
 
 
 @dataclasses.dataclass(frozen=True)
@@ -63,14 +69,35 @@ class PlanResult:
     """Outputs of one plan execution (fields populated per spec).
 
     ``planes`` carries what travels the inter-tile wire in that mode: the
-    hidden layers' output spikes (``functional``) or the tile-input packed
-    words including the network input (``packed``).  ``loads`` are int32
-    arbiter loads per tile input, ``[..., n_groups]``.
+    hidden layers' output spikes (``functional``), the tile-input packed
+    words including the network input (``packed``), or the tile inputs of
+    the hidden tiles and the prefix itself (``prefix``).  ``loads`` are int32
+    arbiter loads per tile input, ``[..., n_groups]``.  ``prefix`` is the
+    last tile's input plane (``prefix`` mode only).
     """
 
     logits: Optional[torch.Tensor] = None
     planes: Optional[tuple] = None
     loads: Optional[tuple] = None
+    prefix: Optional[torch.Tensor] = None
+
+
+def packed_prefix(weight_bits, vth, packed: torch.Tensor) -> torch.Tensor:
+    """Cascade the hidden tiles (all but the last) on the packed plane.
+
+    The learning plane's frozen prefix (``learning.last_hidden_spikes``):
+    one ``esam_layer_packed`` launch per hidden tile on the card, spike
+    words in, re-packed fired words out.  Hidden widths must be multiples
+    of 32.  Returns the last tile's input words.
+    """
+    for w in weight_bits[:-1]:
+        if w.shape[1] % packing.LANE_BITS:
+            raise ValueError("hidden width must be 32-aligned for the packed "
+                             f"plane, got {tuple(w.shape)}")
+    p = packed
+    for w, th in zip(weight_bits[:-1], vth[:-1]):
+        p = packed_ops.esam_layer_packed(p, w, th)
+    return p
 
 
 class EsamPlan:
@@ -87,13 +114,17 @@ class EsamPlan:
         self.spec = spec
         self.network = network
         self.topology = network.topology
-        if spec.mode == "packed" and any(
-                n % packing.LANE_BITS for n in self.topology[1:-1]):
+        hidden_ok = not any(n % packing.LANE_BITS for n in self.topology[1:-1])
+        if spec.mode == "packed" and not hidden_ok:
             raise ValueError(
                 f"packed plans need 32-aligned hidden widths: {self.topology}")
+        #: prefix mode runs packed when the hidden widths allow it, else the
+        #: dense functional tiles — both bit-identical
+        self.prefix_packed = spec.mode == "prefix" and hidden_ok
+        self._packed_input = spec.mode == "packed" or self.prefix_packed
         self._n_in = self.topology[0]
         self._in_width = (packing.packed_width(self._n_in)
-                          if spec.mode == "packed" else self._n_in)
+                          if self._packed_input else self._n_in)
         self._prep_key = None
         self._prep_params = None
 
@@ -102,10 +133,14 @@ class EsamPlan:
     # ------------------------------------------------------------------ #
     def _build_params(self, wb, vth, off) -> dict[str, Any]:
         params: dict[str, Any] = {"vth": vth, "out_offset": off}
-        if self.spec.mode == "functional":
+        if self.spec.mode == "functional" or (
+                self.spec.mode == "prefix" and not self.prefix_packed):
             # float32 ±1: the dense oracle's matmul operand, decoded once
             params["w_signed"] = tuple(
                 nrn.decode_bitlines(w).to(torch.float32) for w in wb)
+        elif self.spec.mode == "prefix":
+            params["w_planes"] = tuple(
+                packing.pack_weight_planes(w) for w in wb)
         else:
             planes = tuple(packing.pack_weight_planes(w) for w in wb)
             params["w_stack"], params["vth_stack"] = (
@@ -142,7 +177,7 @@ class EsamPlan:
             x = torch.as_tensor(x)
         x = x.to(self.network.device)
         lead = tuple(x.shape[:-1])
-        if self.spec.mode == "packed":
+        if self._packed_input:
             if (x.dtype == packing.WORD_DTYPE
                     and x.shape[-1] == self._in_width
                     and self._in_width != self._n_in):
@@ -160,16 +195,45 @@ class EsamPlan:
             x = x != 0
         return x.reshape(-1, x.shape[-1]).contiguous(), lead
 
+    @staticmethod
+    def _dense_prefix(ws, vth, s):
+        hidden = []
+        for w, th in zip(ws[:-1], vth[:-1]):
+            s, _ = tile_mod.functional_tile(None, s, th, w_signed=w)
+            hidden.append(s)
+        return s, hidden
+
+    @staticmethod
+    def _popcount_prefix(planes, vth, p):
+        """Per-tile popcount cascade: one ``popcount_fire`` per hidden tile."""
+        collected = [p]
+        for w, th in zip(planes[:-1], vth[:-1]):
+            p = pop_ops.esam_layer_popcount(p, w, th)
+            collected.append(p)
+        return p, collected
+
     def _run(self, params: dict[str, Any], x: torch.Tensor) -> dict:
         spec = self.spec
         vth, off = params["vth"], params["out_offset"]
         out: dict[str, Any] = {}
-        if spec.mode == "functional":
+        if spec.mode == "prefix":
+            if self.prefix_packed:
+                p, planes = self._popcount_prefix(params["w_planes"], vth, x)
+            else:
+                p, hidden = self._dense_prefix(params["w_signed"], vth, x)
+                planes = [x, *hidden]
+            out["prefix"] = p
+            if spec.collect:
+                out["planes"] = tuple(planes)
+            if spec.telemetry:
+                out["loads"] = tuple(
+                    packing.group_popcount(pl) if self.prefix_packed
+                    else arb.split_row_groups(pl.to(torch.int32)).sum(
+                        -1, dtype=torch.int32)
+                    for pl in planes)
+        elif spec.mode == "functional":
             ws = params["w_signed"]
-            s, hidden = x, []
-            for w, th in zip(ws[:-1], vth[:-1]):
-                s, _ = tile_mod.functional_tile(None, s, th, w_signed=w)
-                hidden.append(s)
+            s, hidden = self._dense_prefix(ws, vth, x)
             _, vmem = tile_mod.functional_tile(None, s, vth[-1],
                                                w_signed=ws[-1])
             out["logits"] = vmem.to(torch.float32) + off

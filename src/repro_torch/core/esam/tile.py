@@ -39,11 +39,21 @@ def functional_tile(
     """
     if w_signed is None:
         w_signed = nrn.decode_bitlines(weight_bits)
+    vmem = exact_matmul(in_spikes, w_signed).to(torch.int32)
+    return vmem >= vth, vmem
+
+
+def exact_matmul(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """``a @ b`` in full float32, exact for small-integer operands.
+
+    Integer matmul has no CUDA kernel, so integer products go through
+    float32: exact while every partial sum stays an integer below 2^24.
+    TF32 is turned off for this one product and the caller's setting is
+    restored after it.
+    """
     allow_tf32 = torch.backends.cuda.matmul.allow_tf32
     torch.backends.cuda.matmul.allow_tf32 = False
     try:
-        vmem = torch.matmul(in_spikes.to(torch.float32),
-                            w_signed.to(torch.float32)).to(torch.int32)
+        return torch.matmul(a.to(torch.float32), b.to(torch.float32))
     finally:
         torch.backends.cuda.matmul.allow_tf32 = allow_tf32
-    return vmem >= vth, vmem

@@ -1,10 +1,11 @@
 // Popcount-domain CIM MAC kernels for NVIDIA Hopper (sm_90a).
 //
-// Replaces two Pallas TPU kernels of the JAX reference:
-//   mega_cascade  <- src/repro/kernels/cim_popcount/kernel.py:98 mega_cascade_kernel
-//   popcount_mac  <- src/repro/kernels/cim_popcount/kernel.py:54 popcount_mac_kernel
+// Replaces three Pallas TPU kernels of the JAX reference:
+//   mega_cascade   <- src/repro/kernels/cim_popcount/kernel.py:98 mega_cascade_kernel
+//   popcount_fire  <- src/repro/kernels/cim_popcount/kernel.py:74 popcount_fire_kernel
+//   popcount_mac   <- src/repro/kernels/cim_popcount/kernel.py:54 popcount_mac_kernel
 //
-// Both keep spikes and weights in the 32-bit wire format (bit b of word j is
+// All three keep spikes and weights in the 32-bit wire format (bit b of word j is
 // neuron j*32+b) and compute, for +-1 weights stored as {0,1} bits,
 //
 //     V[b, n] = 2 * sum_j popc(s[b, j] & w[n, j]) - sum_j popc(s[b, j]).
@@ -36,6 +37,10 @@
 //     row's spike word is a broadcast;
 //   * geometry (tile count, widths, word counts) is a run-time argument, so
 //     one build serves every topology with 32-aligned hidden widths.
+// popcount_fire is one tile of the same datapath as its own launch (the
+// reference's `prefix` plan runs one per hidden tile): the same staging and
+// per-lane MAC, a block per (batch rows, 256 neurons) so a 4096-row batch
+// spreads over the SMs.
 // Left for later: persistent blocks, cp.async/TMA staging of the next tile
 // under the current one, an int8 tensor-core datapath.
 
@@ -59,6 +64,29 @@ struct CascadeGeometry {
 };
 
 __host__ __device__ inline int round32(int n) { return (n + 31) & ~31; }
+
+// One lane's MAC term sum_j popc(s[j] & wt[j * ld + n]): the row's spike
+// words `s` are a broadcast, the staged weights `wt` are word-major and
+// neuron-minor, so the 32 lanes of a warp read 32 consecutive words.
+__device__ __forceinline__ int and_popc(const uint32_t* s, const uint32_t* wt,
+                                        int ld, int n, int w) {
+  int acc = 0;
+  for (int j = 0; j < w; ++j) acc += __popc(s[j] & wt[j * ld + n]);
+  return acc;
+}
+
+// Stage planes rows [n0, n0 + n_rows) (row stride ldw words, `w` words each)
+// transposed into wt[j * ld + n]; rows past n_real are zero.
+__device__ __forceinline__ void stage_planes(uint32_t* wt, int ld,
+                                             const uint32_t* __restrict__ planes,
+                                             long long ldw, int n0, int n_rows,
+                                             int n_real, int w) {
+  for (int i = threadIdx.x; i < n_rows * w; i += blockDim.x) {
+    const int n = i / w, j = i - n * w;
+    wt[j * ld + n] =
+        n0 + n < n_real ? __ldg(planes + (long long)(n0 + n) * ldw + j) : 0u;
+  }
+}
 
 CascadeGeometry make_geometry(int B, int n_tiles, const int* n_out,
                               const int* w_words, int n_max_pad, int w_max) {
@@ -129,10 +157,7 @@ mega_cascade_kernel(const uint32_t* __restrict__ packed, int B,
     const uint32_t* wsrc = w_stack + (long long)t * g.n_max_pad * g.w_max;
 
     __syncthreads();  // the previous tile is done with wt; spc/cur are final
-    for (int i = tid; i < (ld - 1) * w; i += blockDim.x) {
-      const int n = i / w, j = i - n * w;
-      wt[j * ld + n] = n < n_out ? __ldg(wsrc + (long long)n * g.w_max + j) : 0u;
-    }
+    stage_planes(wt, ld, wsrc, g.w_max, 0, ld - 1, n_out, w);
     __syncthreads();
 
     const int32_t* vth = vth_stack + (long long)t * g.n_max_pad;
@@ -140,10 +165,7 @@ mega_cascade_kernel(const uint32_t* __restrict__ packed, int B,
       const int r = task / groups;
       const int grp = task - r * groups;
       const int n = (grp << 5) + lane;
-      const uint32_t* s = cur + r * g.plane_words;
-      int acc = 0;
-      for (int j = 0; j < w; ++j) acc += __popc(s[j] & wt[j * ld + n]);
-      const int v = 2 * acc - spc[r];
+      const int v = 2 * and_popc(cur + r * g.plane_words, wt, ld, n, w) - spc[r];
       const long long row = row0 + r;
       if (last) {
         if (n < n_out) logits[row * n_out + n] = v;
@@ -190,9 +212,100 @@ popcount_mac_kernel(const uint32_t* __restrict__ packed, long long lds,
   out[idx] = 2 * acc - spc;
 }
 
+// One tile's fire: grid (ceil(B / rows), ceil(N / (32 * gpb))).  A block
+// stages its gpb * 32 neurons' planes (transposed, as the cascade does) and
+// its rows' spike words in shared memory; each warp task is one (row,
+// 32-neuron group): the cascade's MAC, the IF compare, and either the
+// __ballot_sync re-pack (pack_out) or one int8 spike per lane.  Planes words
+// are ANDed in full, as the reference does, so nothing relies on their tail
+// bits being zero; spike tails are zero by the wire format.
+__global__ void __launch_bounds__(kThreads)
+popcount_fire_kernel(const uint32_t* __restrict__ packed, long long lds,
+                     const uint32_t* __restrict__ planes, long long ldw,
+                     const int32_t* __restrict__ vth, void* __restrict__ out,
+                     int B, int N, int W, int rows, int gpb, int pack_out) {
+  extern __shared__ uint32_t smem[];
+  const int ld = gpb * 32 + 1;
+  uint32_t* wt = smem;                         // [W][gpb * 32 + 1]
+  uint32_t* srow = wt + W * ld;                // [rows][W]
+  int* spc = reinterpret_cast<int*>(srow + rows * W);  // [rows]
+
+  const int lane = threadIdx.x & 31;
+  const int warp = threadIdx.x >> 5;
+  const int n_warps = blockDim.x >> 5;
+  const long long row0 = (long long)blockIdx.x * rows;
+  const int n_rows = (int)min((long long)rows, (long long)B - row0);
+  const int n0 = blockIdx.y * gpb * 32;
+  const int groups = min(gpb, (N - n0 + 31) >> 5);
+
+  stage_planes(wt, ld, planes, ldw, n0, gpb * 32, N, W);
+  for (int i = threadIdx.x; i < n_rows * W; i += blockDim.x) {
+    const int r = i / W, j = i - r * W;
+    srow[r * W + j] = __ldg(packed + (row0 + r) * lds + j);
+  }
+  __syncthreads();
+  for (int r = threadIdx.x; r < n_rows; r += blockDim.x) {
+    int c = 0;
+    for (int j = 0; j < W; ++j) c += __popc(srow[r * W + j]);
+    spc[r] = c;
+  }
+  __syncthreads();
+
+  for (int task = warp; task < n_rows * groups; task += n_warps) {
+    const int r = task / groups;
+    const int grp = task - r * groups;
+    const int n_local = (grp << 5) + lane;
+    const int n = n0 + n_local;
+    const int v = 2 * and_popc(srow + r * W, wt, ld, n_local, W) - spc[r];
+    const bool fire = n < N && v >= __ldg(vth + n);
+    const long long row = row0 + r;
+    if (pack_out) {
+      const uint32_t word = __ballot_sync(0xffffffffu, fire);
+      if (lane == 0)
+        static_cast<uint32_t*>(out)[row * (N >> 5) + (n >> 5)] = word;
+    } else if (n < N) {
+      static_cast<int8_t*>(out)[row * N + n] = fire ? 1 : 0;
+    }
+  }
+}
+
+size_t fire_smem_bytes(int W, int rows, int gpb) {
+  return sizeof(uint32_t) *
+         ((size_t)W * (gpb * 32 + 1) + (size_t)rows * W + rows);
+}
+
 }  // namespace
 
 extern "C" {
+
+// Dynamic shared memory one block of popcount_fire needs.
+long long cim_popcount_fire_smem_bytes(int W, int rows, int gpb) {
+  return (long long)fire_smem_bytes(W, rows, gpb);
+}
+
+// Fired spikes of one tile: uint32[B, N/32] words when pack_out (N % 32 == 0)
+// else int8[B, N], from packed uint32[B, W] (row stride lds words), planes
+// uint32[N, W] (row stride ldw words) and vth int32[N].  `rows` batch rows and
+// `gpb` 32-neuron groups per block.  Returns cudaGetLastError().
+int cim_popcount_fire(const void* packed, long long lds, const void* planes,
+                      long long ldw, const void* vth, void* out, int B, int N,
+                      int W, int rows, int gpb, int pack_out, void* stream) {
+  if (B < 1 || N < 1 || W < 1 || rows < 1 || gpb < 1 ||
+      (pack_out && N % 32))
+    return (int)cudaErrorInvalidValue;
+  const size_t smem = fire_smem_bytes(W, rows, gpb);
+  if (smem > 48 * 1024) {
+    const cudaError_t err = cudaFuncSetAttribute(
+        popcount_fire_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+        (int)smem);
+    if (err != cudaSuccess) return (int)err;
+  }
+  const dim3 grid((B + rows - 1) / rows, (N + 32 * gpb - 1) / (32 * gpb));
+  popcount_fire_kernel<<<grid, kThreads, smem, (cudaStream_t)stream>>>(
+      (const uint32_t*)packed, lds, (const uint32_t*)planes, ldw,
+      (const int32_t*)vth, out, B, N, W, rows, gpb, pack_out);
+  return (int)cudaGetLastError();
+}
 
 // Dynamic shared memory one block of the mega cascade needs.
 long long cim_mega_cascade_smem_bytes(int n_tiles, const int* n_out,
@@ -252,7 +365,7 @@ long long cim_max_shared_optin(int device) {
   return v;
 }
 
-const char* cim_error_string(int err) {
+const char* cim_popcount_error_string(int err) {
   return cudaGetErrorString((cudaError_t)err);
 }
 

@@ -5,8 +5,8 @@ The tensor's device picks the datapath, and nothing else does:
 * CPU tensors run the plain PyTorch versions in ``ref.py`` (public, and
   re-exported here);
 * CUDA tensors launch the hand-written kernels of
-  ``csrc/cim_popcount.cu`` (built by ``_build.py`` at first use) — a build
-  or launch failure raises, it never falls back to the plain version.
+  ``csrc/cim_popcount.cu`` (built by ``kernels/_build.py`` at first use) — a
+  build or launch failure raises, it never falls back to the plain version.
 
 Each wrapper checks dtype, shape, contiguity and device, allocates its
 outputs with ``torch.empty`` on the current stream's device, and counts its
@@ -28,8 +28,16 @@ import torch
 
 from repro_torch.core import packing
 from repro_torch.core.packing import LANE_BITS, WORD_DTYPE
-from repro_torch.kernels.common import pad_dim_to, round_up
-from repro_torch.kernels.cim_popcount import _build
+from repro_torch.kernels import _build
+from repro_torch.kernels.common import (
+    cdiv,
+    check_cuda_operands,
+    on_cpu,
+    pad_dim_to,
+    round_up,
+    sm_count,
+    stream_ptr,
+)
 from repro_torch.kernels.cim_popcount.ref import (  # noqa: F401  (re-export)
     cim_popcount_ref,
     esam_cascade_popcount_ref,
@@ -38,6 +46,7 @@ from repro_torch.kernels.cim_popcount.ref import (  # noqa: F401  (re-export)
 
 __all__ = [
     "cim_popcount_matmul",
+    "esam_layer_popcount",
     "esam_cascade_popcount",
     "stack_cascade_operands",
     "cascade_geometry",
@@ -61,8 +70,13 @@ _COL_PAD = 128
 #: by default (see ``_default_block_b``)
 CASCADE_MAX_BLOCK_B = 8
 
+#: most batch rows one block of ``popcount_fire`` carries
+FIRE_MAX_ROWS = 32
+#: most 32-neuron groups one block of ``popcount_fire`` stages
+FIRE_MAX_GROUPS = 8
+
 #: kernel launches since the last reset, per kernel
-_LAUNCHES = {"mega_cascade": 0, "popcount_mac": 0}
+_LAUNCHES = {"mega_cascade": 0, "popcount_fire": 0, "popcount_mac": 0}
 
 
 def launch_counts() -> dict[str, int]:
@@ -82,29 +96,31 @@ def _check_words(x: torch.Tensor, name: str) -> None:
         raise ValueError(f"{name}: expected 2-D words, got {tuple(x.shape)}")
 
 
-def _check_cuda(tensors: dict[str, torch.Tensor]) -> torch.device:
-    """All operands on one CUDA device; returns it."""
-    devices = {t.device for t in tensors.values()}
-    if len(devices) != 1:
-        raise ValueError(f"operands on different devices: "
-                         f"{ {k: str(t.device) for k, t in tensors.items()} }")
-    dev = devices.pop()
-    if dev.type != "cuda":
-        raise ValueError(f"unsupported device {dev} (cuda or cpu)")
-    return dev
+def _declare(lib: ctypes.CDLL) -> None:
+    vp, i32, i64 = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
+    ip = ctypes.POINTER(ctypes.c_int)
+    lib.cim_mega_cascade.argtypes = [
+        vp, i32, vp, vp, vp, vp, i32, ip, ip, i32, i32, i32, vp]
+    lib.cim_mega_cascade.restype = i32
+    lib.cim_mega_cascade_smem_bytes.argtypes = [i32, ip, ip, i32]
+    lib.cim_mega_cascade_smem_bytes.restype = i64
+    lib.cim_popcount_fire.argtypes = [
+        vp, i64, vp, i64, vp, vp, i32, i32, i32, i32, i32, i32, vp]
+    lib.cim_popcount_fire.restype = i32
+    lib.cim_popcount_fire_smem_bytes.argtypes = [i32, i32, i32]
+    lib.cim_popcount_fire_smem_bytes.restype = i64
+    lib.cim_popcount_mac.argtypes = [vp, i64, vp, i64, vp, i32, i32, i32, vp]
+    lib.cim_popcount_mac.restype = i32
+    lib.cim_max_shared_optin.argtypes = [i32]
+    lib.cim_max_shared_optin.restype = i64
 
 
-def _stream(dev: torch.device) -> ctypes.c_void_p:
-    return ctypes.c_void_p(torch.cuda.current_stream(dev).cuda_stream)
+def _library() -> _build.KernelLibrary:
+    return _build.load_library("cim_popcount", _declare)
 
 
 def _int_array(values) -> ctypes.Array:
     return (ctypes.c_int * len(values))(*values)
-
-
-@functools.lru_cache(maxsize=None)
-def _sm_count(device_index: int) -> int:
-    return torch.cuda.get_device_properties(device_index).multi_processor_count
 
 
 def _default_block_b(batch: int, device_index: int) -> int:
@@ -115,7 +131,7 @@ def _default_block_b(batch: int, device_index: int) -> int:
     blocks (and warps) in flight.  On an NVIDIA H100 80GB HBM3 (700 W
     limit) a 128-row batch ran fastest at 1 row per block and a 4096-row
     batch at 8 (chip_smoke.py's ``block_sweep`` lines)."""
-    rows = -(-batch // _sm_count(device_index))
+    rows = -(-batch // sm_count(device_index))
     return max(1, min(CASCADE_MAX_BLOCK_B, rows))
 
 
@@ -124,7 +140,7 @@ def _cascade_launch_args(topology: tuple[int, ...], device_index: int,
                          block_b: int):
     """The cascade's ctypes geometry arrays, once per launch configuration;
     raises if a block would need more shared memory than the card allows."""
-    lib = _build.load_library().lib
+    lib = _library().lib
     g = cascade_geometry(topology)
     n_out = _int_array(topology[1:])
     w_words = _int_array(g["w_words"])
@@ -152,21 +168,86 @@ def cim_popcount_matmul(packed: torch.Tensor,
     if W != W2:
         raise ValueError(f"word counts differ: {tuple(packed.shape)} vs "
                          f"{tuple(planes.shape)}")
-    if packed.device.type == "cpu" and planes.device.type == "cpu":
+    if on_cpu(packed, planes):
         return cim_popcount_ref(packed, planes)
-    dev = _check_cuda({"packed": packed, "planes": planes})
+    dev = check_cuda_operands({"packed": packed, "planes": planes})
     if packed.stride(1) != 1 or planes.stride(1) != 1:
         raise ValueError("packed and planes need contiguous words (stride 1)")
     out = torch.empty((B, N), dtype=torch.int32, device=dev)
     if B == 0:
         return out
-    kl = _build.load_library()
+    kl = _library()
     with torch.cuda.device(dev):
         err = kl.lib.cim_popcount_mac(
             packed.data_ptr(), packed.stride(0), planes.data_ptr(),
-            planes.stride(0), out.data_ptr(), B, N, W, _stream(dev))
-    _build.check(kl.lib, err, "popcount_mac launch")
+            planes.stride(0), out.data_ptr(), B, N, W, stream_ptr(dev))
+    _build.check(kl, err, "popcount_mac launch")
     _LAUNCHES["popcount_mac"] += 1
+    return out
+
+
+@functools.lru_cache(maxsize=None)
+def _fire_geometry(B: int, N: int, W: int, device_index: int):
+    """(rows, groups) per block of ``popcount_fire``: the rows spread the
+    batch over the card's SMs as the cascade does, up to ``FIRE_MAX_ROWS``;
+    the groups halve until a block's staged planes fit shared memory."""
+    lib = _library().lib
+    rows = max(1, min(FIRE_MAX_ROWS, cdiv(B, sm_count(device_index))))
+    gpb = min(FIRE_MAX_GROUPS, cdiv(N, LANE_BITS))
+    limit = lib.cim_max_shared_optin(device_index)
+    while gpb > 1 and lib.cim_popcount_fire_smem_bytes(W, rows, gpb) > limit:
+        gpb //= 2
+    smem = lib.cim_popcount_fire_smem_bytes(W, rows, gpb)
+    if limit < 0 or smem > limit:
+        raise ValueError(f"{W} input words need {smem} B of shared memory per "
+                         f"block; the card allows {limit} B")
+    return rows, gpb
+
+
+def esam_layer_popcount(
+    packed: torch.Tensor,
+    planes: torch.Tensor,
+    vth: torch.Tensor,
+    *,
+    pack_output: bool = True,
+) -> torch.Tensor:
+    """One tile's fire on the popcount plane: MAC, IF compare, re-pack.
+
+    packed: int32 words [B, W]; planes: int32 words [N, W]; vth: int32[N].
+    Returns int32 words [B, N/32] when ``pack_output`` (N must be a multiple
+    of 32), else int8 {0,1}[B, N]; V_mem never leaves the kernel.
+    """
+    _check_words(packed, "packed")
+    _check_words(planes, "planes")
+    B, W = packed.shape
+    N, W2 = planes.shape
+    if W != W2:
+        raise ValueError(f"word counts differ: {tuple(packed.shape)} vs "
+                         f"{tuple(planes.shape)}")
+    if tuple(vth.shape) != (N,):
+        raise ValueError(f"vth {tuple(vth.shape)} for {N} neurons")
+    if pack_output and N % LANE_BITS:
+        raise ValueError(f"packed output needs N % 32 == 0, got N={N}")
+    if on_cpu(packed, planes, vth):
+        return esam_layer_popcount_ref(packed, planes, vth,
+                                       pack_output=pack_output)
+    dev = check_cuda_operands({"packed": packed, "planes": planes, "vth": vth})
+    if packed.stride(1) != 1 or planes.stride(1) != 1:
+        raise ValueError("packed and planes need contiguous words (stride 1)")
+    vth = vth.to(torch.int32).contiguous()
+    out = (torch.empty((B, N // LANE_BITS), dtype=WORD_DTYPE, device=dev)
+           if pack_output else torch.empty((B, N), dtype=torch.int8, device=dev))
+    if B == 0:
+        return out
+    kl = _library()
+    rows, gpb = _fire_geometry(B, N, W, dev.index)
+    with torch.cuda.device(dev):
+        err = kl.lib.cim_popcount_fire(
+            packed.data_ptr(), packed.stride(0), planes.data_ptr(),
+            planes.stride(0), vth.data_ptr(), out.data_ptr(), B, N, W, rows,
+            gpb, int(pack_output), stream_ptr(dev))
+    _build.check(kl, err, "popcount_fire launch")
+    _LAUNCHES["popcount_fire"] += 1
     return out
 
 
@@ -254,8 +335,7 @@ def esam_cascade_popcount(
     if tuple(vth_stack.shape) != want_v or vth_stack.dtype != torch.int32:
         raise ValueError(f"vth_stack must be int32{list(want_v)}, got "
                          f"{vth_stack.dtype}{list(vth_stack.shape)}")
-    on_cpu = {t.device.type for t in (packed, w_stack, vth_stack)} == {"cpu"}
-    if on_cpu:
+    if on_cpu(packed, w_stack, vth_stack):
         planes = tuple(
             w_stack[t, : topology[t + 1], : g["w_words"][t]]
             for t in range(n_tiles))
@@ -263,7 +343,7 @@ def esam_cascade_popcount(
             vth_stack[t, : topology[t + 1]] for t in range(n_tiles - 1)
         ) + (None,)
         return esam_cascade_popcount_ref(packed, planes, vth)
-    dev = _check_cuda(
+    dev = check_cuda_operands(
         {"packed": packed, "w_stack": w_stack, "vth_stack": vth_stack})
     if n_tiles == 1:
         return (cim_popcount_matmul(
@@ -282,7 +362,7 @@ def esam_cascade_popcount(
         off += B * w
     if B == 0:
         return logits, tuple(fired)
-    kl = _build.load_library()
+    kl = _library()
     if block_b is None:
         block_b = _default_block_b(B, dev.index)
     if block_b < 1:
@@ -292,7 +372,7 @@ def esam_cascade_popcount(
         err = kl.lib.cim_mega_cascade(
             packed.data_ptr(), B, w_stack.data_ptr(), vth_stack.data_ptr(),
             logits.data_ptr(), fired_buf.data_ptr(), n_tiles, n_out, w_words,
-            g["n_max_pad"], g["w_max"], block_b, _stream(dev))
-    _build.check(kl.lib, err, "mega_cascade launch")
+            g["n_max_pad"], g["w_max"], block_b, stream_ptr(dev))
+    _build.check(kl, err, "mega_cascade launch")
     _LAUNCHES["mega_cascade"] += 1
     return logits, tuple(fired)

@@ -2,6 +2,9 @@
 
 from __future__ import annotations
 
+import ctypes
+import functools
+
 import torch
 import torch.nn.functional as F
 
@@ -51,3 +54,30 @@ def resolve_device(device="cuda") -> torch.device:
     if dev.type == "cuda" and dev.index is None:
         dev = torch.device("cuda", torch.cuda.current_device())
     return dev
+
+
+def check_cuda_operands(tensors: dict) -> torch.device:
+    """All operands on one CUDA device; returns it (raises otherwise)."""
+    devices = {t.device for t in tensors.values()}
+    if len(devices) != 1:
+        raise ValueError(f"operands on different devices: "
+                         f"{ {k: str(t.device) for k, t in tensors.items()} }")
+    dev = devices.pop()
+    if dev.type != "cuda":
+        raise ValueError(f"unsupported device {dev} (cuda or cpu)")
+    return dev
+
+
+def on_cpu(*tensors: torch.Tensor) -> bool:
+    """True when every operand lies on the CPU (the plain path)."""
+    return all(t.device.type == "cpu" for t in tensors)
+
+
+def stream_ptr(dev: torch.device) -> ctypes.c_void_p:
+    """The current stream of ``dev``, as a launcher argument."""
+    return ctypes.c_void_p(torch.cuda.current_stream(dev).cuda_stream)
+
+
+@functools.lru_cache(maxsize=None)
+def sm_count(device_index: int) -> int:
+    return torch.cuda.get_device_properties(device_index).multi_processor_count

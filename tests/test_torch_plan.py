@@ -148,7 +148,7 @@ def test_prep_cache_follows_in_place_weight_writes():
 
 
 def test_plan_spec_rejects_unported_modes():
-    for mode in ("prefix", "cycle", "temporal"):
+    for mode in ("cycle", "temporal"):
         with pytest.raises(NotImplementedError):
             PlanSpec(mode=mode)
     with pytest.raises(ValueError):
@@ -159,6 +159,74 @@ def test_plan_spec_rejects_unported_modes():
     with pytest.raises(ValueError):         # 60 hidden is not 32-aligned
         net.plan(mode="packed")
     net.plan(mode="functional")             # the dense oracle takes it
+    assert not net.plan(mode="prefix").prefix_packed   # the dense prefix
+
+
+# ----------------------------------------------------------------------- #
+# prefix mode: the learning plane's frozen hidden tiles
+# ----------------------------------------------------------------------- #
+#: (topology, telemetry): arbiter loads need 128-multiple tile inputs
+PREFIX_CASES = [(PAPER, True), ((768, 128, 10), True), ((768, 10), True),
+                ((768, 64, 10), False), ((100, 64, 96, 10), False),
+                ((70, 40, 10), False), ((100, 60, 33, 7), False)]
+
+
+def _assert_prefix_equal(ref_res, res):
+    want = np.asarray(ref_res.prefix)
+    got = (packing.words_to_np(res.prefix) if want.dtype == np.uint32
+           else res.prefix.numpy())
+    np.testing.assert_array_equal(got, want)
+    assert res.logits is None
+    for field in ("planes", "loads"):
+        w_all, g_all = getattr(ref_res, field), getattr(res, field)
+        if w_all is None:
+            assert g_all is None
+            continue
+        assert len(g_all) == len(w_all)
+        for g, w in zip(g_all, w_all):
+            w = np.asarray(w)
+            g = packing.words_to_np(g) if w.dtype == np.uint32 else g.numpy()
+            np.testing.assert_array_equal(g, w)
+
+
+@pytest.mark.parametrize("topo,telemetry_ok", PREFIX_CASES)
+def test_prefix_matches_reference(topo, telemetry_ok):
+    """Both branches — popcount_fire per hidden tile (32-aligned widths) and
+    the dense tiles (otherwise) — with collect and telemetry on and off;
+    telemetry raises in both packages where a tile input is not a multiple
+    of the 128-row group."""
+    ref, net = _pair(topo, sum(topo) + 1)
+    x = _spikes((29, topo[0]), len(topo) + 1)
+    flags = [(False, False), (True, False)]
+    if telemetry_ok:
+        flags += [(True, True), (False, True)]
+    else:
+        with pytest.raises(ValueError):
+            net.plan(mode="prefix", telemetry=True)(torch.from_numpy(x))
+    for collect, telemetry in flags:
+        want = ref.plan(mode="prefix", collect=collect, telemetry=telemetry)(
+            jnp.asarray(x))
+        plan = net.plan(mode="prefix", collect=collect, telemetry=telemetry)
+        got = plan(torch.from_numpy(x))
+        assert plan.prefix_packed == ref.plan(mode="prefix").prefix_packed
+        _assert_prefix_equal(want, got)
+
+
+def test_prefix_equals_functional_hidden_in_the_port():
+    """The packed prefix is the functional plan's last hidden plane."""
+    _, net = _pair(PAPER, 12)
+    x = torch.from_numpy(_spikes((40, 768), 13))
+    f = net.plan(mode="functional", collect=True, telemetry=True)(x)
+    res = net.plan(mode="prefix", collect=True, telemetry=True)(x)
+    assert torch.equal(packing.unpack_spikes(res.prefix, 256, torch.bool),
+                       f.planes[-1])
+    for a, b in zip(res.loads, f.loads[:-1]):
+        assert torch.equal(a, b)
+    # words in take the same path; leading dims come back
+    words = packing.pack_spikes(x).reshape(4, 10, -1)
+    got = net.plan(mode="prefix")(words).prefix
+    assert got.shape == (4, 10, 8)
+    assert torch.equal(got.reshape(40, 8), res.prefix)
 
 
 def test_network_from_reference_and_plan_cache():

@@ -82,6 +82,46 @@ def test_layer_ref_matches_jax_ref():
         np.testing.assert_array_equal(got, want)
 
 
+# the interpret-mode kernel needs N % min(128, N) == 0 (its block contract)
+FIRE_SHAPES = [(64, 768, 256), (37, 100, 96), (129, 777, 128), (1, 33, 64),
+               (200, 256, 256)]
+
+
+@pytest.mark.parametrize("B,K,N", FIRE_SHAPES)
+@pytest.mark.parametrize("pack_output", [True, False])
+def test_fire_matches_jax_kernel_and_ref(B, K, N, pack_output):
+    """esam_layer_popcount (popcount_fire's wrapper) on CPU tensors against
+    the reference's Pallas popcount_fire_kernel in interpret mode and its
+    jnp reference: odd K, ragged batches, both output forms."""
+    p, planes = _mac_operands(B + K + N, B, K, N, p=0.5)
+    vth = np.random.default_rng(K).integers(-9, 9, size=(N,), dtype=np.int32)
+    args = (jnp.asarray(p), jnp.asarray(planes), jnp.asarray(vth))
+    want = np.asarray(jops.esam_layer_popcount(
+        *args, pack_output=pack_output, use_kernel=False))
+    kern = np.asarray(jops.esam_layer_popcount(
+        *args, pack_output=pack_output, use_kernel=True, interpret=True))
+    np.testing.assert_array_equal(kern, want)
+    ops.reset_launch_counts()
+    got = ops.esam_layer_popcount(_t(p), _t(planes), torch.from_numpy(vth),
+                                  pack_output=pack_output)
+    assert ops.launch_counts()["popcount_fire"] == 0
+    got = packing.words_to_np(got) if pack_output else got.numpy()
+    np.testing.assert_array_equal(got, want)
+
+
+def test_fire_rejects_bad_operands():
+    p, planes = _mac_operands(1, 4, 64, 48)
+    vth = torch.zeros(48, dtype=torch.int32)
+    with pytest.raises(ValueError):   # packed output needs 32 | N
+        ops.esam_layer_popcount(_t(p), _t(planes), vth)
+    with pytest.raises(ValueError):
+        ops.esam_layer_popcount(_t(p), _t(planes), vth[:40],
+                                pack_output=False)
+    with pytest.raises(ValueError):
+        ops.esam_layer_popcount(_t(p)[:, :1], _t(planes), vth,
+                                pack_output=False)
+
+
 # ----------------------------------------------------------------------- #
 # the cascade
 # ----------------------------------------------------------------------- #
@@ -209,7 +249,9 @@ def test_no_plain_fallback_off_the_cpu():
         ops.cim_popcount_matmul(_t(x), _t(planes[0]).to(meta))
     # the plain path launches nothing
     ops.esam_cascade_popcount(_t(x), w_stack, vth_stack, topology=topo)
-    assert ops.launch_counts() == {"mega_cascade": 0, "popcount_mac": 0}
+    ops.esam_layer_popcount(_t(x), _t(planes[0]), torch.from_numpy(vth[0]))
+    assert ops.launch_counts() == {"mega_cascade": 0, "popcount_fire": 0,
+                                   "popcount_mac": 0}
 
 
 # ----------------------------------------------------------------------- #
@@ -249,4 +291,22 @@ def test_cuda_mac_matches_plain(cuda, B, K, N):
     got = ops.cim_popcount_matmul(_t(p).to(cuda), _t(planes).to(cuda))
     assert ops.launch_counts()["popcount_mac"] == 1
     want = ops.cim_popcount_ref(_t(p).to(cuda), _t(planes).to(cuda))
+    assert torch.equal(got, want)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("B,K,N", FIRE_SHAPES + [(4096, 768, 256),
+                                                 (1000, 777, 256),
+                                                 (5, 40000, 64)])
+@pytest.mark.parametrize("pack_output", [True, False])
+def test_cuda_fire_matches_plain(cuda, B, K, N, pack_output):
+    p, planes = _mac_operands(B + K, B, K, N, p=0.5)
+    vth = torch.from_numpy(np.random.default_rng(N).integers(
+        -9, 9, size=(N,), dtype=np.int32)).to(cuda)
+    ops.reset_launch_counts()
+    got = ops.esam_layer_popcount(_t(p).to(cuda), _t(planes).to(cuda), vth,
+                                  pack_output=pack_output)
+    assert ops.launch_counts()["popcount_fire"] == 1
+    want = ops.esam_layer_popcount_ref(_t(p).to(cuda), _t(planes).to(cuda),
+                                       vth, pack_output=pack_output)
     assert torch.equal(got, want)
