@@ -26,7 +26,13 @@ Phases; any failure raises, so the exit code is non-zero:
    ``learning.online_learning_epoch`` through the packed prefix
    (``fused_fire_packed``) and ``online_learning_epoch_scan`` with the matrix
    RNG (``stdp_update``), each against its CPU twin;
-7. one JSON line of the kernels, then the result line.
+7. the cycle plane: the quickstart twin (``repro_torch.launch.quickstart``:
+   BNN -> SNN -> packed plan -> cycle plan at 4 ports -> Fig 8) at the paper
+   topology, one ``port_schedule`` launch per tile; the measured Fig 8 sweep
+   (``port_sweep`` over cell options 0-4 on 4096 digits, 16 launches), its
+   traces and system stats held against its CPU twin; the per-cycle V_mem
+   trace at 1 and 4 ports on 256 digits against its CPU twin;
+8. one JSON line of the kernels, then the result line.
 
 It needs a CUDA device and exits non-zero without one.
 """
@@ -63,6 +69,14 @@ LEARN_TRAIN, LEARN_EVAL, LEARN_EPOCHS = 4096, 1024, 3
 LEARN_P_POT, LEARN_P_DEP = 0.2, 0.1
 #: samples of the matrix-RNG scan path (two stdp_update launches each)
 SCAN_SAMPLES = 64
+
+#: the cycle plane: digits of the measured Fig 8 sweep (the twin of
+#: benchmarks/bench_system.py's measured sweep) and of the V_mem trace
+SWEEP_DIGITS, TRACE_DIGITS = 4096, 256
+#: cell options of the sweep and the port counts they simulate (0 and 1 share)
+SWEEP_OPTIONS = tuple(range(5))
+SWEEP_PORT_COUNTS = (1, 2, 3, 4)
+ROW_GROUP = 128
 
 
 def nvidia_smi(query: str, units: bool = True) -> str:
@@ -466,6 +480,58 @@ def check_stdp_update(card, rng, n_out, n_in, kernels):
     kernels.append(row)
 
 
+def _requests(rng, n: int, fill: str):
+    """{0,1} request rows [n, 128] on the card: random at p=0.5, or all
+    zeros, or all ones."""
+    import torch
+
+    if fill == "zeros":
+        return torch.zeros((n, ROW_GROUP), dtype=torch.bool, device="cuda")
+    if fill == "ones":
+        return torch.ones((n, ROW_GROUP), dtype=torch.bool, device="cuda")
+    return torch.from_numpy(rng.random((n, ROW_GROUP)) < 0.5).cuda()
+
+
+def check_arbiter(card, rng, name, n, ports, kernels, fill="random"):
+    """port_schedule or arbiter vs its plain version on the card, bit for
+    bit (values and dtypes), timed against its bound."""
+    import torch
+
+    from repro_torch.kernels.arbiter import ops
+
+    fn, ref = ((ops.port_schedule, ops.port_schedule_ref)
+               if name == "port_schedule" else (ops.arbiter, ops.arbiter_ref))
+    r = _requests(rng, n, fill)
+
+    def run():
+        return fn(r, ports=ports)
+
+    got, want = run(), ref(r, ports)
+    torch.cuda.synchronize()
+    err = max(_word_err(a, b) for a, b in zip(got, want))
+    if err or not all(a.dtype == b.dtype and torch.equal(a, b)
+                      for a, b in zip(got, want)):
+        raise AssertionError(f"{name} != plain at [{n}, {ROW_GROUP}] "
+                             f"p={ports} {fill}: max_abs_err={err}")
+    # each request byte read once, each output written once; two popcs a
+    # lane and 32-lane sub-block (its rank and its sub-block's total)
+    lanes = n * ROW_GROUP
+    if name == "port_schedule":
+        n_bytes = lanes + 4 * lanes + 4 * n * -(-ROW_GROUP // ports)
+    else:
+        n_bytes = lanes + ports * lanes + lanes + n * ports
+    bound_ms, bound_by = card.bound(n_bytes, 2 * lanes)
+    row = {
+        "kernel": name, "shape": f"{n}x{ROW_GROUP}", "ports": ports,
+        "fill": fill, "max_abs_err": err,
+        "ms": graph_ms(run), "call_ms": call_ms(run),
+        "plain_ms": graph_ms(lambda: ref(r, ports)),
+        "bound_ms": bound_ms, "bound_by": bound_by, "library_ms": None,
+    }
+    print("kernel_check " + json.dumps(row), flush=True)
+    kernels.append(row)
+
+
 def profile_serve(net, spikes) -> None:
     """Where a drain's time goes on the device: the main path's traffic
     served once more under torch.profiler; prints device time per kernel
@@ -513,6 +579,8 @@ class PlainForbidden:
          ("esam_layer_packed_ref",)),
         ("repro_torch.kernels.stdp.ops",
          ("stdp_column_event_ref", "stdp_update_ref")),
+        ("repro_torch.kernels.arbiter.ops",
+         ("port_schedule_ref", "arbiter_ref")),
     )
 
     def __enter__(self):
@@ -576,22 +644,24 @@ def check_served(net, spikes, requests, read_ports: int) -> None:
             raise AssertionError(f"served {key} off by {rel:.3g} relative")
 
 
-def learning_network(device):
-    """The paper topology with the reference example's random weights:
-    ``bernoulli(fold_in(PRNGKey(0), t), 0.5)`` per tile (the port's prng),
-    hidden vth 0, readout vth 2^31-1, no offset."""
+def paper_network(device, seed: int = 0, readout_vth: int = 2**31 - 1):
+    """The paper topology with the reference's random test weights:
+    ``bernoulli(fold_in(PRNGKey(seed), t), 0.5)`` per tile (the port's
+    prng), hidden vth 0, the readout's ``readout_vth``, no offset.  Seed 0
+    and a readout that never fires are the learning example's network;
+    seed 1 and readout vth 0 are ``bench_system``'s measured sweep's."""
     import torch
 
     from repro_torch.core import prng
     from repro_torch.core.esam.network import EsamNetwork
 
     topo = PAPER_TOPOLOGY
-    key = prng.PRNGKey(0)
+    key = prng.PRNGKey(seed)
     bits = [prng.bernoulli(prng.fold_in(key, t), 0.5,
                            (topo[t], topo[t + 1])).to(torch.int8)
             for t in range(len(topo) - 1)]
     vth = [torch.zeros((n,), dtype=torch.int32) for n in topo[1:-1]]
-    vth.append(torch.full((topo[-1],), 2**31 - 1, dtype=torch.int32))
+    vth.append(torch.full((topo[-1],), readout_vth, dtype=torch.int32))
     return EsamNetwork(bits, vth, torch.zeros((topo[-1],)), device=device)
 
 
@@ -609,7 +679,7 @@ def train_twice(x, y, xe, ye):
 
     results = {}
     for device in ("cuda", "cpu"):
-        net = learning_network(device)
+        net = paper_network(device)
         with tempfile.TemporaryDirectory() as ckpt:
             kw = dict(epochs=LEARN_EPOCHS, key=prng.PRNGKey(10),
                       p_pot=LEARN_P_POT, p_dep=LEARN_P_DEP, eval_spikes=xe,
@@ -711,7 +781,7 @@ def learning_phase() -> dict:
     # online_learning_epoch through the packed prefix (fused_fire_packed)
     out = {}
     for device in ("cuda", "cpu"):
-        net = learning_network(device)
+        net = paper_network(device)
         with PlainForbidden() if device == "cuda" else nullcontext() as guard:
             t0 = time.perf_counter()
             bits, n = learning.online_learning_epoch(
@@ -735,7 +805,7 @@ def learning_phase() -> dict:
 
     # the full-matrix plane with the matrix RNG (stdp_update)
     for device in ("cuda", "cpu"):
-        net = learning_network(device)
+        net = paper_network(device)
         pre = learning.last_hidden_spikes(net.weight_bits, net.vth,
                                           x[:SCAN_SAMPLES])
         with PlainForbidden() if device == "cuda" else nullcontext() as guard:
@@ -755,10 +825,183 @@ def learning_phase() -> dict:
           f"column updates, launches {counts_scan}, identical to the CPU twin",
           flush=True)
 
-    net = learning_network("cuda")
+    net = paper_network("cuda")
     pre = learning.last_hidden_spikes(net.weight_bits, net.vth, x)
     profile_learning(net, pre, torch.as_tensor(y).cuda())
     return {"train": counts_train, "epoch": counts_epoch, "scan": counts_scan}
+
+
+def _traces_equal(got, want) -> bool:
+    """TileTraces on the card against their CPU twins, every field: dtype,
+    shape and values."""
+    import torch
+
+    return len(got) == len(want) and all(
+        a.dtype == b.dtype and torch.equal(a.cpu(), b)
+        for g, w in zip(got, want) for a, b in zip(g, w))
+
+
+def quickstart_phase() -> dict:
+    """The quickstart twin on the card: its launches, its cycle plan against
+    the functional plan and the cost model's drain, and the whole network
+    against its CPU twin."""
+    import torch
+
+    from repro_torch.core.esam.network import EsamNetwork
+    from repro_torch.launch import quickstart
+
+    with PlainForbidden() as guard:
+        t0 = time.perf_counter()
+        run = quickstart.main(["--device", "cuda"])
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    guard.expect("quickstart", {"port_schedule": len(PAPER_TOPOLOGY) - 1,
+                                "mega_cascade": 1})
+    if run.net.topology != PAPER_TOPOLOGY or not run.packed_equal:
+        raise AssertionError(f"quickstart: topology {run.net.topology}, "
+                             f"packed == functional {run.packed_equal}")
+    if not torch.equal(run.sample_logits, run.logits[0]):
+        raise AssertionError("cycle plan logits differ from the functional "
+                             "plan's")
+    drains = [int(np.ceil(ld[0].cpu().numpy() / 4).max()) for ld in run.loads]
+    if run.cycles != drains:
+        raise AssertionError(f"cycles per tile {run.cycles} != max "
+                             f"ceil(load / 4) {drains}")
+    if not run.snn_accuracy > 0.8:
+        raise AssertionError(f"SNN accuracy {run.snn_accuracy} <= 0.8")
+    # the converted network on the CPU: same logits, loads and traces
+    cpu = EsamNetwork.from_numpy(*run.net.to_numpy(), device="cpu")
+    res = cpu.plan(mode="functional", telemetry=True)(
+        torch.from_numpy(run.spikes != 0))
+    one = cpu.plan(mode="cycle", read_ports=4)(
+        torch.from_numpy(run.spikes[0] != 0))
+    if not (torch.equal(res.logits, run.logits.cpu())
+            and all(torch.equal(a, b.cpu())
+                    for a, b in zip(res.loads, run.loads))
+            and _traces_equal(run.traces, one.traces)):
+        raise AssertionError("quickstart network differs card vs CPU")
+    print("quickstart " + json.dumps({
+        "bnn_accuracy": run.bnn_accuracy, "snn_accuracy": run.snn_accuracy,
+        "cycles_per_tile": run.cycles, "wall_s": wall,
+        "speedup_ref": run.speedup, "energy_eff_ref": run.energy_eff,
+        "fig8_measured": [{"cell": st.cell,
+                           "minf_s": st.throughput_inf_s / 1e6,
+                           "pj_per_inf": st.energy_pj_per_inf,
+                           "mw": st.power_mw} for st in run.fig8],
+        "launches": guard.counts}), flush=True)
+    return guard.counts
+
+
+def profile_sweep(net, spikes) -> None:
+    """Where the sweep's time goes: one more ``port_sweep`` under
+    torch.profiler; device time per kernel and the device's busy share of
+    that same profiled call's wall time (profiler overhead included)."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        net.port_sweep(spikes, SWEEP_OPTIONS)
+        torch.cuda.synchronize()
+        wall_s = time.perf_counter() - t0
+    on_device = [e for e in prof.key_averages()
+                 if e.device_type == torch.autograd.DeviceType.CUDA]
+    device_s = sum(e.self_device_time_total for e in on_device) / 1e6
+    top = sorted(on_device, key=lambda e: -e.self_device_time_total)[:10]
+    print("sweep_profile " + json.dumps({
+        "digits": int(spikes.shape[0]), "device_s": device_s,
+        "profiled_wall_s": wall_s, "device_busy_share": device_s / wall_s,
+        "device_launches": sum(e.count for e in on_device),
+        "top": [{"name": e.key[:60], "count": e.count,
+                 "device_ms": e.self_device_time_total / 1e3} for e in top],
+    }), flush=True)
+
+
+def cycle_phase() -> dict:
+    """Phase 7; returns the launch counts of each cycle-plane path."""
+    import dataclasses
+
+    import torch
+
+    from repro_torch.core.esam.network import system_stats
+    from repro_torch.data import digits
+
+    counts = {"quickstart": quickstart_phase()}
+
+    # the measured Fig 8 sweep, on the card and on the CPU
+    x, _ = digits.make_spike_dataset(SWEEP_DIGITS, seed=3)
+    spikes = torch.from_numpy(x != 0)
+    out = {}
+    for device in ("cuda", "cpu"):
+        net = paper_network(device, seed=1, readout_vth=0)
+        s = spikes.to(device)
+        with PlainForbidden() if device == "cuda" else nullcontext() as guard:
+            t0 = time.perf_counter()
+            sweep = net.port_sweep(s, SWEEP_OPTIONS)
+            if device == "cuda":
+                torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        net.port_sweep(s, SWEEP_OPTIONS)
+        if device == "cuda":
+            torch.cuda.synchronize()
+        warm = time.perf_counter() - t0
+        func = net.plan(mode="functional")(s).logits
+        for p in SWEEP_OPTIONS:
+            if not torch.equal(sweep[p][0], func):
+                raise AssertionError(f"{device} sweep option {p}: logits "
+                                     "differ from the functional plan's")
+        act = net.measured_activity(x, traces=sweep[4][1])
+        stats = [system_stats(PAPER_TOPOLOGY, act, p) for p in SWEEP_OPTIONS]
+        out[device] = (net, sweep, stats, wall, warm, guard)
+    gpu, cpu = out["cuda"], out["cpu"]
+    gpu[5].expect("sweep", {
+        "port_schedule": len(SWEEP_PORT_COUNTS) * (len(PAPER_TOPOLOGY) - 1)})
+    counts["sweep"] = gpu[5].counts
+    for p in SWEEP_OPTIONS:
+        if not (torch.equal(gpu[1][p][0].cpu(), cpu[1][p][0])
+                and _traces_equal(gpu[1][p][1], cpu[1][p][1])):
+            raise AssertionError(f"sweep option {p} differs card vs CPU")
+    if [dataclasses.asdict(a) for a in gpu[2]] != [
+            dataclasses.asdict(b) for b in cpu[2]]:
+        raise AssertionError("system stats differ card vs CPU")
+    print("sweep " + json.dumps({
+        "digits": SWEEP_DIGITS, "options": list(SWEEP_OPTIONS),
+        "wall_s": gpu[3], "warm_wall_s": gpu[4], "cpu_twin_wall_s": cpu[3],
+        "cpu_twin_warm_wall_s": cpu[4], "launches": counts["sweep"],
+        "fig8_measured": [{"cell": st.cell,
+                           "cycles_per_tile": st.cycles_per_tile,
+                           "minf_s": st.throughput_inf_s / 1e6,
+                           "pj_per_inf": st.energy_pj_per_inf,
+                           "mw": st.power_mw} for st in gpu[2]],
+        "speedup_4r": gpu[2][4].throughput_inf_s / gpu[2][0].throughput_inf_s,
+        "energy_eff_4r": gpu[2][0].energy_pj_per_inf
+        / gpu[2][4].energy_pj_per_inf}), flush=True)
+    profile_sweep(gpu[0], spikes.cuda())
+
+    # the per-cycle V_mem trace at 1 and 4 ports, against the CPU twin
+    sub = spikes[:TRACE_DIGITS]
+    with PlainForbidden() as guard:
+        got = {p: gpu[0].plan(mode="cycle", read_ports=p,
+                              record_vmem_trace=True)(sub.cuda())
+               for p in (1, 4)}
+        torch.cuda.synchronize()
+    guard.expect("trace", {"port_schedule": 2 * (len(PAPER_TOPOLOGY) - 1)})
+    counts["trace"] = guard.counts
+    for p in (1, 4):
+        want = cpu[0].plan(mode="cycle", read_ports=p,
+                           record_vmem_trace=True)(sub)
+        if not (torch.equal(got[p].logits.cpu(), want.logits)
+                and _traces_equal(got[p].traces, want.traces)):
+            raise AssertionError(f"V_mem trace at p={p} differs card vs CPU")
+    print(f"trace: {TRACE_DIGITS} digits at 1 and 4 ports, per-cycle V_mem "
+          f"{tuple(got[1].traces[0].vmem_trace.shape)} and "
+          f"{tuple(got[4].traces[0].vmem_trace.shape)} on tile 0, "
+          f"launches {counts['trace']}, identical to the CPU twin",
+          flush=True)
+    return counts
 
 
 def main() -> int:
@@ -811,6 +1054,17 @@ def main() -> int:
     for n_out, n_in in ((10, 256), (256, 768)):
         check_column_event(card, rng, n_out, n_in, event_rows)
         check_stdp_update(card, rng, n_out, n_in, update_rows)
+    arbiter_rows = []
+    for name in ("port_schedule", "arbiter"):
+        for n in (SWEEP_DIGITS * 6, 8192):
+            for ports in (1, 2, 3, 4):
+                check_arbiter(card, rng, name, n, ports, arbiter_rows)
+        for n in (1, 7, 1000):
+            check_arbiter(card, rng, name, n, 4, arbiter_rows)
+        for fill in ("zeros", "ones"):
+            for ports in (3, 4):
+                check_arbiter(card, rng, name, 8192, ports, arbiter_rows,
+                              fill=fill)
 
     # 4. the main path
     from repro_torch.launch import serve as serve_mod
@@ -856,7 +1110,10 @@ def main() -> int:
     # 6. the learning paths
     learn = learning_phase()
 
-    # 7. each kernel at its path's shape, then the result
+    # 7. the cycle plane
+    cyc = cycle_phase()
+
+    # 8. each kernel at its path's shape, then the result
     def line(name, source, replaces, row, launches):
         return {"name": name, "route": "cuda",
                 "source": f"src/repro_torch/kernels/{source}",
@@ -868,6 +1125,12 @@ def main() -> int:
 
     def pick(rows, shape):
         return next(r for r in rows if r["shape"] == shape)
+
+    def pick_arbiter(name):
+        """The sweep's first tile: 4096 digits x 6 row groups, 4 ports."""
+        return next(r for r in arbiter_rows if r["kernel"] == name
+                    and r["shape"] == f"{SWEEP_DIGITS * 6}x{ROW_GROUP}"
+                    and r["ports"] == 4 and r["fill"] == "random")
 
     mega_row = next(r for r in mega_rows if r["batch"] == BUCKET
                     and r["topology"] == ":".join(map(str, PAPER_TOPOLOGY)))
@@ -890,6 +1153,10 @@ def main() -> int:
         line("fused_fire_packed", "cim_matmul_packed/csrc/cim_matmul_packed.cu",
              "cim_matmul_packed/kernel.py:66", pick(packed_rows, prefix_shape),
              learn["epoch"]["fused_fire_packed"]),
+        line("port_schedule", "arbiter/csrc/arbiter.cu", "arbiter/kernel.py:51",
+             pick_arbiter("port_schedule"), cyc["sweep"]["port_schedule"]),
+        line("arbiter", "arbiter/csrc/arbiter.cu", "arbiter/kernel.py:33",
+             pick_arbiter("arbiter"), cyc["sweep"]["arbiter"]),
     ]}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -184,10 +184,32 @@ def cell_spec(read_ports: int) -> CellSpec:
 ALL_CELLS = tuple(cell_spec(p) for p in range(5))
 
 
+def array_area_um2(read_ports: int, rows: int = 128, cols: int = 128) -> float:
+    """Cell-array area (um^2) for one SRAM array."""
+    return CELL_AREA_6T_UM2 * CELL_AREA_RATIO[read_ports] * rows * cols
+
+
 def tile_geometry(n_in: int, n_out: int) -> tuple[int, int]:
     """(row groups, column groups) of 128x128 arrays for an n_in x n_out tile."""
     return -(-n_in // MAX_ARRAY_ROWS), -(-n_out // MAX_ARRAY_COLS)
 
+
+def spare_column_area_um2(
+    topology: Sequence[int], spare_cols: int, read_ports: int
+) -> float:
+    """Area overhead (um^2) of ``spare_cols`` redundant columns per tile.
+
+    Each spare column spans every 128-row group of its tile, at the chosen
+    cell option's area ratio.  Only cell area is charged — a column remap is
+    a build-time address swizzle, so the arbiter/neuron periphery is
+    unchanged.
+    """
+    area = 0.0
+    per_cell = CELL_AREA_6T_UM2 * CELL_AREA_RATIO[read_ports]
+    for t in range(len(topology) - 1):
+        n_groups, _ = tile_geometry(topology[t], topology[t + 1])
+        area += n_groups * MAX_ARRAY_ROWS * spare_cols * per_cell
+    return area
 
 
 def column_update_cycles(read_ports: int, rows: int = 128) -> tuple[int, int]:

@@ -5,7 +5,7 @@ called per batch.  It hoists every operand transform out of the call — the
 ±1 decode, the weight bit planes, the cascade's stacked slabs — into a prep
 cache that is rebuilt only when a parameter tensor changes.
 
-Modes (this port carries the reference's serving and learning modes):
+Modes (this port carries every reference mode but ``temporal``):
 
 ``functional``  dense ±1 MAC cascade (bool spikes between tiles) — the oracle.
 ``packed``      the bit-packed cascade: 32-bit words on the wire, and on the
@@ -16,11 +16,18 @@ Modes (this port carries the reference's serving and learning modes):
                 every hidden width is 32-aligned, else bool spikes from the
                 dense tiles.  What the online-learning plane reuses across
                 epochs.
+``cycle``       the rank-schedule cycle-accurate plane: per tile one
+                ``port_schedule`` launch on the card (``kernels/arbiter``)
+                and a ``TileTrace``; with a tuple of cell options in
+                ``read_ports`` it is the full Fig 8 port sweep, options that
+                share an effective port count (0 and 1) sharing one
+                simulation.
 
-Orthogonal flags: ``collect`` returns the inter-tile planes, ``telemetry``
-returns the per-tile arbiter loads (group popcounts straight off the wire).
-``read_ports`` is the cell option of the reference's spec (0..4); no mode here
-depends on it.
+Orthogonal flags: ``collect`` returns the inter-tile planes (cycle plans
+ignore it: their traces hold every tile's spikes), ``telemetry`` returns
+the per-tile arbiter loads (group popcounts straight off the wire).
+``read_ports`` is the cell option (0..4); only ``cycle`` mode depends on it.
+``record_vmem_trace`` adds the per-cycle V_mem history to cycle traces.
 """
 
 from __future__ import annotations
@@ -38,9 +45,9 @@ from repro_torch.core.esam import tile as tile_mod
 from repro_torch.kernels.cim_matmul_packed import ops as packed_ops
 from repro_torch.kernels.cim_popcount import ops as pop_ops
 
-MODES = ("functional", "packed", "prefix")
+MODES = ("functional", "packed", "prefix", "cycle")
 #: reference modes that later slices of the port carry
-NOT_PORTED_MODES = ("cycle", "temporal")
+NOT_PORTED_MODES = ("temporal",)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -50,7 +57,10 @@ class PlanSpec:
     mode: str = "packed"
     collect: bool = False
     telemetry: bool = False
-    read_ports: int = 4
+    #: cell option(s).  An int for a single plan; a tuple of cell options
+    #: turns ``cycle`` mode into the port sweep.
+    read_ports: int | tuple[int, ...] = 4
+    record_vmem_trace: bool = False
 
     def __post_init__(self):
         if self.mode in NOT_PORTED_MODES:
@@ -58,10 +68,17 @@ class PlanSpec:
                 f"mode={self.mode!r} is not ported to repro_torch yet")
         if self.mode not in MODES:
             raise ValueError(f"mode {self.mode!r} not in {MODES}")
-        if not isinstance(self.read_ports, int) or isinstance(
-                self.read_ports, bool):
-            raise TypeError("read_ports must be an int (port sweeps need "
-                            "cycle mode, which is not ported yet)")
+        options = self.read_ports
+        if isinstance(options, tuple):
+            if self.mode != "cycle":
+                raise TypeError("a tuple of read_ports (a port sweep) needs "
+                                "mode='cycle'")
+        else:
+            options = (options,)
+        if not options or any(not isinstance(o, int) or isinstance(o, bool)
+                              for o in options):
+            raise TypeError(f"read_ports must be an int or a non-empty tuple "
+                            f"of ints, got {self.read_ports!r}")
 
 
 @dataclasses.dataclass
@@ -73,13 +90,17 @@ class PlanResult:
     words including the network input (``packed``), or the tile inputs of
     the hidden tiles and the prefix itself (``prefix``).  ``loads`` are int32
     arbiter loads per tile input, ``[..., n_groups]``.  ``prefix`` is the
-    last tile's input plane (``prefix`` mode only).
+    last tile's input plane (``prefix`` mode only).  ``traces`` holds one
+    ``TileTrace`` per tile (``cycle`` mode, one cell option); ``sweep`` maps
+    each cell option of a sweep to ``{"logits", "traces"}``.
     """
 
     logits: Optional[torch.Tensor] = None
     planes: Optional[tuple] = None
     loads: Optional[tuple] = None
+    traces: Optional[tuple] = None
     prefix: Optional[torch.Tensor] = None
+    sweep: Optional[dict] = None
 
 
 def packed_prefix(weight_bits, vth, packed: torch.Tensor) -> torch.Tensor:
@@ -131,11 +152,19 @@ class EsamPlan:
     # ------------------------------------------------------------------ #
     # operand prep: decode / bit-slice once, serve every batch
     # ------------------------------------------------------------------ #
+    def _cycle_port_options(self) -> tuple[int, ...]:
+        """The effective port counts a cycle plan simulates (the 1RW cell,
+        option 0, reads through its one RW port like option 1)."""
+        rp = self.spec.read_ports
+        options = rp if isinstance(rp, tuple) else (rp,)
+        return tuple(sorted({max(1, int(o)) for o in options}))
+
     def _build_params(self, wb, vth, off) -> dict[str, Any]:
         params: dict[str, Any] = {"vth": vth, "out_offset": off}
-        if self.spec.mode == "functional" or (
+        if self.spec.mode in ("functional", "cycle") or (
                 self.spec.mode == "prefix" and not self.prefix_packed):
-            # float32 ±1: the dense oracle's matmul operand, decoded once
+            # float32 ±1: the dense matmul operand, decoded once (a cycle
+            # plan shares it across every port count of its sweep)
             params["w_signed"] = tuple(
                 nrn.decode_bitlines(w).to(torch.float32) for w in wb)
         elif self.spec.mode == "prefix":
@@ -244,7 +273,7 @@ class EsamPlan:
                     arb.split_row_groups(si.to(torch.int32)).sum(
                         -1, dtype=torch.int32)
                     for si in [x, *hidden])
-        else:
+        elif spec.mode == "packed":
             vmem, fired = pop_ops.esam_cascade_popcount(
                 x, params["w_stack"], params["vth_stack"],
                 topology=self.topology)
@@ -254,12 +283,46 @@ class EsamPlan:
                 out["planes"] = planes
             if spec.telemetry:
                 out["loads"] = tuple(packing.group_popcount(p) for p in planes)
+        else:  # cycle: one simulation per effective port count
+            by_ports: dict[int, dict] = {}
+            for ports in self._cycle_port_options():
+                traces, s = [], x
+                for w, th in zip(params["w_signed"], vth):
+                    tr = tile_mod.simulate_tile_batch(
+                        None, s, th, ports, spec.record_vmem_trace,
+                        w_signed=w)
+                    traces.append(tr)
+                    s = tr.out_spikes
+                by_ports[ports] = {
+                    "logits": traces[-1].vmem_final.to(torch.float32) + off,
+                    "traces": tuple(traces)}
+            rp = spec.read_ports
+            if isinstance(rp, tuple):
+                out["sweep"] = {int(o): by_ports[max(1, o)] for o in rp}
+            else:
+                out.update(by_ports[max(1, rp)])
+            if spec.telemetry:
+                # every port count drains the same spikes
+                traces = next(iter(by_ports.values()))["traces"]
+                out["loads"] = tuple(
+                    arb.split_row_groups(si.to(torch.int32)).sum(
+                        -1, dtype=torch.int32)
+                    for si in [x, *(tr.out_spikes for tr in traces[:-1])])
         return out
 
     def __call__(self, x) -> PlanResult:
         x, lead = self._normalize(x)
         out = self._run(self._prepare(), x)
-        return PlanResult(**{
-            k: (v.reshape(lead + v.shape[1:]) if isinstance(v, torch.Tensor)
-                else tuple(a.reshape(lead + a.shape[1:]) for a in v))
-            for k, v in out.items()})
+        return PlanResult(**{k: _with_lead(v, lead) for k, v in out.items()})
+
+
+def _with_lead(v, lead: tuple[int, ...]):
+    """Reshape the flat batch axis of every tensor in ``v`` back to the
+    caller's leading dims (tensors, tuples, TileTraces, sweep dicts)."""
+    if isinstance(v, torch.Tensor):
+        return v.reshape(lead + v.shape[1:])
+    if isinstance(v, dict):
+        return {k: _with_lead(a, lead) for k, a in v.items()}
+    if isinstance(v, tile_mod.TileTrace):
+        return tile_mod.TileTrace(*(_with_lead(a, lead) for a in v))
+    return tuple(_with_lead(a, lead) for a in v)

@@ -148,12 +148,12 @@ def test_prep_cache_follows_in_place_weight_writes():
 
 
 def test_plan_spec_rejects_unported_modes():
-    for mode in ("cycle", "temporal"):
-        with pytest.raises(NotImplementedError):
-            PlanSpec(mode=mode)
+    with pytest.raises(NotImplementedError):
+        PlanSpec(mode="temporal")
+    PlanSpec(mode="cycle", read_ports=(1, 4))   # ported: the port sweep
     with pytest.raises(ValueError):
         PlanSpec(mode="dense")
-    with pytest.raises(TypeError):
+    with pytest.raises(TypeError):              # a sweep needs cycle mode
         PlanSpec(read_ports=(1, 4))
     _, net = _pair((100, 60, 10), 9)
     with pytest.raises(ValueError):         # 60 hidden is not 32-aligned
