@@ -32,7 +32,15 @@ Phases; any failure raises, so the exit code is non-zero:
    (``port_sweep`` over cell options 0-4 on 4096 digits, 16 launches), its
    traces and system stats held against its CPU twin; the per-cycle V_mem
    trace at 1 and 4 ports on 256 digits against its CPU twin;
-8. one JSON line of the kernels, then the result line.
+8. the event path: ``repro_torch.launch.serve --events`` (256 rate-encoded
+   digit streams of T 4, 8 or 16, leak 0.125, max_batch 64, the paper
+   topology, through ``SpikeEngine.submit_events`` and the temporal plan),
+   counted the same way (``lif_step`` per hidden tile and step plus the
+   readout's, ``popcount_mac`` once per round for tile 0 and per hidden tile
+   and step); every stream's logits held bit for bit against the same
+   streams served on the CPU, cycles and energy against the float64 cost
+   model, and a T=1, zero-leak round against the packed plan;
+9. one JSON line of the kernels, then the result line.
 
 It needs a CUDA device and exits non-zero without one.
 """
@@ -69,6 +77,11 @@ LEARN_TRAIN, LEARN_EVAL, LEARN_EPOCHS = 4096, 1024, 3
 LEARN_P_POT, LEARN_P_DEP = 0.2, 0.1
 #: samples of the matrix-RNG scan path (two stdp_update launches each)
 SCAN_SAMPLES = 64
+
+#: the event path: round size (the launcher's max_batch), leak and the LIF
+#: step's checked shapes (the event round's, a large one, ragged ones)
+EVENT_BATCH, EVENT_LEAK = 64, 0.125
+LIF_SHAPES = ((EVENT_BATCH, 256), (4096, 256), (1, 1), (7, 100))
 
 #: the cycle plane: digits of the measured Fig 8 sweep (the twin of
 #: benchmarks/bench_system.py's measured sweep) and of the V_mem trace
@@ -532,6 +545,68 @@ def check_arbiter(card, rng, name, n, ports, kernels, fill="random"):
     kernels.append(row)
 
 
+def _lif_operands(rng, batch, n, refractory):
+    """LIF-step operands with ties: thresholds negative, zero, positive and
+    2^31 - 1; a sixth of the membranes at exactly +vth or -vth (contribution
+    0) and a sixth at 0 with a contribution of exactly vth."""
+    import torch
+
+    vth = rng.integers(-40, 41, size=(n,)).astype(np.int32)
+    vth[rng.random(n) < 0.2] = 0
+    vth[rng.random(n) < 0.2] = 2**31 - 1
+    vmem = rng.uniform(-60.0, 60.0, size=(batch, n)).astype(np.float32)
+    contrib = rng.integers(-40, 41, size=(batch, n)).astype(np.int32)
+    pick = rng.random((batch, n))
+    full = np.broadcast_to(vth, (batch, n))
+    at_vth = pick < 1 / 6
+    sign = np.where(rng.random((batch, n)) < 0.5, 1.0, -1.0)
+    vmem[at_vth] = (sign * full.astype(np.float32))[at_vth]
+    contrib[at_vth] = 0
+    hit = (pick >= 1 / 6) & (pick < 1 / 3) & (np.abs(full) < 2**24)
+    vmem[hit] = 0.0
+    contrib[hit] = full[hit]
+    refrac = rng.integers(0, refractory + 1, size=(batch, n)).astype(np.int32)
+    return [torch.from_numpy(a).cuda() for a in (vmem, contrib, vth, refrac)]
+
+
+def check_lif(card, rng, batch, n, leak, reset, refractory, kernels):
+    """lif_step vs its plain version on the card, bit for bit (spikes,
+    membranes, refractory counters and their dtypes)."""
+    import torch
+
+    from repro_torch.kernels.lif_step import ops
+
+    args = _lif_operands(rng, batch, n, refractory)
+    kw = dict(leak=leak, reset=reset, refractory=refractory)
+
+    def run():
+        return ops.lif_step(*args, **kw)
+
+    got, want = run(), ops.lif_step_ref(*args, **kw)
+    torch.cuda.synchronize()
+    err = max(float((g.double() - w.double()).abs().max())
+              for g, w in zip(got, want))
+    if err or not all(g.dtype == w.dtype and torch.equal(g, w)
+                      for g, w in zip(got, want)):
+        raise AssertionError(f"lif_step != plain at [{batch}, {n}] {kw}: "
+                             f"max_abs_err={err}")
+    # vmem, contrib and refrac read, spikes, vmem' and refrac' written, and
+    # the thresholds; a multiply-add, a compare and two selects an element
+    elems = batch * n
+    bound_ms, bound_by = card.bound(21 * elems + 4 * n, 4 * elems,
+                                    F32_OPS_PER_S)
+    row = {
+        "kernel": "lif_step", "shape": f"{batch}x{n}", "leak": leak,
+        "reset": reset, "refractory": refractory, "max_abs_err": err,
+        "fired": int(got[0].sum()),
+        "ms": graph_ms(run), "call_ms": call_ms(run),
+        "plain_ms": graph_ms(lambda: ops.lif_step_ref(*args, **kw)),
+        "bound_ms": bound_ms, "bound_by": bound_by, "library_ms": None,
+    }
+    print("kernel_check " + json.dumps(row), flush=True)
+    kernels.append(row)
+
+
 def profile_serve(net, spikes) -> None:
     """Where a drain's time goes on the device: the main path's traffic
     served once more under torch.profiler; prints device time per kernel
@@ -572,6 +647,7 @@ class PlainForbidden:
 
     #: (kernel module, its plain versions that the wrappers dispatch to)
     PLAIN = (
+        ("repro_torch.kernels.lif_step.ops", ("lif_step_ref",)),
         ("repro_torch.kernels.cim_popcount.ops",
          ("esam_cascade_popcount_ref", "cim_popcount_ref",
           "esam_layer_popcount_ref")),
@@ -1004,6 +1080,150 @@ def cycle_phase() -> dict:
     return counts
 
 
+def _rounds_and_steps(requests, max_batch: int) -> tuple[int, int]:
+    """(rounds, sum over rounds of T) of one event drain: streams that share
+    T go out in rounds of at most ``max_batch``."""
+    by_t: dict[int, int] = {}
+    for r in requests:
+        by_t[r.n_steps] = by_t.get(r.n_steps, 0) + 1
+    rounds = {t: -(-n // max_batch) for t, n in by_t.items()}
+    return sum(rounds.values()), sum(t * k for t, k in rounds.items())
+
+
+def profile_events(net, requests, temporal) -> dict:
+    """Where an event drain's time goes: the timed streams served once more
+    under torch.profiler; device time per kernel, busy share of the same
+    profiled wall, launches per round."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    from repro_torch.serve.engine import EventRequest, SpikeEngine
+
+    eng = SpikeEngine(net, max_batch=EVENT_BATCH, telemetry=True,
+                      temporal=temporal, device="cuda")
+    reqs = [EventRequest(events=r.events) for r in requests]
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        eng.serve(reqs)
+        wall_s = time.perf_counter() - t0
+    on_device = [e for e in prof.key_averages()
+                 if e.device_type == torch.autograd.DeviceType.CUDA]
+    device_s = sum(e.self_device_time_total for e in on_device) / 1e6
+    launches = sum(e.count for e in on_device)
+    rounds = eng.stats()["rounds_event"]
+    top = sorted(on_device, key=lambda e: -e.self_device_time_total)[:10]
+    row = {
+        "streams": len(reqs), "rounds": rounds,
+        "timesteps": eng.stats()["timesteps_total"], "device_s": device_s,
+        "profiled_wall_s": wall_s, "device_busy_share": device_s / wall_s,
+        "device_launches": launches, "launches_per_round": launches / rounds,
+        "top": [{"name": e.key[:60], "count": e.count,
+                 "device_ms": e.self_device_time_total / 1e3} for e in top],
+    }
+    print("events_profile " + json.dumps(row), flush=True)
+    return row
+
+
+def events_phase() -> dict:
+    """Phase 8: the event path on the card, its launches, its streams
+    against the CPU twin and the float64 cost model, the T=1 identity."""
+    import dataclasses
+
+    import torch
+
+    from repro_torch.core import packing
+    from repro_torch.core.esam import cost_model as cm
+    from repro_torch.core.esam.network import EsamNetwork
+    from repro_torch.launch import serve as serve_mod
+    from repro_torch.serve.engine import EventRequest, SpikeEngine
+
+    with PlainForbidden() as guard:
+        run = serve_mod.main(["--events", "--device", "cuda"])
+        torch.cuda.synchronize()
+    eng, st = run.engine, run.engine.stats()
+    hidden = len(PAPER_TOPOLOGY) - 2
+    warm_rounds, warm_steps = _rounds_and_steps(run.warm_requests,
+                                                eng.max_batch)
+    rounds, steps = _rounds_and_steps(run.requests, eng.max_batch)
+    if (run.net.topology != PAPER_TOPOLOGY or eng.max_batch != EVENT_BATCH
+            or eng._temporal.leak != EVENT_LEAK or st["rounds_event"] != rounds
+            or run.warm_engine.stats()["rounds_event"] != warm_rounds):
+        raise AssertionError(f"event path: topology {run.net.topology}, "
+                             f"max_batch {eng.max_batch}, {eng._temporal}, "
+                             f"rounds {st['rounds_event']} != {rounds}")
+    guard.expect("event path", {
+        "lif_step": (hidden + 1) * (warm_steps + steps),
+        "popcount_mac": warm_rounds + rounds + hidden * (warm_steps + steps)})
+
+    # the same streams on the CPU (the plain versions)
+    cpu_net = EsamNetwork.from_numpy(*run.net.to_numpy(), device="cpu")
+    cpu_eng = SpikeEngine(cpu_net, max_batch=EVENT_BATCH, telemetry=True,
+                          temporal=eng._temporal, device="cpu")
+    cpu_reqs = [EventRequest(events=r.events) for r in run.requests]
+    t0 = time.perf_counter()
+    cpu_eng.serve(cpu_reqs)
+    cpu_wall = time.perf_counter() - t0
+    for r, q in zip(run.requests, cpu_reqs):
+        if not (np.isfinite(r.logits).all() and r.logits.shape == (10,)
+                and np.array_equal(r.logits, q.logits) and r.label == q.label
+                and r.served_steps == q.served_steps == r.n_steps
+                and r.cycles == q.cycles):
+            raise AssertionError("event stream differs card vs CPU")
+    # cycles and energy against the float64 model of the plan's loads
+    by_t: dict[int, list] = {}
+    for r in run.requests:
+        by_t.setdefault(r.n_steps, []).append(r)
+    worst = 0.0
+    for t, reqs in by_t.items():
+        cfg = dataclasses.replace(eng._temporal, n_steps=t)
+        words = np.stack([r.events for r in reqs], axis=1)
+        res = run.net.plan(mode="temporal", temporal=cfg, telemetry=True)(
+            packing.words_from_np(words).cuda())
+        rs = cm.temporal_request_stats(
+            PAPER_TOPOLOGY, [ld.cpu().numpy() for ld in res.loads], 4)
+        if not np.array_equal([r.cycles for r in reqs], rs["cycles"]):
+            raise AssertionError(f"T={t}: served cycles differ from the model")
+        for key in ("energy_pj", "latency_ns", "energy_pj_per_step"):
+            got = np.array([getattr(r, key) for r in reqs])
+            worst = max(worst, float(np.max(np.abs(got - rs[key])
+                                            / np.abs(rs[key]))))
+        if not np.array_equal(np.stack([r.logits for r in reqs]),
+                              res.logits.cpu().numpy()):
+            raise AssertionError(f"T={t}: served logits differ from the plan")
+    if worst > 1e-6:
+        raise AssertionError(f"event energy off by {worst:.3g} relative")
+
+    # T=1, no leak, reset to zero: the packed plan's logits
+    first = [EventRequest(events=r.events[:1]) for r in
+             run.requests[:EVENT_BATCH]]
+    with PlainForbidden() as guard1:
+        SpikeEngine(run.net, max_batch=EVENT_BATCH, device="cuda").serve(first)
+        torch.cuda.synchronize()
+    guard1.expect("T=1 round", {"lif_step": hidden + 1,
+                                "popcount_mac": 1 + hidden})
+    packed = run.net.plan(mode="packed")(packing.words_from_np(
+        np.stack([r.events[0] for r in first])).cuda()).logits.cpu().numpy()
+    if not np.array_equal(np.stack([r.logits for r in first]), packed):
+        raise AssertionError("T=1 event round differs from the packed plan")
+
+    rest = run.wall_s - st["host_pack_s_total"] - st["dispatch_s_total"]
+    print("events " + json.dumps({
+        "streams": len(run.requests), "rounds": st["rounds_event"],
+        "timesteps": st["timesteps_total"], "wall_s": run.wall_s,
+        "steps_per_s": st["timesteps_total"] / run.wall_s,
+        "input_spikes_per_s": run.input_spikes / run.wall_s,
+        "pj_per_timestep": st["energy_pj_per_timestep"],
+        "pj_per_stream": st["event_energy_pj_mean"],
+        "host_pack_s": st["host_pack_s_total"],
+        "dispatch_s": st["dispatch_s_total"], "flush_and_rest_s": rest,
+        "cpu_twin_wall_s": cpu_wall, "energy_max_rel_err": worst,
+        "launches": guard.counts}), flush=True)
+    profile_events(run.net, run.requests, eng._temporal)
+    return guard.counts
+
+
 def main() -> int:
     import torch
 
@@ -1065,6 +1285,19 @@ def main() -> int:
             for ports in (3, 4):
                 check_arbiter(card, rng, name, 8192, ports, arbiter_rows,
                               fill=fill)
+    lif_rows = []
+    for batch, n in LIF_SHAPES:
+        for leak in (0.0, EVENT_LEAK, 0.3):
+            for reset in ("zero", "subtract"):
+                for refractory in (0, 2):
+                    check_lif(card, rng, batch, n, leak, reset, refractory,
+                              lif_rows)
+    # popcount_mac at the event path's shapes: tile 0 over a T=16 round,
+    # a hidden tile and the readout over one step
+    for batch, n_in, n_out in ((16 * EVENT_BATCH, 768, 256),
+                               (EVENT_BATCH, 256, 256),
+                               (EVENT_BATCH, 256, 10)):
+        check_mac(card, rng, batch, n_in, n_out, mac_rows)
 
     # 4. the main path
     from repro_torch.launch import serve as serve_mod
@@ -1113,7 +1346,10 @@ def main() -> int:
     # 7. the cycle plane
     cyc = cycle_phase()
 
-    # 8. each kernel at its path's shape, then the result
+    # 8. the event path
+    events_counts = events_phase()
+
+    # 9. each kernel at its path's shape, then the result
     def line(name, source, replaces, row, launches):
         return {"name": name, "route": "cuda",
                 "source": f"src/repro_torch/kernels/{source}",
@@ -1157,6 +1393,12 @@ def main() -> int:
              pick_arbiter("port_schedule"), cyc["sweep"]["port_schedule"]),
         line("arbiter", "arbiter/csrc/arbiter.cu", "arbiter/kernel.py:33",
              pick_arbiter("arbiter"), cyc["sweep"]["arbiter"]),
+        line("lif_step", "lif_step/csrc/lif_step.cu", "lif_step/kernel.py:38",
+             next(r for r in lif_rows
+                  if r["shape"] == f"{EVENT_BATCH}x256"
+                  and r["leak"] == EVENT_LEAK and r["reset"] == "zero"
+                  and r["refractory"] == 0),
+             events_counts["lif_step"]),
     ]}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -5,7 +5,7 @@ called per batch.  It hoists every operand transform out of the call — the
 ±1 decode, the weight bit planes, the cascade's stacked slabs — into a prep
 cache that is rebuilt only when a parameter tensor changes.
 
-Modes (this port carries every reference mode but ``temporal``):
+Modes (every mode of the reference):
 
 ``functional``  dense ±1 MAC cascade (bool spikes between tiles) — the oracle.
 ``packed``      the bit-packed cascade: 32-bit words on the wire, and on the
@@ -22,12 +22,21 @@ Modes (this port carries every reference mode but ``temporal``):
                 ``read_ports`` it is the full Fig 8 port sweep, options that
                 share an effective port count (0 and 1) sharing one
                 simulation.
+``temporal``    the multi-timestep LIF plane (``core/esam/temporal.py``) over
+                a time-first ``[T, ..., n_in]`` event stream; needs a
+                :class:`~repro_torch.core.esam.temporal.TemporalConfig`.  On
+                the card: one ``popcount_mac`` for tile 0, then per step and
+                hidden tile a ``lif_step``, a re-pack and a ``popcount_mac``,
+                and the readout's ``lif_step``.  With T=1, zero leak and zero
+                reset it is ``packed`` bit for bit.
 
 Orthogonal flags: ``collect`` returns the inter-tile planes (cycle plans
 ignore it: their traces hold every tile's spikes), ``telemetry`` returns
 the per-tile arbiter loads (group popcounts straight off the wire).
 ``read_ports`` is the cell option (0..4); only ``cycle`` mode depends on it.
 ``record_vmem_trace`` adds the per-cycle V_mem history to cycle traces.
+In temporal mode ``planes`` and ``loads`` gain a timestep axis after the
+batch: ``[..., T, words]`` and ``[..., T, groups]``.
 """
 
 from __future__ import annotations
@@ -41,13 +50,14 @@ import torch
 from repro_torch.core import packing
 from repro_torch.core.esam import arbiter as arb
 from repro_torch.core.esam import neuron as nrn
+from repro_torch.core.esam import temporal as temporal_mod
 from repro_torch.core.esam import tile as tile_mod
 from repro_torch.kernels.cim_matmul_packed import ops as packed_ops
 from repro_torch.kernels.cim_popcount import ops as pop_ops
 
-MODES = ("functional", "packed", "prefix", "cycle")
-#: reference modes that later slices of the port carry
-NOT_PORTED_MODES = ("temporal",)
+MODES = ("functional", "packed", "prefix", "cycle", "temporal")
+#: reference modes the port does not carry yet (none: temporal was the last)
+NOT_PORTED_MODES = ()
 
 
 @dataclasses.dataclass(frozen=True)
@@ -61,13 +71,16 @@ class PlanSpec:
     #: turns ``cycle`` mode into the port sweep.
     read_ports: int | tuple[int, ...] = 4
     record_vmem_trace: bool = False
+    #: temporal mode only: the LIF dynamics (T, leak, reset, refractory)
+    temporal: Optional[temporal_mod.TemporalConfig] = None
 
     def __post_init__(self):
-        if self.mode in NOT_PORTED_MODES:
-            raise NotImplementedError(
-                f"mode={self.mode!r} is not ported to repro_torch yet")
         if self.mode not in MODES:
             raise ValueError(f"mode {self.mode!r} not in {MODES}")
+        if (self.mode == "temporal") != (self.temporal is not None):
+            raise ValueError("mode='temporal' needs a TemporalConfig, and "
+                             f"only it takes one (mode={self.mode!r}, "
+                             f"temporal={self.temporal!r})")
         options = self.read_ports
         if isinstance(options, tuple):
             if self.mode != "cycle":
@@ -136,13 +149,14 @@ class EsamPlan:
         self.network = network
         self.topology = network.topology
         hidden_ok = not any(n % packing.LANE_BITS for n in self.topology[1:-1])
-        if spec.mode == "packed" and not hidden_ok:
-            raise ValueError(
-                f"packed plans need 32-aligned hidden widths: {self.topology}")
+        if spec.mode in ("packed", "temporal") and not hidden_ok:
+            raise ValueError(f"{spec.mode} plans need 32-aligned hidden "
+                             f"widths: {self.topology}")
         #: prefix mode runs packed when the hidden widths allow it, else the
         #: dense functional tiles — both bit-identical
         self.prefix_packed = spec.mode == "prefix" and hidden_ok
-        self._packed_input = spec.mode == "packed" or self.prefix_packed
+        self._packed_input = (spec.mode in ("packed", "temporal")
+                              or self.prefix_packed)
         self._n_in = self.topology[0]
         self._in_width = (packing.packed_width(self._n_in)
                           if self._packed_input else self._n_in)
@@ -170,6 +184,8 @@ class EsamPlan:
         elif self.spec.mode == "prefix":
             params["w_planes"] = tuple(
                 packing.pack_weight_planes(w) for w in wb)
+        elif self.spec.mode == "temporal":
+            params["w_mac"] = temporal_mod.mac_operands(wb)
         else:
             planes = tuple(packing.pack_weight_planes(w) for w in wb)
             params["w_stack"], params["vth_stack"] = (
@@ -198,31 +214,47 @@ class EsamPlan:
     # ------------------------------------------------------------------ #
     def _normalize(self, x) -> tuple[torch.Tensor, tuple[int, ...]]:
         """Coerce input to a flat 2-D batch on the network's device;
-        returns (x2d, leading shape)."""
+        returns (x2d, leading shape).
+
+        Temporal plans instead take a time-first event stream
+        ``[T, ..., n_in]`` (spikes or wire words) and return it as
+        ``[T, B, words]`` for ``temporal_forward`` — time is never a batch
+        axis.
+        """
         if isinstance(x, np.ndarray):
             x = (packing.words_from_np(x) if x.dtype == np.uint32
                  else torch.from_numpy(np.ascontiguousarray(x)))
         elif not isinstance(x, torch.Tensor):
             x = torch.as_tensor(x)
         x = x.to(self.network.device)
+        if self.spec.mode == "temporal":
+            t = self.spec.temporal.n_steps
+            if x.dim() < 2 or x.shape[0] != t:
+                raise ValueError(f"temporal plan expects events[{t}, ..., n],"
+                                 f" got {tuple(x.shape)}")
+            lead = tuple(x.shape[1:-1])
+            x = self._wire(x)
+            return x.reshape(t, -1, x.shape[-1]), lead
         lead = tuple(x.shape[:-1])
         if self._packed_input:
-            if (x.dtype == packing.WORD_DTYPE
-                    and x.shape[-1] == self._in_width
-                    and self._in_width != self._n_in):
-                pass                                   # already wire format
-            elif x.shape[-1] == self._n_in:
-                x = packing.pack_spikes(x != 0)        # spikes -> wire format
-            else:
-                raise ValueError(
-                    f"expected spikes[..., {self._n_in}] or int32 words"
-                    f"[..., {self._in_width}], got {tuple(x.shape)} {x.dtype}")
+            x = self._wire(x)
         else:
             if x.shape[-1] != self._n_in:
                 raise ValueError(
                     f"expected spikes[..., {self._n_in}], got {tuple(x.shape)}")
             x = x != 0
         return x.reshape(-1, x.shape[-1]).contiguous(), lead
+
+    def _wire(self, x: torch.Tensor) -> torch.Tensor:
+        """Spikes or wire words ``[..., n]`` -> wire words ``[..., W]``."""
+        if (x.dtype == packing.WORD_DTYPE and x.shape[-1] == self._in_width
+                and self._in_width != self._n_in):
+            return x                                   # already wire format
+        if x.shape[-1] == self._n_in:
+            return packing.pack_spikes(x != 0)         # spikes -> wire format
+        raise ValueError(
+            f"expected spikes[..., {self._n_in}] or int32 words"
+            f"[..., {self._in_width}], got {tuple(x.shape)} {x.dtype}")
 
     @staticmethod
     def _dense_prefix(ws, vth, s):
@@ -283,6 +315,11 @@ class EsamPlan:
                 out["planes"] = planes
             if spec.telemetry:
                 out["loads"] = tuple(packing.group_popcount(p) for p in planes)
+        elif spec.mode == "temporal":
+            out.update(temporal_mod.temporal_forward(
+                params["w_mac"], vth, off, x, spec.temporal,
+                self.topology, collect=spec.collect,
+                telemetry=spec.telemetry))
         else:  # cycle: one simulation per effective port count
             by_ports: dict[int, dict] = {}
             for ports in self._cycle_port_options():

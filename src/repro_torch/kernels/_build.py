@@ -28,7 +28,8 @@ from typing import Callable, Optional
 
 KERNELS = Path(__file__).resolve().parent
 #: the kernel packages that carry CUDA sources under ``csrc/``
-LIBRARIES = ("cim_popcount", "cim_matmul_packed", "stdp", "arbiter")
+LIBRARIES = ("cim_popcount", "cim_matmul_packed", "stdp", "arbiter",
+             "lif_step")
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a",
     "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC",

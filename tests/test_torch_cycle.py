@@ -124,7 +124,7 @@ def test_max_drain_cycles_matches_jax():
 # cycle plans
 # ----------------------------------------------------------------------- #
 def test_plan_spec_takes_cycle_sweeps():
-    assert NOT_PORTED_MODES == ("temporal",)
+    assert NOT_PORTED_MODES == ()
     spec = PlanSpec(mode="cycle", read_ports=(0, 1, 2, 3, 4))
     assert spec.read_ports == (0, 1, 2, 3, 4)
     for bad in ((), (1, 2.0), (True,), 4.0):

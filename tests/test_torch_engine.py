@@ -36,7 +36,7 @@ def _pair(topo, seed):
     return ref, EsamNetwork.from_numpy(bits, vth, off, device="cpu")
 
 
-def _sections(schema, names=("identity", "rounds", "cost")):
+def _sections(schema, names=("identity", "rounds", "events", "cost")):
     return {k for name in names for k in schema[name]}
 
 
@@ -97,9 +97,9 @@ def test_empty_engine_stats_match_reference():
 def test_stats_schema_is_the_reference_sections():
     schema, ref_schema = engine.stats_schema(), jengine.stats_schema()
     assert engine.STATS_SCHEMA_VERSION == jengine.STATS_SCHEMA_VERSION
-    for name in ("identity", "rounds", "cost"):
+    for name in ("identity", "rounds", "events", "cost"):
         assert schema[name] == ref_schema[name], name
-    assert set(schema) == {"identity", "rounds", "cost"}
+    assert set(schema) == {"identity", "rounds", "events", "cost"}
 
 
 @pytest.mark.parametrize("max_batch,min_bucket,dp",
@@ -131,7 +131,7 @@ def test_launcher_serves_on_cpu(capsys):
     out = capsys.readouterr().out
     assert "req/s" in out and "MInf/s" in out and "pJ/Inf" in out
     with pytest.raises(SystemExit):
-        serve_mod.main(["--smoke", "--device", "cpu"])   # only --esam
+        serve_mod.main(["--smoke", "--device", "cpu"])   # no mode given
 
 
 def test_default_device_raises_without_gpu(monkeypatch):

@@ -148,8 +148,8 @@ def test_prep_cache_follows_in_place_weight_writes():
 
 
 def test_plan_spec_rejects_unported_modes():
-    with pytest.raises(NotImplementedError):
-        PlanSpec(mode="temporal")
+    with pytest.raises(ValueError, match="TemporalConfig"):
+        PlanSpec(mode="temporal")               # ported: needs its config
     PlanSpec(mode="cycle", read_ports=(1, 4))   # ported: the port sweep
     with pytest.raises(ValueError):
         PlanSpec(mode="dense")
