@@ -9,7 +9,10 @@ Phases; any failure raises, so the exit code is non-zero:
 2. build the CUDA kernels from ``src/repro_torch/kernels/*/csrc`` (one
    ``nvcc`` per library, all started together);
 3. each kernel against its plain PyTorch version on the card, bit for bit,
-   at the paths' shapes and more, timed against its bound;
+   at the paths' shapes and more (B9', B10 and B11 at the bench's shapes,
+   ragged ones and 4096 x 768 -> 256; B10 in four spike dtypes; B11 at
+   threshold equality and int32 wraparound; B1 at the bench's
+   (768, 768, 768, 10)), timed against its bound;
 4. the serving path: ``repro_torch.launch.serve --esam`` at the paper
    topology 768:256:256:256:10, max_batch 128, telemetry on, 4096 digit
    requests, with the launch counters set to 0 just before and read just
@@ -40,7 +43,16 @@ Phases; any failure raises, so the exit code is non-zero:
    and step); every stream's logits held bit for bit against the same
    streams served on the CPU, cycles and energy against the float64 cost
    model, and a T=1, zero-leak round against the packed plan;
-9. one JSON line of the kernels, then the result line.
+9. the kernel bench path: ``repro_torch.launch.bench_kernels.run`` (every
+   lane of the reference's ``benchmarks/bench_kernels.py``: B10
+   ``cim_matmul`` and ``esam_layer`` at 256 x 768 -> 256, B8 ``arbiter``,
+   B11 ``if_neuron``, B7, B6, then B9' ``cim_matmul_packed``, B3, B2, the
+   per-tile cascade (B9 x 2 + B9') and B1 at 1024 x 768 -> 768 and
+   (768, 768, 768, 10)), its identity gates and its speedup floor; every
+   launch counter is set to 0 just before and held to the calls the bench
+   reports just after (the bench times the plain versions by name, so none
+   is forbidden here; every other phase forbids them all);
+10. one JSON line of the kernels (13), then the result line.
 
 It needs a CUDA device and exits non-zero without one.
 """
@@ -48,7 +60,6 @@ It needs a CUDA device and exits non-zero without one.
 from __future__ import annotations
 
 import json
-import statistics
 import subprocess
 import sys
 import time
@@ -58,19 +69,21 @@ from pathlib import Path
 import numpy as np
 
 ROOT = Path(__file__).resolve().parent
+sys.path.insert(0, str(ROOT / "src"))
+
+# the card's published rates (one place: the kernel bench's roofline reads
+# them too) and the CUDA-event timers the kernel bench shares
+from repro_torch.core.h100 import (  # noqa: E402
+    F32_OPS_PER_S,
+    HBM_BYTES_PER_S,
+    INT8_OPS_PER_S,
+    popc_ops_per_s,
+)
+from repro_torch.obs.profile import call_ms, graph_ms  # noqa: E402
 
 PAPER_TOPOLOGY = (768, 256, 256, 256, 10)
 SERVE_REQUESTS = 4096
 BUCKET = 128                   # the engine's max_batch: one round's batch
-#: the 32-bit popc unit's issue rate per SM per clock on compute capability
-#: 9.0 (CUDA C Programming Guide, arithmetic instruction throughput table)
-POPC_PER_CLOCK_PER_SM = 16
-#: device memory rate of an H100 SXM (NVIDIA data sheet)
-HBM_BYTES_PER_S = 3.35e12
-#: dense int8 tensor-core rate of an H100 SXM (NVIDIA data sheet)
-INT8_OPS_PER_S = 1979e12
-#: float32 rate outside the tensor cores of an H100 SXM (NVIDIA data sheet)
-F32_OPS_PER_S = 67e12
 
 #: the learning path: the port's twin of examples/online_learning.py
 LEARN_TRAIN, LEARN_EVAL, LEARN_EPOCHS = 4096, 1024, 3
@@ -82,6 +95,13 @@ SCAN_SAMPLES = 64
 #: step's checked shapes (the event round's, a large one, ragged ones)
 EVENT_BATCH, EVENT_LEAK = 64, 0.125
 LIF_SHAPES = ((EVENT_BATCH, 256), (4096, 256), (1, 1), (7, 100))
+
+#: the kernel bench's comparison shape and cascade
+#: (``launch.bench_kernels``), and the ragged shapes its kernels are checked
+#: at besides (B 1 and 7, K 100 and 777, N 96 and 10)
+BENCH_B, BENCH_K, BENCH_N = 1024, 768, 768
+BENCH_CASCADE = (768, 768, 768, 10)
+RAGGED_SHAPES = ((1, 100, 96), (7, 777, 10), (7, 100, 10), (1, 777, 96))
 
 #: the cycle plane: digits of the measured Fig 8 sweep (the twin of
 #: benchmarks/bench_system.py's measured sweep) and of the V_mem trace
@@ -100,56 +120,6 @@ def nvidia_smi(query: str, units: bool = True) -> str:
     return out.stdout.strip().splitlines()[0]
 
 
-def graph_ms(fn, calls: int = 20, replays: int = 7) -> float:
-    """Device time of one ``fn()`` call: CUDA events around replays of a
-    CUDA graph holding ``calls`` calls (host-side Python excluded); median
-    over ``replays``.  Operands stay hot in L2, as in serving."""
-    import torch
-
-    side = torch.cuda.Stream()
-    side.wait_stream(torch.cuda.current_stream())
-    with torch.cuda.stream(side):
-        for _ in range(3):
-            fn()
-    torch.cuda.current_stream().wait_stream(side)
-    graph = torch.cuda.CUDAGraph()
-    with torch.cuda.graph(graph, capture_error_mode="relaxed"):
-        for _ in range(calls):
-            fn()
-    graph.replay()
-    torch.cuda.synchronize()
-    times = []
-    for _ in range(replays):
-        start = torch.cuda.Event(enable_timing=True)
-        end = torch.cuda.Event(enable_timing=True)
-        start.record()
-        graph.replay()
-        end.record()
-        end.synchronize()
-        times.append(start.elapsed_time(end) / calls)
-    return statistics.median(times)
-
-
-def call_ms(fn, calls: int = 50, replays: int = 7) -> float:
-    """Time of one eager ``fn()`` call as a caller sees it (host-side
-    wrapper work included): CUDA events around ``calls`` calls, median."""
-    import torch
-
-    fn()
-    torch.cuda.synchronize()
-    times = []
-    for _ in range(replays):
-        start = torch.cuda.Event(enable_timing=True)
-        end = torch.cuda.Event(enable_timing=True)
-        start.record()
-        for _ in range(calls):
-            fn()
-        end.record()
-        end.synchronize()
-        times.append(start.elapsed_time(end) / calls)
-    return statistics.median(times)
-
-
 class Card:
     """The card's rates the bounds are computed from."""
 
@@ -159,7 +129,7 @@ class Card:
         props = torch.cuda.get_device_properties(0)
         self.sms = props.multi_processor_count
         self.max_sm_mhz = float(nvidia_smi("clocks.max.sm", units=False))
-        self.popc_per_s = POPC_PER_CLOCK_PER_SM * self.sms * self.max_sm_mhz * 1e6
+        self.popc_per_s = popc_ops_per_s(self.sms, self.max_sm_mhz)
 
     def bound(self, n_bytes: float, n_ops: float,
               ops_per_s: float | None = None) -> tuple[float, str]:
@@ -607,6 +577,160 @@ def check_lif(card, rng, batch, n, leak, reset, refractory, kernels):
     kernels.append(row)
 
 
+def _spike_rows(rng, batch: int, n: int, dtype):
+    """{0,1} spikes [batch, n] at p=0.4 in ``dtype``, on the card."""
+    import torch
+
+    return torch.from_numpy(rng.random((batch, n)) < 0.4).to(dtype).cuda()
+
+
+def check_cim_matmul(card, rng, batch, n_in, n_out, kernels, fire=False,
+                     dtype_name="float32"):
+    """cim_matmul (int32 V) or esam_layer (int8 fire) on unpacked spikes of
+    one dtype vs its plain version; the library yardstick is torch.matmul
+    on the ±1 float32 operands, TF32 off."""
+    import torch
+
+    from repro_torch.kernels.cim_matmul import ops
+
+    s = _spike_rows(rng, batch, n_in, getattr(torch, dtype_name))
+    bits = torch.from_numpy(
+        rng.integers(0, 2, size=(n_in, n_out), dtype=np.int8)).cuda()
+    vth = torch.from_numpy(
+        rng.integers(-8, 9, size=(n_out,), dtype=np.int32)).cuda()
+    name = "esam_layer" if fire else "cim_matmul"
+
+    def run():
+        return ops.esam_layer(s, bits, vth) if fire else ops.cim_matmul(s, bits)
+
+    def plain():
+        return (ops.esam_layer_ref(s, bits, vth) if fire
+                else ops.cim_matmul_ref(s, bits))
+
+    out, ref = run(), plain()
+    torch.cuda.synchronize()
+    err = _word_err(out, ref)
+    if err or out.dtype != ref.dtype or not torch.equal(out, ref):
+        raise AssertionError(f"{name} != plain at {batch}x{n_in}->{n_out} "
+                             f"{dtype_name}: max_abs_err={err}")
+    # spikes in their dtype, the bits, V int32 or the int8 fire (+ vth);
+    # the data's work: one multiply-add per active synapse
+    n_bytes = (s.element_size() * batch * n_in + n_in * n_out
+               + (batch * n_out + 4 * n_out if fire else 4 * batch * n_out))
+    active = int((s != 0).sum())
+    bound_ms, bound_by = card.bound(n_bytes, 2 * active * n_out,
+                                    INT8_OPS_PER_S)
+    sf, wf = s.to(torch.float32), 2.0 * bits.to(torch.float32) - 1.0
+    with tf32_off():
+        library_ms = graph_ms(lambda: torch.matmul(sf, wf))
+    row = {
+        "kernel": name, "shape": f"{batch}x{n_in}->{n_out}",
+        "dtype": dtype_name, "batch": batch, "max_abs_err": err,
+        "ms": graph_ms(run), "call_ms": call_ms(run),
+        "plain_ms": graph_ms(plain), "bound_ms": bound_ms,
+        "bound_by": bound_by, "library_ms": library_ms,
+    }
+    print("kernel_check " + json.dumps(row), flush=True)
+    kernels.append(row)
+
+
+def check_packed_mac(card, rng, batch, n_in, n_out, kernels):
+    """cim_matmul_packed (spike words x {0,1} int8 weights -> int32 V) vs
+    its plain version."""
+    import torch
+
+    from repro_torch.core import packing
+    from repro_torch.kernels.cim_matmul_packed import ops
+
+    bits = torch.from_numpy(
+        rng.integers(0, 2, size=(n_in, n_out), dtype=np.int8)).cuda()
+    x = random_words(rng, batch, n_in).cuda()
+
+    def run():
+        return ops.cim_matmul_packed(x, bits)
+
+    out = run()
+    ref = ops.cim_matmul_packed_ref(x, bits)
+    torch.cuda.synchronize()
+    err = _word_err(out, ref)
+    if err or not torch.equal(out, ref):
+        raise AssertionError(f"cim_matmul_packed != plain at B={batch} "
+                             f"{n_in}->{n_out}: err={err}")
+    words = packing.packed_width(n_in)
+    n_bytes = 4 * batch * words + n_in * n_out + 4 * batch * n_out
+    active = int(packing.popcount32(x).sum())
+    bound_ms, bound_by = card.bound(n_bytes, 2 * active * n_out,
+                                    INT8_OPS_PER_S)
+    row = {
+        "kernel": "cim_matmul_packed", "shape": f"{batch}x{n_in}->{n_out}",
+        "batch": batch, "max_abs_err": err,
+        "ms": graph_ms(run), "call_ms": call_ms(run),
+        "plain_ms": graph_ms(lambda: ops.cim_matmul_packed_ref(x, bits)),
+        "bound_ms": bound_ms, "bound_by": bound_by,
+        "library_ms": _matmul_yardstick(x, bits, n_in),
+    }
+    print("kernel_check " + json.dumps(row), flush=True)
+    kernels.append(row)
+
+
+def check_if_neuron(card, rng, batch, rounds, n, kernels, fill="random"):
+    """if_neuron vs its plain version: random updates, every membrane
+    exactly at its threshold (equality fires), or updates near 2^30 whose
+    int32 sum wraps."""
+    import torch
+
+    from repro_torch.kernels.if_neuron import ops
+
+    if fill == "random":
+        upd = rng.integers(-3, 4, size=(batch, rounds, n), dtype=np.int32)
+        vth = rng.integers(-6, 7, size=(n,), dtype=np.int32)
+    elif fill == "equal":
+        upd = np.ones((batch, rounds, n), dtype=np.int32)
+        vth = np.full((n,), rounds, dtype=np.int32)
+    else:  # wrap
+        upd = rng.integers(2**30, 2**31 - 1, size=(batch, rounds, n),
+                           dtype=np.int64).astype(np.int32)
+        vth = rng.integers(-2**31, 2**31 - 1, size=(n,),
+                           dtype=np.int64).astype(np.int32)
+    upd, vth = torch.from_numpy(upd).cuda(), torch.from_numpy(vth).cuda()
+
+    def run():
+        return ops.if_neuron(upd, vth)
+
+    got, want = run(), ops.if_neuron_ref(upd, vth)
+    torch.cuda.synchronize()
+    err = max(_word_err(a, b) for a, b in zip(got, want))
+    if err or not all(a.dtype == b.dtype and torch.equal(a, b)
+                      for a, b in zip(got, want)):
+        raise AssertionError(f"if_neuron != plain at [{batch}, {rounds}, "
+                             f"{n}] {fill}: max_abs_err={err}")
+    if fill == "equal" and not bool(got[0].all()):
+        raise AssertionError("if_neuron: V_mem == vth did not fire")
+    if fill == "wrap":
+        wide = upd.long().sum(1)
+        if torch.equal(wide, got[1].long()):
+            raise AssertionError("if_neuron wrap case did not overflow")
+        if not torch.equal((wide & 0xFFFFFFFF).to(torch.int64),
+                           got[1].long() & 0xFFFFFFFF):
+            raise AssertionError("if_neuron: V_mem is not the sum mod 2^32")
+    # updates read once, vth, int8 spikes and int32 V_mem written; an add
+    # per update and a compare per neuron
+    elems = batch * n
+    bound_ms, bound_by = card.bound(4 * elems * rounds + 4 * n + 5 * elems,
+                                    elems * rounds + elems, F32_OPS_PER_S)
+    row = {
+        "kernel": "if_neuron", "shape": f"{batch}x{rounds}x{n}",
+        "fill": fill, "max_abs_err": err, "fired": int(got[0].sum()),
+        "ms": graph_ms(run), "call_ms": call_ms(run),
+        "plain_ms": graph_ms(lambda: ops.if_neuron_ref(upd, vth)),
+        "bound_ms": bound_ms, "bound_by": bound_by, "library_ms": None,
+        # the rounds' sum alone is one PyTorch call (the fire is another)
+        "sum_ms": graph_ms(lambda: upd.sum(1, dtype=torch.int32)),
+    }
+    print("kernel_check " + json.dumps(row), flush=True)
+    kernels.append(row)
+
+
 def profile_serve(net, spikes) -> None:
     """Where a drain's time goes on the device: the main path's traffic
     served once more under torch.profiler; prints device time per kernel
@@ -652,7 +776,10 @@ class PlainForbidden:
          ("esam_cascade_popcount_ref", "cim_popcount_ref",
           "esam_layer_popcount_ref")),
         ("repro_torch.kernels.cim_matmul_packed.ops",
-         ("esam_layer_packed_ref",)),
+         ("esam_layer_packed_ref", "cim_matmul_packed_ref")),
+        ("repro_torch.kernels.cim_matmul.ops",
+         ("cim_matmul_ref", "esam_layer_ref")),
+        ("repro_torch.kernels.if_neuron.ops", ("if_neuron_ref",)),
         ("repro_torch.kernels.stdp.ops",
          ("stdp_column_event_ref", "stdp_update_ref")),
         ("repro_torch.kernels.arbiter.ops",
@@ -660,12 +787,10 @@ class PlainForbidden:
     )
 
     def __enter__(self):
-        import importlib
-
         def forbid(*_a, **_k):
             raise AssertionError("a plain version ran on a CUDA path")
 
-        self.mods = [importlib.import_module(m) for m, _ in self.PLAIN]
+        self.mods = kernel_modules()
         self.saved = []
         for mod, (_, names) in zip(self.mods, self.PLAIN):
             for name in names:
@@ -1224,6 +1349,45 @@ def events_phase() -> dict:
     return guard.counts
 
 
+def kernel_modules() -> list:
+    """Every kernel wrapper module (each keeps its launch counters)."""
+    import importlib
+
+    return [importlib.import_module(m) for m, _ in PlainForbidden.PLAIN]
+
+
+def bench_phase() -> dict:
+    """Phase 9: the kernel bench path (``launch.bench_kernels.run``) on the
+    card, every launch counter held to the calls the bench reports.  The
+    bench times the plain versions by name on its ``_plain`` lane, so no
+    plain version is forbidden here."""
+    import torch
+
+    from repro_torch.launch import bench_kernels
+
+    mods = kernel_modules()
+    for mod in mods:
+        mod.reset_launch_counts()
+    t0 = time.perf_counter()
+    res = bench_kernels.run(device="cuda")
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    counts = {}
+    for mod in mods:
+        counts.update(mod.launch_counts())
+    want = {k: res.launches.get(k, 0) for k in counts}
+    if counts != want or set(res.launches) - set(counts):
+        raise AssertionError(f"bench path: launches {counts}, the bench "
+                             f"reports {res.launches}")
+    floor = next(r for r in res.rows
+                 if r["name"] == "kernel_popcount_speedup_vs_packed")
+    print("bench " + json.dumps({
+        "rows": len(res.rows), "wall_s": wall, "launches": counts,
+        "speedups": res.speedups, "floor": bench_kernels.SPEEDUP_FLOOR,
+        "floor_row": floor["derived"]}), flush=True)
+    return counts
+
+
 def main() -> int:
     import torch
 
@@ -1231,7 +1395,6 @@ def main() -> int:
         print("chip_smoke: no CUDA device visible; this script needs one",
               file=sys.stderr)
         return 1
-    sys.path.insert(0, str(ROOT / "src"))
     from repro_torch.kernels import _build
 
     # 1. the card
@@ -1298,6 +1461,30 @@ def main() -> int:
                                (EVENT_BATCH, 256, 256),
                                (EVENT_BATCH, 256, 10)):
         check_mac(card, rng, batch, n_in, n_out, mac_rows)
+    # the kernel bench's shapes (its B3 and B2 lanes, its mega cascade at
+    # (768, 768, 768, 10) with the block sweep, its B8 lane), and the
+    # kernels only the bench runs at its shapes, ragged ones and a large one
+    check_mac(card, rng, BENCH_B, BENCH_K, BENCH_N, mac_rows)
+    check_fire(card, rng, BENCH_B, BENCH_K, BENCH_N, fire_rows)
+    check_mega(card, rng, BENCH_CASCADE, BENCH_B, mega_rows,
+               sweep=(1, 2, 4, 8, 16))
+    check_arbiter(card, rng, "arbiter", 16, 4, arbiter_rows)
+    matmul_rows, packed_mac_rows, if_rows = [], [], []
+    for fire in (False, True):
+        for dtype_name in ("float32", "bfloat16", "int8", "bool"):
+            check_cim_matmul(card, rng, 256, 768, 256, matmul_rows,
+                             fire=fire, dtype_name=dtype_name)
+        for batch, n_in, n_out in RAGGED_SHAPES + ((4096, 768, 256),):
+            check_cim_matmul(card, rng, batch, n_in, n_out, matmul_rows,
+                             fire=fire)
+    for batch, n_in, n_out in (((BENCH_B, BENCH_K, BENCH_N),) + RAGGED_SHAPES
+                               + ((4096, 768, 256),)):
+        check_packed_mac(card, rng, batch, n_in, n_out, packed_mac_rows)
+    for batch, rounds, n in ((8, 32, 256), (1, 5, 10), (7, 3, 100),
+                             (4096, 32, 256)):
+        check_if_neuron(card, rng, batch, rounds, n, if_rows)
+    check_if_neuron(card, rng, 8, 3, 128, if_rows, fill="equal")
+    check_if_neuron(card, rng, 8, 4, 128, if_rows, fill="wrap")
 
     # 4. the main path
     from repro_torch.launch import serve as serve_mod
@@ -1349,7 +1536,10 @@ def main() -> int:
     # 8. the event path
     events_counts = events_phase()
 
-    # 9. each kernel at its path's shape, then the result
+    # 9. the kernel bench path
+    bench = bench_phase()
+
+    # 10. each kernel at its path's shape, then the result
     def line(name, source, replaces, row, launches):
         return {"name": name, "route": "cuda",
                 "source": f"src/repro_torch/kernels/{source}",
@@ -1359,8 +1549,9 @@ def main() -> int:
                 "plain_ms": row["plain_ms"], "bound_ms": row["bound_ms"],
                 "bound_by": row["bound_by"], "library_ms": row["library_ms"]}
 
-    def pick(rows, shape):
-        return next(r for r in rows if r["shape"] == shape)
+    def pick(rows, shape, **match):
+        return next(r for r in rows if r["shape"] == shape
+                    and all(r.get(k) == v for k, v in match.items()))
 
     def pick_arbiter(name):
         """The sweep's first tile: 4096 digits x 6 row groups, 4 ports."""
@@ -1372,7 +1563,10 @@ def main() -> int:
                     and r["topology"] == ":".join(map(str, PAPER_TOPOLOGY)))
     pop_src = "cim_popcount/csrc/cim_popcount.cu"
     stdp_src = "stdp/csrc/stdp.cu"
+    packed_src = "cim_matmul_packed/csrc/cim_matmul_packed.cu"
+    matmul_src = "cim_matmul/csrc/cim_matmul.cu"
     prefix_shape = f"{LEARN_TRAIN}x768->256"
+    bench_shape = f"{BENCH_B}x{BENCH_K}->{BENCH_N}"
     print(json.dumps({"kernels": [
         line("mega_cascade", pop_src, "cim_popcount/kernel.py:98",
              mega_row, mega_launches),
@@ -1386,19 +1580,33 @@ def main() -> int:
              learn["train"]["stdp_column_event"]),
         line("stdp_update", stdp_src, "stdp/kernel.py:26",
              pick(update_rows, "10x256"), learn["scan"]["stdp_update"]),
-        line("fused_fire_packed", "cim_matmul_packed/csrc/cim_matmul_packed.cu",
+        line("fused_fire_packed", packed_src,
              "cim_matmul_packed/kernel.py:66", pick(packed_rows, prefix_shape),
              learn["epoch"]["fused_fire_packed"]),
         line("port_schedule", "arbiter/csrc/arbiter.cu", "arbiter/kernel.py:51",
              pick_arbiter("port_schedule"), cyc["sweep"]["port_schedule"]),
         line("arbiter", "arbiter/csrc/arbiter.cu", "arbiter/kernel.py:33",
-             pick_arbiter("arbiter"), cyc["sweep"]["arbiter"]),
+             next(r for r in arbiter_rows if r["kernel"] == "arbiter"
+                  and r["shape"] == f"16x{ROW_GROUP}" and r["ports"] == 4),
+             bench["arbiter"]),
         line("lif_step", "lif_step/csrc/lif_step.cu", "lif_step/kernel.py:38",
              next(r for r in lif_rows
                   if r["shape"] == f"{EVENT_BATCH}x256"
                   and r["leak"] == EVENT_LEAK and r["reset"] == "zero"
                   and r["refractory"] == 0),
              events_counts["lif_step"]),
+        line("cim_matmul_packed", packed_src,
+             "cim_matmul_packed/kernel.py:47",
+             pick(packed_mac_rows, bench_shape), bench["cim_matmul_packed"]),
+        line("cim_matmul", matmul_src, "cim_matmul/kernel.py:27",
+             pick(matmul_rows, "256x768->256", kernel="cim_matmul",
+                  dtype="float32"), bench["cim_matmul"]),
+        line("esam_layer", matmul_src, "cim_matmul/kernel.py:47",
+             pick(matmul_rows, "256x768->256", kernel="esam_layer",
+                  dtype="float32"), bench["esam_layer"]),
+        line("if_neuron", "if_neuron/csrc/if_neuron.cu",
+             "if_neuron/kernel.py:23",
+             pick(if_rows, "8x32x256", fill="random"), bench["if_neuron"]),
     ]}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

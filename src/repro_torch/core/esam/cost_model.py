@@ -5,7 +5,9 @@ per-request accounting, with ``request_stats_device`` evaluated in float32
 torch ops on the loads' own device.  Every constant is the paper's or is
 derived from a published anchor; the provenance notes are the reference's.
 Nothing here is a measurement of the GPU: cycles, ns and pJ are the modeled
-3nm CIM macro's.
+3nm CIM macro's.  The last section holds the MAC datapath roofline inputs
+(``mac_datapath_stats``) of the kernel bench, on the H100's published rates
+(``core/h100.py``).
 
 Cell naming: port index p in {0,1,2,3,4} == number of *decoupled read ports*.
 p=0 is the standard 6T single-port cell ("1RW"); p>=1 are "1RW+<p>R".
@@ -18,6 +20,8 @@ from typing import Sequence
 
 import numpy as np
 import torch
+
+from repro_torch.core import h100
 
 # ----------------------------------------------------------------------------
 # Verbatim paper constants
@@ -399,4 +403,80 @@ def temporal_request_stats_device(
         "energy_pj": energy,
         "energy_pj_per_step": energy / t,
         "n_steps": t,
+    }
+
+
+# ----------------------------------------------------------------------------
+# H100 MAC datapath roofline inputs (framework plane, not paper units)
+# ----------------------------------------------------------------------------
+# The card's published rates live in ``core/h100.py``, which chip_smoke.py's
+# kernel bounds read as well.
+
+MAC_DATAPATHS = ("dense_mxu", "packed_mxu", "popcount_vpu")
+
+
+def mac_datapath_stats(batch: int, n_in: int, n_out: int,
+                       datapath: str) -> dict:
+    """Compute/byte roofline inputs for one tile MAC, per datapath, on the
+    H100.
+
+    The datapath keys and every count are the reference's
+    (``repro.core.esam.cost_model.mac_datapath_stats``); the units and rates
+    are the card's:
+
+    ``dense_mxu``    int8 spikes from memory and the ±1 MAC, ``2 * macs``
+                     operations on the int8 tensor cores (``tensor_core``).
+    ``packed_mxu``   uint32 spike words from memory, unpacked (shift, mask,
+                     cast per spike bit), then the same MAC
+                     (``tensor_core+unpack``).
+    ``popcount_vpu`` both operands stay 32-bit words: per (sample, neuron,
+                     word) an AND, a popcount and an add, plus a row
+                     popcount (``compute_ops``); the popc unit bounds it, so
+                     the time counts the popcounts alone (``unit_ops``)
+                     against 16 a clock per SM, 4.18e12/s (``popc``).
+
+    The bound is the larger of ``hbm_bytes`` over 3.35 TB/s and
+    ``unit_ops`` over the unit's rate.
+    """
+    if datapath not in MAC_DATAPATHS:
+        raise ValueError(f"unknown datapath {datapath!r} (one of "
+                         f"{MAC_DATAPATHS})")
+    macs = batch * n_in * n_out
+    out_bytes = batch * n_out * 4                     # int32 V_mem
+    kw = -(-n_in // 32)
+    if datapath == "dense_mxu":
+        spike_bytes = batch * n_in                    # int8 wire
+        weight_bytes = n_in * n_out                   # int8 stored bits
+        compute_ops = unit_ops = 2 * macs
+        rate, unit = h100.INT8_OPS_PER_S, "tensor_core"
+    elif datapath == "packed_mxu":
+        spike_bytes = batch * kw * 4
+        weight_bytes = n_in * n_out
+        # unpack tax: shift+mask+cast per spike bit, then the MAC
+        compute_ops = unit_ops = 2 * macs + 3 * batch * n_in
+        rate, unit = h100.INT8_OPS_PER_S, "tensor_core+unpack"
+    else:  # popcount_vpu
+        spike_bytes = batch * kw * 4
+        weight_bytes = n_out * kw * 4                 # uint32 weight planes
+        # AND + popcount + add per (sample, neuron, lane word) + row offset
+        compute_ops = 3 * batch * n_out * kw + batch * kw
+        unit_ops = batch * n_out * kw + batch * kw    # the popcounts
+        rate, unit = h100.popc_ops_per_s(), "popc"
+    hbm_bytes = spike_bytes + weight_bytes + out_bytes
+    t_compute = unit_ops / rate
+    t_hbm = hbm_bytes / h100.HBM_BYTES_PER_S
+    return {
+        "datapath": datapath,
+        "unit": unit,
+        "macs": macs,
+        "compute_ops": compute_ops,
+        "unit_ops": unit_ops,
+        "spike_bytes": spike_bytes,
+        "weight_bytes": weight_bytes,
+        "hbm_bytes": hbm_bytes,
+        "intensity_ops_per_byte": compute_ops / hbm_bytes,
+        "t_compute_us": t_compute * 1e6,
+        "t_hbm_us": t_hbm * 1e6,
+        "t_roofline_us": max(t_compute, t_hbm) * 1e6,
+        "bound": "compute" if t_compute >= t_hbm else "hbm",
     }

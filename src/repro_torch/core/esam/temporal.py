@@ -48,6 +48,7 @@ from repro_torch.core import packing
 from repro_torch.core.esam import neuron as nrn
 from repro_torch.core.esam import tile as tile_mod
 from repro_torch.kernels.cim_popcount import ops as pop_ops
+from repro_torch.kernels.common import resolve_device
 from repro_torch.kernels.lif_step import ops as lif_ops
 from repro_torch.kernels.lif_step.ref import (
     RESET_MODES,
@@ -89,10 +90,12 @@ class TemporalConfig:
             raise ValueError(f"refractory must be >= 0, got {self.refractory}")
 
 
-def init_state(topology, batch: int, device="cpu"):
+def init_state(topology, batch: int, device="cuda"):
     """Zero membrane state for one event stream: per hidden tile a
     (vmem float32[B, n], refrac int32[B, n]) pair, plus the readout's
-    float32[B, n_cls] membrane."""
+    float32[B, n_cls] membrane.  On the card unless ``device`` says
+    otherwise: with no GPU the default raises (``resolve_device``)."""
+    device = resolve_device(device)
     hidden = tuple(
         (torch.zeros((batch, n), dtype=torch.float32, device=device),
          torch.zeros((batch, n), dtype=torch.int32, device=device))

@@ -34,6 +34,11 @@ def packed_width(n: int) -> int:
     return -(-n // LANE_BITS)
 
 
+def packed_nbytes(n: int) -> int:
+    """Wire bytes per sample for an n-spike plane (vs n bytes unpacked int8)."""
+    return packed_width(n) * 4
+
+
 def words_from_np(words: np.ndarray) -> torch.Tensor:
     """uint32 numpy words -> int32 torch words with the same bits (CPU)."""
     words = np.ascontiguousarray(words)

@@ -29,7 +29,7 @@ from typing import Callable, Optional
 KERNELS = Path(__file__).resolve().parent
 #: the kernel packages that carry CUDA sources under ``csrc/``
 LIBRARIES = ("cim_popcount", "cim_matmul_packed", "stdp", "arbiter",
-             "lif_step")
+             "lif_step", "cim_matmul", "if_neuron")
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a",
     "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC",

@@ -1,20 +1,25 @@
-// Packed-spike CIM tile with fused IF fire, for NVIDIA Hopper (sm_90a).
+// Packed-spike CIM tile (MAC, and the MAC with fused IF fire), for NVIDIA
+// Hopper (sm_90a).
 //
-// Replaces the Pallas TPU kernel of the JAX reference
+// Replaces two Pallas TPU kernels of the JAX reference
 //   fused_fire_packed  <- src/repro/kernels/cim_matmul_packed/kernel.py:66
 //                         fused_fire_packed_kernel
-// which unpacks the spike words in VMEM, runs the +-1 MAC on the MXU
-// (bf16 x bf16 -> f32) against {0,1} int8 weights [K, N], fires at
-// V >= vth and re-packs the fired bits.  The reference's product is exact
-// (|V| <= K < 2^24), so this kernel sums the same terms in int32 and gives
-// the same fired words:
+//   cim_matmul_packed  <- src/repro/kernels/cim_matmul_packed/kernel.py:47
+//                         mac_packed_kernel
+// which unpack the spike words in VMEM and run the +-1 MAC on the MXU
+// (bf16 x bf16 -> f32) against {0,1} int8 weights [K, N]; the first fires
+// at V >= vth and re-packs the fired bits, the second stores V as int32.
+// The reference's product is exact (|V| <= K < 2^24), so this kernel sums
+// the same terms in int32 and gives the same words and V:
 //
 //     V[b, n] = sum_{k : s[b, k] = 1} (2 * w[k, n] - 1).
 //
 // What bounds it on an H100: for the learning prefix (4096 x 768 -> 256 at
 // spike density ~0.5) about 0.7 MB of operands against ~0.8 G adds, so the
 // bound is the arithmetic (int8 tensor-core rate, 1,979 TOP/s) at well
-// under a microsecond; this version is far from it.
+// under a microsecond; this version is far from it.  The MAC alone (the
+// kernel bench's 1024 x 768 -> 768) writes 3.1 MB of int32 V and is bound by
+// those bytes, about 1.1 us at 3.35 TB/s.
 //
 // Design: the weights become bit planes in shared memory, and the MAC is
 // the popcount identity of the cim_popcount kernels,
@@ -33,7 +38,9 @@
 //     past K in the last word are masked, as the reference's unpack drops
 //     them, and plane bits past K or N are zero;
 //   * the fire predicates of the 32 lanes go through __ballot_sync, which is
-//     exactly the LSB-first wire word (lane i -> bit i).
+//     exactly the LSB-first wire word (lane i -> bit i);
+//   * the MAC without the fire is the same kernel with another epilogue: each
+//     lane stores its neuron's int32 V (32 consecutive words per warp row).
 // Left for later: the int8 tensor-core (mma, int32 accumulate) datapath,
 // cp.async staging.
 
@@ -47,6 +54,9 @@ constexpr int kWarps = kThreads / 32;
 constexpr int kRowsPerWarp = 8;
 constexpr int kRows = kWarps * kRowsPerWarp;
 constexpr int kChunkWords = 64;             // input words per pass
+
+// What the epilogue writes.
+enum OutMode : int { kFireInt8 = 0, kFirePacked = 1, kVmem = 2 };
 
 // The 32 weight bytes w[k, n0 .. n0 + 31] as 8 little-endian words; bytes
 // past N, and every byte of a row k >= K, are zero.
@@ -76,7 +86,7 @@ fused_fire_packed_kernel(const uint32_t* __restrict__ packed, long long lds,
                          const int8_t* __restrict__ w, long long ldw,
                          const int32_t* __restrict__ vth,
                          void* __restrict__ out, int B, int K, int N,
-                         int pack_out, int vec) {
+                         int out_mode, int vec) {
   __shared__ uint32_t wp[kChunkWords][33];  // [word][lane], padded
 
   const int lane = threadIdx.x & 31;
@@ -125,8 +135,13 @@ fused_fire_packed_kernel(const uint32_t* __restrict__ packed, long long lds,
   for (int r = 0; r < kRowsPerWarp; ++r) {
     const long long row = row0 + warp + r * kWarps;
     if (row >= B) continue;
-    const bool fire = n < N && 2 * acc[r] - cnt[r] >= __ldg(vth + n);
-    if (pack_out) {
+    const int v = 2 * acc[r] - cnt[r];
+    if (out_mode == kVmem) {
+      if (n < N) static_cast<int32_t*>(out)[row * N + n] = v;
+      continue;
+    }
+    const bool fire = n < N && v >= __ldg(vth + n);
+    if (out_mode == kFirePacked) {
       const uint32_t word = __ballot_sync(0xffffffffu, fire);
       if (lane == 0)
         static_cast<uint32_t*>(out)[row * (N >> 5) + blockIdx.y] = word;
@@ -134,6 +149,20 @@ fused_fire_packed_kernel(const uint32_t* __restrict__ packed, long long lds,
       static_cast<int8_t*>(out)[row * N + n] = fire ? 1 : 0;
     }
   }
+}
+
+int launch(const void* packed, long long lds, const void* w, long long ldw,
+           const void* vth, void* out, int B, int K, int N, int out_mode,
+           void* stream) {
+  if (B < 1 || K < 1 || N < 1 || (out_mode == kFirePacked && N % 32))
+    return (int)cudaErrorInvalidValue;
+  // 16-byte weight loads when every 32-neuron group starts 16-byte aligned
+  const int vec = (uintptr_t)w % 16 == 0 && ldw % 16 == 0;
+  const dim3 grid((B + kRows - 1) / kRows, (N + 31) / 32);
+  fused_fire_packed_kernel<<<grid, kThreads, 0, (cudaStream_t)stream>>>(
+      (const uint32_t*)packed, lds, (const int8_t*)w, ldw,
+      (const int32_t*)vth, out, B, K, N, out_mode, vec);
+  return (int)cudaGetLastError();
 }
 
 }  // namespace
@@ -147,15 +176,16 @@ extern "C" {
 int cim_matmul_packed_fire(const void* packed, long long lds, const void* w,
                            long long ldw, const void* vth, void* out, int B,
                            int K, int N, int pack_out, void* stream) {
-  if (B < 1 || K < 1 || N < 1 || (pack_out && N % 32))
-    return (int)cudaErrorInvalidValue;
-  // 16-byte weight loads when every 32-neuron group starts 16-byte aligned
-  const int vec = (uintptr_t)w % 16 == 0 && ldw % 16 == 0;
-  const dim3 grid((B + kRows - 1) / kRows, (N + 31) / 32);
-  fused_fire_packed_kernel<<<grid, kThreads, 0, (cudaStream_t)stream>>>(
-      (const uint32_t*)packed, lds, (const int8_t*)w, ldw,
-      (const int32_t*)vth, out, B, K, N, pack_out, vec);
-  return (int)cudaGetLastError();
+  return launch(packed, lds, w, ldw, vth, out, B, K, N,
+                pack_out ? kFirePacked : kFireInt8, stream);
+}
+
+// V int32[B, N] of one tile, from the same operands (no threshold).
+// Returns cudaGetLastError().
+int cim_matmul_packed_mac(const void* packed, long long lds, const void* w,
+                          long long ldw, void* out, int B, int K, int N,
+                          void* stream) {
+  return launch(packed, lds, w, ldw, nullptr, out, B, K, N, kVmem, stream);
 }
 
 const char* cim_matmul_packed_error_string(int err) {

@@ -1,14 +1,15 @@
-"""Wrapper of the packed-spike CIM tile kernel, dispatched by device.
+"""Wrappers of the packed-spike CIM tile kernels, dispatched by device.
 
+Spikes arrive as wire words, weights as {0,1} int8 ``[K, N]``.
 ``esam_layer_packed`` is the learning prefix's tile (``plan.packed_prefix``,
-the reference's ``plan._packed_cascade``): spikes arrive as wire words, weights as {0,1}
-int8 ``[K, N]``, and the fired spikes leave re-packed.  CPU tensors run the
-plain version in ``ref.py``; CUDA tensors launch
-``csrc/cim_matmul_packed.cu`` (built by ``kernels/_build.py`` at first use)
-or the call raises.  Launches are counted (:func:`launch_counts`).
-
-The reference's ``cim_matmul_packed`` (the MAC without the fire) is not on
-the port's path yet and has no wrapper here.
+the reference's ``plan._packed_cascade``): the fired spikes leave re-packed.
+``cim_matmul_packed`` is the MAC without the fire (int32 V_mem), which the
+kernel bench (``launch/bench_kernels.py``) runs alone and as the readout of
+the per-tile cascade.  CPU tensors run the plain versions in ``ref.py``;
+CUDA tensors launch ``csrc/cim_matmul_packed.cu`` (built by
+``kernels/_build.py`` at first use) or the call raises.  Any K runs: bits
+past K in the last word are masked, which gives the reference's
+zero-padded result.  Launches are counted (:func:`launch_counts`).
 """
 
 from __future__ import annotations
@@ -27,6 +28,7 @@ from repro_torch.kernels.cim_matmul_packed.ref import (  # noqa: F401  (re-expor
 )
 
 __all__ = [
+    "cim_matmul_packed",
     "esam_layer_packed",
     "esam_layer_packed_ref",
     "cim_matmul_packed_ref",
@@ -35,7 +37,7 @@ __all__ = [
 ]
 
 #: kernel launches since the last reset, per kernel
-_LAUNCHES = {"fused_fire_packed": 0}
+_LAUNCHES = {"fused_fire_packed": 0, "cim_matmul_packed": 0}
 
 
 def launch_counts() -> dict[str, int]:
@@ -53,6 +55,54 @@ def _declare(lib: ctypes.CDLL) -> None:
     lib.cim_matmul_packed_fire.argtypes = [
         vp, i64, vp, i64, vp, vp, i32, i32, i32, i32, vp]
     lib.cim_matmul_packed_fire.restype = i32
+    lib.cim_matmul_packed_mac.argtypes = [
+        vp, i64, vp, i64, vp, i32, i32, i32, vp]
+    lib.cim_matmul_packed_mac.restype = i32
+
+
+def _check(packed: torch.Tensor, weight_bits: torch.Tensor) -> tuple:
+    if packed.dtype != WORD_DTYPE or packed.dim() != 2:
+        raise TypeError(f"packed: expected int32 words [B, W], got "
+                        f"{packed.dtype}{list(packed.shape)}")
+    if weight_bits.dim() != 2:
+        raise ValueError(f"weight_bits must be [K, N], got "
+                         f"{tuple(weight_bits.shape)}")
+    B, W = packed.shape
+    K, N = weight_bits.shape
+    if W != packing.packed_width(K):
+        raise ValueError(f"{W} words for {K} inputs")
+    return B, K, N
+
+
+def _check_card(packed: torch.Tensor, weight_bits: torch.Tensor) -> None:
+    if weight_bits.dtype != torch.int8:
+        raise TypeError(f"weight_bits must be int8, got {weight_bits.dtype}")
+    if packed.stride(1) != 1 or weight_bits.stride(1) != 1:
+        raise ValueError("packed and weight_bits need contiguous rows")
+
+
+def cim_matmul_packed(
+    packed: torch.Tensor,        # int32 words [B, ceil(K/32)]
+    weight_bits: torch.Tensor,   # {0,1} int8 [K, N]
+) -> torch.Tensor:
+    """V_mem int32[B, N] = unpack(packed) @ (2*bits - 1); on the card the
+    spikes are never unpacked."""
+    B, K, N = _check(packed, weight_bits)
+    if on_cpu(packed, weight_bits):
+        return cim_matmul_packed_ref(packed, weight_bits)
+    dev = check_cuda_operands({"packed": packed, "weight_bits": weight_bits})
+    _check_card(packed, weight_bits)
+    out = torch.empty((B, N), dtype=torch.int32, device=dev)
+    if B == 0:
+        return out
+    kl = _build.load_library("cim_matmul_packed", _declare)
+    with torch.cuda.device(dev):
+        err = kl.lib.cim_matmul_packed_mac(
+            packed.data_ptr(), packed.stride(0), weight_bits.data_ptr(),
+            weight_bits.stride(0), out.data_ptr(), B, K, N, stream_ptr(dev))
+    _build.check(kl, err, "cim_matmul_packed launch")
+    _LAUNCHES["cim_matmul_packed"] += 1
+    return out
 
 
 def esam_layer_packed(
@@ -67,16 +117,7 @@ def esam_layer_packed(
     Returns int32 words [B, N/32] when ``pack_output`` (N must be a multiple
     of 32), else int8 {0,1}[B, N]; V_mem never leaves the kernel.
     """
-    if packed.dtype != WORD_DTYPE or packed.dim() != 2:
-        raise TypeError(f"packed: expected int32 words [B, W], got "
-                        f"{packed.dtype}{list(packed.shape)}")
-    if weight_bits.dim() != 2:
-        raise ValueError(f"weight_bits must be [K, N], got "
-                         f"{tuple(weight_bits.shape)}")
-    B, W = packed.shape
-    K, N = weight_bits.shape
-    if W != packing.packed_width(K):
-        raise ValueError(f"{W} words for {K} inputs")
+    B, K, N = _check(packed, weight_bits)
     if tuple(vth.shape) != (N,):
         raise ValueError(f"vth {tuple(vth.shape)} for {N} neurons")
     if pack_output and N % LANE_BITS:
@@ -86,10 +127,7 @@ def esam_layer_packed(
                                      pack_output=pack_output)
     dev = check_cuda_operands(
         {"packed": packed, "weight_bits": weight_bits, "vth": vth})
-    if weight_bits.dtype != torch.int8:
-        raise TypeError(f"weight_bits must be int8, got {weight_bits.dtype}")
-    if packed.stride(1) != 1 or weight_bits.stride(1) != 1:
-        raise ValueError("packed and weight_bits need contiguous rows")
+    _check_card(packed, weight_bits)
     vth = vth.to(torch.int32).contiguous()
     out = (torch.empty((B, N // LANE_BITS), dtype=WORD_DTYPE, device=dev)
            if pack_output else torch.empty((B, N), dtype=torch.int8, device=dev))

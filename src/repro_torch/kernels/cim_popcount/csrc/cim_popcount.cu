@@ -18,7 +18,7 @@
 // throughput), a quarter of the AND/ADD rate, so popc throughput is the
 // roofline: 0.32 us for a 128-row round on an NVIDIA H100 80GB HBM3 at its
 // 1980 MHz maximum SM clock (700 W limit).  Measured on that card by
-// chip_smoke.py, this kernel takes 17.7 us for 128 rows and 44 us for 4096:
+// chip_smoke.py, this kernel takes 10.9 us for 128 rows and 41 us for 4096:
 // it is bound by latency inside each block (a dependent chain of shared
 // loads per word), not by popc throughput.
 //
@@ -40,7 +40,12 @@
 // popcount_fire is one tile of the same datapath as its own launch (the
 // reference's `prefix` plan runs one per hidden tile): the same staging and
 // per-lane MAC, a block per (batch rows, 256 neurons) so a 4096-row batch
-// spreads over the SMs.
+// spreads over the SMs.  popcount_mac is that kernel with an int32 V
+// epilogue: one thread per output, reading both operands from global
+// memory, was slower than cim_matmul_packed.cu's MAC, which the popcount
+// plane must beat (the kernel bench's floor).  Weight staging keeps
+// kStageLoads loads in flight per thread: one load at a time left the
+// cascade waiting on memory for each staged word.
 // Left for later: persistent blocks, cp.async/TMA staging of the next tile
 // under the current one, an int8 tensor-core datapath.
 
@@ -51,6 +56,10 @@ namespace {
 
 constexpr int kMaxTiles = 16;
 constexpr int kThreads = 256;
+constexpr int kStageLoads = 8;    // weight loads in flight per thread
+
+// What popcount_fire_kernel's epilogue writes.
+enum OutMode : int { kFireInt8 = 0, kFirePacked = 1, kVmem = 2 };
 
 struct CascadeGeometry {
   int n_tiles;
@@ -71,20 +80,37 @@ __host__ __device__ inline int round32(int n) { return (n + 31) & ~31; }
 __device__ __forceinline__ int and_popc(const uint32_t* s, const uint32_t* wt,
                                         int ld, int n, int w) {
   int acc = 0;
+#pragma unroll 4
   for (int j = 0; j < w; ++j) acc += __popc(s[j] & wt[j * ld + n]);
   return acc;
 }
 
 // Stage planes rows [n0, n0 + n_rows) (row stride ldw words, `w` words each)
-// transposed into wt[j * ld + n]; rows past n_real are zero.
+// transposed into wt[j * ld + n]; rows past n_real are zero.  Each thread
+// issues kStageLoads loads before it stores any, so a block keeps that many
+// reads in flight per thread instead of waiting out each one.
 __device__ __forceinline__ void stage_planes(uint32_t* wt, int ld,
                                              const uint32_t* __restrict__ planes,
                                              long long ldw, int n0, int n_rows,
                                              int n_real, int w) {
-  for (int i = threadIdx.x; i < n_rows * w; i += blockDim.x) {
-    const int n = i / w, j = i - n * w;
-    wt[j * ld + n] =
-        n0 + n < n_real ? __ldg(planes + (long long)(n0 + n) * ldw + j) : 0u;
+  const int total = n_rows * w;
+  for (int base = threadIdx.x; base < total;
+       base += blockDim.x * kStageLoads) {
+    uint32_t v[kStageLoads];
+#pragma unroll
+    for (int u = 0; u < kStageLoads; ++u) {
+      const int i = base + u * blockDim.x;
+      const int n = i / w, j = i - n * w;
+      v[u] = i < total && n0 + n < n_real
+                 ? __ldg(planes + (long long)(n0 + n) * ldw + j)
+                 : 0u;
+    }
+#pragma unroll
+    for (int u = 0; u < kStageLoads; ++u) {
+      const int i = base + u * blockDim.x;
+      const int n = i / w, j = i - n * w;
+      if (i < total) wt[j * ld + n] = v[u];
+    }
   }
 }
 
@@ -192,38 +218,19 @@ mega_cascade_kernel(const uint32_t* __restrict__ packed, int B,
   }
 }
 
-// One thread per (b, n) output, looping over the words.
-__global__ void __launch_bounds__(kThreads)
-popcount_mac_kernel(const uint32_t* __restrict__ packed, long long lds,
-                    const uint32_t* __restrict__ planes, long long ldw,
-                    int32_t* __restrict__ out, int B, int N, int W) {
-  const long long idx = (long long)blockIdx.x * blockDim.x + threadIdx.x;
-  if (idx >= (long long)B * N) return;
-  const long long b = idx / N;
-  const long long n = idx - b * N;
-  const uint32_t* s = packed + b * lds;
-  const uint32_t* w = planes + n * ldw;
-  int acc = 0, spc = 0;
-  for (int j = 0; j < W; ++j) {
-    const uint32_t x = __ldg(s + j);
-    acc += __popc(x & __ldg(w + j));
-    spc += __popc(x);
-  }
-  out[idx] = 2 * acc - spc;
-}
-
-// One tile's fire: grid (ceil(B / rows), ceil(N / (32 * gpb))).  A block
-// stages its gpb * 32 neurons' planes (transposed, as the cascade does) and
-// its rows' spike words in shared memory; each warp task is one (row,
-// 32-neuron group): the cascade's MAC, the IF compare, and either the
-// __ballot_sync re-pack (pack_out) or one int8 spike per lane.  Planes words
-// are ANDed in full, as the reference does, so nothing relies on their tail
-// bits being zero; spike tails are zero by the wire format.
+// One tile's fire (or MAC): grid (ceil(B / rows), ceil(N / (32 * gpb))).  A
+// block stages its gpb * 32 neurons' planes (transposed, as the cascade does)
+// and its rows' spike words in shared memory; each warp task is one (row,
+// 32-neuron group): the cascade's MAC, then by out_mode the IF compare and
+// either the __ballot_sync re-pack (kFirePacked) or one int8 spike per lane
+// (kFireInt8), or the int32 V per lane (kVmem: the popcount_mac kernel).
+// Planes words are ANDed in full, as the reference does, so nothing relies
+// on their tail bits being zero; spike tails are zero by the wire format.
 __global__ void __launch_bounds__(kThreads)
 popcount_fire_kernel(const uint32_t* __restrict__ packed, long long lds,
                      const uint32_t* __restrict__ planes, long long ldw,
                      const int32_t* __restrict__ vth, void* __restrict__ out,
-                     int B, int N, int W, int rows, int gpb, int pack_out) {
+                     int B, int N, int W, int rows, int gpb, int out_mode) {
   extern __shared__ uint32_t smem[];
   const int ld = gpb * 32 + 1;
   uint32_t* wt = smem;                         // [W][gpb * 32 + 1]
@@ -257,9 +264,13 @@ popcount_fire_kernel(const uint32_t* __restrict__ packed, long long lds,
     const int n_local = (grp << 5) + lane;
     const int n = n0 + n_local;
     const int v = 2 * and_popc(srow + r * W, wt, ld, n_local, W) - spc[r];
-    const bool fire = n < N && v >= __ldg(vth + n);
     const long long row = row0 + r;
-    if (pack_out) {
+    if (out_mode == kVmem) {
+      if (n < N) static_cast<int32_t*>(out)[row * N + n] = v;
+      continue;
+    }
+    const bool fire = n < N && v >= __ldg(vth + n);
+    if (out_mode == kFirePacked) {
       const uint32_t word = __ballot_sync(0xffffffffu, fire);
       if (lane == 0)
         static_cast<uint32_t*>(out)[row * (N >> 5) + (n >> 5)] = word;
@@ -272,6 +283,27 @@ popcount_fire_kernel(const uint32_t* __restrict__ packed, long long lds,
 size_t fire_smem_bytes(int W, int rows, int gpb) {
   return sizeof(uint32_t) *
          ((size_t)W * (gpb * 32 + 1) + (size_t)rows * W + rows);
+}
+
+// One launch of popcount_fire_kernel; returns cudaGetLastError().
+int launch_tile(const void* packed, long long lds, const void* planes,
+                long long ldw, const void* vth, void* out, int B, int N, int W,
+                int rows, int gpb, int out_mode, void* stream) {
+  if (B < 1 || N < 1 || W < 1 || rows < 1 || gpb < 1 ||
+      (out_mode == kFirePacked && N % 32))
+    return (int)cudaErrorInvalidValue;
+  const size_t smem = fire_smem_bytes(W, rows, gpb);
+  if (smem > 48 * 1024) {
+    const cudaError_t err = cudaFuncSetAttribute(
+        popcount_fire_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+        (int)smem);
+    if (err != cudaSuccess) return (int)err;
+  }
+  const dim3 grid((B + rows - 1) / rows, (N + 32 * gpb - 1) / (32 * gpb));
+  popcount_fire_kernel<<<grid, kThreads, smem, (cudaStream_t)stream>>>(
+      (const uint32_t*)packed, lds, (const uint32_t*)planes, ldw,
+      (const int32_t*)vth, out, B, N, W, rows, gpb, out_mode);
+  return (int)cudaGetLastError();
 }
 
 }  // namespace
@@ -290,22 +322,20 @@ long long cim_popcount_fire_smem_bytes(int W, int rows, int gpb) {
 int cim_popcount_fire(const void* packed, long long lds, const void* planes,
                       long long ldw, const void* vth, void* out, int B, int N,
                       int W, int rows, int gpb, int pack_out, void* stream) {
-  if (B < 1 || N < 1 || W < 1 || rows < 1 || gpb < 1 ||
-      (pack_out && N % 32))
-    return (int)cudaErrorInvalidValue;
-  const size_t smem = fire_smem_bytes(W, rows, gpb);
-  if (smem > 48 * 1024) {
-    const cudaError_t err = cudaFuncSetAttribute(
-        popcount_fire_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-        (int)smem);
-    if (err != cudaSuccess) return (int)err;
-  }
-  const dim3 grid((B + rows - 1) / rows, (N + 32 * gpb - 1) / (32 * gpb));
-  popcount_fire_kernel<<<grid, kThreads, smem, (cudaStream_t)stream>>>(
-      (const uint32_t*)packed, lds, (const uint32_t*)planes, ldw,
-      (const int32_t*)vth, out, B, N, W, rows, gpb, pack_out);
-  return (int)cudaGetLastError();
+  return launch_tile(packed, lds, planes, ldw, vth, out, B, N, W, rows, gpb,
+                     pack_out ? kFirePacked : kFireInt8, stream);
 }
+
+// V int32[B, N] from packed uint32[B, W] (row stride lds words) and planes
+// uint32[N, W] (row stride ldw words): popcount_fire's kernel with the V
+// epilogue, `rows` and `gpb` as there.  Returns cudaGetLastError().
+int cim_popcount_mac(const void* packed, long long lds, const void* planes,
+                     long long ldw, void* out, int B, int N, int W, int rows,
+                     int gpb, void* stream) {
+  return launch_tile(packed, lds, planes, ldw, nullptr, out, B, N, W, rows,
+                     gpb, kVmem, stream);
+}
+
 
 // Dynamic shared memory one block of the mega cascade needs.
 long long cim_mega_cascade_smem_bytes(int n_tiles, const int* n_out,
@@ -339,20 +369,6 @@ int cim_mega_cascade(const void* packed, int B, const void* w_stack,
       (const uint32_t*)packed, B, (const uint32_t*)w_stack,
       (const int32_t*)vth_stack, (int32_t*)logits, (uint32_t*)fired, g,
       block_b);
-  return (int)cudaGetLastError();
-}
-
-// V int32[B, N] from packed uint32[B, W] (row stride lds words) and planes
-// uint32[N, W] (row stride ldw words).  Returns cudaGetLastError().
-int cim_popcount_mac(const void* packed, long long lds, const void* planes,
-                     long long ldw, void* out, int B, int N, int W,
-                     void* stream) {
-  if (B < 1 || N < 1 || W < 1) return (int)cudaErrorInvalidValue;
-  const long long total = (long long)B * N;
-  const int grid = (int)((total + kThreads - 1) / kThreads);
-  popcount_mac_kernel<<<grid, kThreads, 0, (cudaStream_t)stream>>>(
-      (const uint32_t*)packed, lds, (const uint32_t*)planes, ldw,
-      (int32_t*)out, B, N, W);
   return (int)cudaGetLastError();
 }
 

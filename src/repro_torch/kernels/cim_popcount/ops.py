@@ -109,7 +109,8 @@ def _declare(lib: ctypes.CDLL) -> None:
     lib.cim_popcount_fire.restype = i32
     lib.cim_popcount_fire_smem_bytes.argtypes = [i32, i32, i32]
     lib.cim_popcount_fire_smem_bytes.restype = i64
-    lib.cim_popcount_mac.argtypes = [vp, i64, vp, i64, vp, i32, i32, i32, vp]
+    lib.cim_popcount_mac.argtypes = [vp, i64, vp, i64, vp, i32, i32, i32,
+                                     i32, i32, vp]
     lib.cim_popcount_mac.restype = i32
     lib.cim_max_shared_optin.argtypes = [i32]
     lib.cim_max_shared_optin.restype = i64
@@ -124,14 +125,16 @@ def _int_array(values) -> ctypes.Array:
 
 
 def _default_block_b(batch: int, device_index: int) -> int:
-    """Rows per block: spread the batch over the card's SMs — one row per
-    block while the batch is no larger than the SM count — up to
+    """Rows per block: spread the batch over two blocks per SM -- one row
+    per block while the batch is no larger than twice the SM count -- up to
     ``CASCADE_MAX_BLOCK_B`` rows.  Each block stages every tile's weights
     once, so more rows per block amortise that, while fewer rows put more
     blocks (and warps) in flight.  On an NVIDIA H100 80GB HBM3 (700 W
-    limit) a 128-row batch ran fastest at 1 row per block and a 4096-row
-    batch at 8 (chip_smoke.py's ``block_sweep`` lines)."""
-    rows = -(-batch // sm_count(device_index))
+    limit) a 128-row batch of the paper topology ran fastest at 1 row per
+    block, a 4096-row batch at 8 or 16, and a 1024-row batch of
+    (768, 768, 768, 10) at 4 (44.2 us; 55.0 at 8), as
+    ``chip_smoke.py``'s ``block_sweep`` lines show."""
+    rows = -(-batch // (2 * sm_count(device_index)))
     return max(1, min(CASCADE_MAX_BLOCK_B, rows))
 
 
@@ -177,10 +180,12 @@ def cim_popcount_matmul(packed: torch.Tensor,
     if B == 0:
         return out
     kl = _library()
+    rows, gpb = _fire_geometry(B, N, W, dev.index)
     with torch.cuda.device(dev):
         err = kl.lib.cim_popcount_mac(
             packed.data_ptr(), packed.stride(0), planes.data_ptr(),
-            planes.stride(0), out.data_ptr(), B, N, W, stream_ptr(dev))
+            planes.stride(0), out.data_ptr(), B, N, W, rows, gpb,
+            stream_ptr(dev))
     _build.check(kl, err, "popcount_mac launch")
     _LAUNCHES["popcount_mac"] += 1
     return out
@@ -188,9 +193,10 @@ def cim_popcount_matmul(packed: torch.Tensor,
 
 @functools.lru_cache(maxsize=None)
 def _fire_geometry(B: int, N: int, W: int, device_index: int):
-    """(rows, groups) per block of ``popcount_fire``: the rows spread the
-    batch over the card's SMs as the cascade does, up to ``FIRE_MAX_ROWS``;
-    the groups halve until a block's staged planes fit shared memory."""
+    """(rows, groups) per block of ``popcount_fire`` and ``popcount_mac``
+    (one kernel, two epilogues): the rows spread the batch over the card's
+    SMs, up to ``FIRE_MAX_ROWS``; the groups halve until a block's staged
+    planes fit shared memory."""
     lib = _library().lib
     rows = max(1, min(FIRE_MAX_ROWS, cdiv(B, sm_count(device_index))))
     gpb = min(FIRE_MAX_GROUPS, cdiv(N, LANE_BITS))

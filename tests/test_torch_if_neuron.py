@@ -1,0 +1,117 @@
+"""repro_torch.kernels.if_neuron against repro.kernels.if_neuron.
+
+On the CPU the port's ``if_neuron`` (its plain version) is held bit for bit
+against the reference's Pallas kernel in interpret mode and its jnp
+oracle, on updates made with numpy from a seed: the reference's shapes,
+threshold equality (which fires) and int32 wraparound (which JAX's int32
+adds and the port's ``dtype=torch.int32`` sum share).  The CUDA kernel
+against the plain version runs only on a card (marker ``cuda``); here it
+skips."""
+
+from __future__ import annotations
+
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from repro.kernels.if_neuron import ops as jops
+from repro_torch.kernels.if_neuron import ops
+
+#: the reference's shapes (tests/test_kernels.py)
+SHAPES = [(8, 32, 128), (16, 5, 256), (8, 1, 128)]
+
+
+def _operands(seed, B, T, N):
+    rng = np.random.default_rng(seed)
+    upd = rng.integers(-4, 5, size=(B, T, N), dtype=np.int32)
+    vth = rng.integers(-20, 20, size=(N,), dtype=np.int32)
+    return upd, vth
+
+
+def _check(upd, vth):
+    ju, jv = jnp.asarray(upd), jnp.asarray(vth)
+    k_spikes, k_vmem = jops.if_neuron(ju, jv, interpret=True)
+    r_spikes, r_vmem = jops.if_neuron_ref(ju, jv)
+    np.testing.assert_array_equal(np.asarray(k_spikes), np.asarray(r_spikes))
+    np.testing.assert_array_equal(np.asarray(k_vmem), np.asarray(r_vmem))
+    ops.reset_launch_counts()
+    spikes, vmem = ops.if_neuron(torch.from_numpy(upd), torch.from_numpy(vth))
+    assert ops.launch_counts() == {"if_neuron": 0}
+    assert spikes.dtype == torch.int8 and vmem.dtype == torch.int32
+    np.testing.assert_array_equal(spikes.numpy(), np.asarray(k_spikes))
+    np.testing.assert_array_equal(vmem.numpy(), np.asarray(k_vmem))
+    return spikes.numpy(), vmem.numpy()
+
+
+@pytest.mark.parametrize("B,T,N", SHAPES)
+def test_matches_jax_kernel(B, T, N):
+    spikes, _ = _check(*_operands(B * T + N, B, T, N))
+    assert 0 < spikes.sum() < spikes.size
+
+
+def test_threshold_equality_fires():
+    """fire iff V_mem >= V_th: equality fires (Sec 2.1)."""
+    spikes, vmem = _check(np.ones((8, 3, 128), np.int32),
+                          np.full((128,), 3, np.int32))
+    assert np.all(vmem == 3) and np.all(spikes == 1)
+
+
+def test_int32_wraparound():
+    """Updates near 2^30 over T = 4 overflow int32; both packages wrap."""
+    rng = np.random.default_rng(7)
+    upd = rng.integers(2**30, 2**31 - 1, size=(8, 4, 128)).astype(np.int32)
+    upd[:, :, :64] *= -1
+    vth = rng.integers(-2**31, 2**31 - 1, size=(128,)).astype(np.int32)
+    _, vmem = _check(upd, vth)
+    wide = upd.astype(np.int64).sum(axis=1)
+    assert not np.array_equal(vmem, wide)           # it did overflow
+    np.testing.assert_array_equal(vmem, wide.astype(np.uint64)
+                                  .astype(np.uint32).view(np.int32))
+
+
+def test_rejects_bad_operands():
+    upd, vth = _operands(1, 2, 3, 16)
+    tu, tv = torch.from_numpy(upd), torch.from_numpy(vth)
+    with pytest.raises(ValueError):
+        ops.if_neuron(tu[0], tv)
+    with pytest.raises(ValueError):
+        ops.if_neuron(tu, tv[:8])
+    meta = torch.device("meta")
+    with pytest.raises(ValueError):
+        ops.if_neuron(tu.to(meta), tv.to(meta))
+    assert ops.launch_counts() == {"if_neuron": 0}
+
+
+# ----------------------------------------------------------------------- #
+# the CUDA kernel against the plain version, on the card
+# ----------------------------------------------------------------------- #
+@pytest.fixture
+def cuda():
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU (CUDA kernels have no CPU mode)")
+    return torch.device("cuda")
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("B,T,N", SHAPES + [(8, 32, 256), (1, 5, 10),
+                                            (7, 3, 100), (4096, 4, 256)])
+def test_cuda_matches_plain(cuda, B, T, N):
+    upd, vth = _operands(B + T + N, B, T, N)
+    tu, tv = torch.from_numpy(upd).to(cuda), torch.from_numpy(vth).to(cuda)
+    ops.reset_launch_counts()
+    got = ops.if_neuron(tu, tv)
+    assert ops.launch_counts() == {"if_neuron": 1}
+    for a, b in zip(got, ops.if_neuron_ref(tu, tv)):
+        assert a.dtype == b.dtype and torch.equal(a, b)
+
+
+@pytest.mark.cuda
+def test_cuda_wraps_and_fires_at_equality(cuda):
+    big = torch.full((8, 4, 128), 2**30 + 3, dtype=torch.int32, device=cuda)
+    zero = torch.zeros((128,), dtype=torch.int32, device=cuda)
+    for a, b in zip(ops.if_neuron(big, zero), ops.if_neuron_ref(big, zero)):
+        assert torch.equal(a, b)
+    ones = torch.ones((8, 3, 128), dtype=torch.int32, device=cuda)
+    spikes, vmem = ops.if_neuron(ones, zero + 3)
+    assert bool(spikes.all()) and bool((vmem == 3).all())

@@ -251,4 +251,5 @@ def test_cuda_epochs_match_cpu(cuda, topo):
     assert gpu[4] == {"stdp_column_event": 600, "stdp_update": 40}
     hidden_packed = all(n % 32 == 0 for n in topo[1:-1])
     assert gpu[5] == {"fused_fire_packed":
-                      len(topo) - 2 if hidden_packed else 0}
+                      len(topo) - 2 if hidden_packed else 0,
+                      "cim_matmul_packed": 0}

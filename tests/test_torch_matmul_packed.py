@@ -1,10 +1,12 @@
 """repro_torch.kernels.cim_matmul_packed against repro.kernels.cim_matmul_packed.
 
-On the CPU the port's plain version of the packed-spike fire tile is held
-bit for bit against the reference's Pallas ``fused_fire_packed_kernel`` in
-interpret mode and its jnp reference, on inputs made with numpy from a seed
-(odd K, ragged batches, both output forms).  The CUDA kernel against the
-plain version runs only on a card (marker ``cuda``); here it skips."""
+On the CPU the port's plain versions of the packed-spike tile -- the fire
+(``esam_layer_packed``) and the MAC alone (``cim_matmul_packed``) -- are
+held bit for bit against the reference's Pallas ``fused_fire_packed_kernel``
+and ``mac_packed_kernel`` in interpret mode and its jnp reference, on inputs
+made with numpy from a seed (odd K, ragged batches, both output forms).
+The CUDA kernels against the plain versions run only on a card (marker
+``cuda``); here they skip."""
 
 from __future__ import annotations
 
@@ -43,9 +45,25 @@ def test_fire_matches_jax_kernel_and_ref(B, K, N, pack_output):
     ops.reset_launch_counts()
     got = ops.esam_layer_packed(packing.words_from_np(x), torch.from_numpy(w),
                                 torch.from_numpy(vth), pack_output=pack_output)
-    assert ops.launch_counts() == {"fused_fire_packed": 0}
+    assert ops.launch_counts() == {"fused_fire_packed": 0,
+                                   "cim_matmul_packed": 0}
     got = packing.words_to_np(got) if pack_output else got.numpy()
     np.testing.assert_array_equal(got, want)
+
+
+@pytest.mark.parametrize("B,K,N", SHAPES)
+def test_mac_matches_jax_kernel(B, K, N):
+    """B9': the MAC without the fire, K = 100 and 777 included (the
+    reference pads K to its block; the port masks the last word)."""
+    x, w, _ = _operands(B + 2 * K + N, B, K, N)
+    want = np.asarray(jops.cim_matmul_packed(jnp.asarray(x), jnp.asarray(w),
+                                             interpret=True))
+    ops.reset_launch_counts()
+    got = ops.cim_matmul_packed(packing.words_from_np(x), torch.from_numpy(w))
+    assert ops.launch_counts() == {"fused_fire_packed": 0,
+                                   "cim_matmul_packed": 0}
+    assert got.dtype == torch.int32
+    np.testing.assert_array_equal(got.numpy(), want)
 
 
 def test_mac_ref_matches_jax_ref():
@@ -72,6 +90,12 @@ def test_rejects_bad_operands():
     with pytest.raises(ValueError):
         ops.esam_layer_packed(xt.to(meta), wt.to(meta), vt.to(meta),
                               pack_output=False)
+    with pytest.raises(ValueError):
+        ops.cim_matmul_packed(xt, wt[:30])
+    with pytest.raises(TypeError):
+        ops.cim_matmul_packed(xt.to(torch.int64), wt)
+    with pytest.raises(ValueError):
+        ops.cim_matmul_packed(xt.to(meta), wt.to(meta))
 
 
 @pytest.fixture
@@ -91,7 +115,8 @@ def test_cuda_fire_matches_plain(cuda, B, K, N, pack_output):
                   torch.from_numpy(w).to(cuda), torch.from_numpy(vth).to(cuda))
     ops.reset_launch_counts()
     got = ops.esam_layer_packed(xt, wt, vt, pack_output=pack_output)
-    assert ops.launch_counts() == {"fused_fire_packed": 1}
+    assert ops.launch_counts() == {"fused_fire_packed": 1,
+                                   "cim_matmul_packed": 0}
     want = ops.esam_layer_packed_ref(xt, wt, vt, pack_output=pack_output)
     assert torch.equal(got, want)
 
@@ -111,3 +136,18 @@ def test_cuda_fire_on_weight_views(cuda, width, first, N):
         got = ops.esam_layer_packed(xt, wt, vt, pack_output=pack_output)
         want = ops.esam_layer_packed_ref(xt, wt, vt, pack_output=pack_output)
         assert torch.equal(got, want)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("B,K,N", SHAPES + [(1024, 768, 768),
+                                            (4096, 768, 256), (7, 777, 10),
+                                            (1, 100, 96), (3, 3000, 64)])
+def test_cuda_mac_matches_plain(cuda, B, K, N):
+    x, w, _ = _operands(2 * B + K + N, B, K, N)
+    xt = packing.words_from_np(x).to(cuda)
+    wt = torch.from_numpy(w).to(cuda)
+    ops.reset_launch_counts()
+    got = ops.cim_matmul_packed(xt, wt)
+    assert ops.launch_counts() == {"fused_fire_packed": 0,
+                                   "cim_matmul_packed": 1}
+    assert torch.equal(got, ops.cim_matmul_packed_ref(xt, wt))

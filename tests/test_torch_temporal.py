@@ -31,6 +31,7 @@ from repro_torch.core.esam.network import EsamNetwork
 from repro_torch.core.esam.plan import NOT_PORTED_MODES, PlanSpec
 from repro_torch.core.esam.temporal import (
     TemporalConfig,
+    init_state,
     temporal_forward_naive,
 )
 from repro_torch.kernels.lif_step import ops as lif_ops
@@ -269,6 +270,22 @@ def test_temporal_t1_bit_identical_to_packed(seed):
     cfg = TemporalConfig(n_steps=1, leak=0.0, reset="zero", refractory=0)
     got = net.plan(mode="temporal", temporal=cfg)(ev).logits
     assert torch.equal(got, net.plan(mode="packed")(ev[0]).logits)
+
+
+def test_init_state_defaults_to_the_card():
+    """``init_state`` puts the state on the card unless told otherwise; with
+    no GPU the default raises, as ``resolve_device`` does."""
+    topo = (64, 32, 32, 10)
+    if torch.cuda.is_available():
+        hidden, out_v = init_state(topo, 3)
+        assert out_v.device.type == "cuda"
+    else:
+        with pytest.raises(RuntimeError, match="no CUDA device"):
+            init_state(topo, 3)
+    hidden, out_v = init_state(topo, 3, device="cpu")
+    assert [(v.shape, v.dtype, r.dtype) for v, r in hidden] == [
+        ((3, 32), torch.float32, torch.int32)] * 2
+    assert out_v.shape == (3, 10) and out_v.device.type == "cpu"
 
 
 def test_temporal_plan_is_cached_per_spec():
