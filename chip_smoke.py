@@ -12,7 +12,9 @@ Phases; any failure raises, so the exit code is non-zero:
    at the paths' shapes and more (B9', B10 and B11 at the bench's shapes,
    ragged ones and 4096 x 768 -> 256; B10 in four spike dtypes; B11 at
    threshold equality and int32 wraparound; B1 at the bench's
-   (768, 768, 768, 10)), timed against its bound;
+   (768, 768, 768, 10); the epoch kernel at 4096 x 256 -> 10 and ragged
+   and wide readouts, with ties, offsets and an out-of-range label), timed
+   against its bound;
 4. the serving path: ``repro_torch.launch.serve --esam`` at the paper
    topology 768:256:256:256:10, max_batch 128, telemetry on, 4096 digit
    requests, with the launch counters set to 0 just before and read just
@@ -22,13 +24,15 @@ Phases; any failure raises, so the exit code is non-zero:
 5. the one-tile path: a 768:10 network served through ``SpikeEngine``
    (``popcount_mac``), counted and checked the same way;
 6. the learning path: ``repro_torch.train.online.train_online`` on the paper
-   topology (4096 training and 1024 eval digits, 3 shuffled epochs,
+   topology (4096 training and 1024 eval digits, 6 shuffled epochs,
    checkpoints), counted the same way (``popcount_fire`` per hidden tile and
-   split, ``stdp_column_event`` twice per sample) and held bit for bit
-   against the same call on the CPU (the plain versions); then
+   split, ``stdp_column_epoch`` once per epoch) and held bit for bit
+   against the same call on the CPU (the plain versions); each epoch's
+   up-front draw and epoch kernel timed apart on the same inputs; then
    ``learning.online_learning_epoch`` through the packed prefix
-   (``fused_fire_packed``) and ``online_learning_epoch_scan`` with the matrix
-   RNG (``stdp_update``), each against its CPU twin;
+   (``fused_fire_packed``, one ``stdp_column_epoch``) and
+   ``online_learning_epoch_scan`` with the matrix RNG (``stdp_update``),
+   each against its CPU twin;
 7. the cycle plane: the quickstart twin (``repro_torch.launch.quickstart``:
    BNN -> SNN -> packed plan -> cycle plan at 4 ports -> Fig 8) at the paper
    topology, one ``port_schedule`` launch per tile; the measured Fig 8 sweep
@@ -52,7 +56,8 @@ Phases; any failure raises, so the exit code is non-zero:
    launch counter is set to 0 just before and held to the calls the bench
    reports just after (the bench times the plain versions by name, so none
    is forbidden here; every other phase forbids them all);
-10. one JSON line of the kernels (13), then the result line.
+10. one JSON line of the kernels (14: the 13 Pallas kernels' ports and the
+    epoch kernel), then the result line.
 
 It needs a CUDA device and exits non-zero without one.
 """
@@ -86,7 +91,7 @@ SERVE_REQUESTS = 4096
 BUCKET = 128                   # the engine's max_batch: one round's batch
 
 #: the learning path: the port's twin of examples/online_learning.py
-LEARN_TRAIN, LEARN_EVAL, LEARN_EPOCHS = 4096, 1024, 3
+LEARN_TRAIN, LEARN_EVAL, LEARN_EPOCHS = 4096, 1024, 6
 LEARN_P_POT, LEARN_P_DEP = 0.2, 0.1
 #: samples of the matrix-RNG scan path (two stdp_update launches each)
 SCAN_SAMPLES = 64
@@ -423,6 +428,71 @@ def check_column_event(card, rng, n_out, n_in, kernels):
         "max_abs_err": err, "ms": graph_ms(run), "call_ms": call_ms(run),
         "plain_ms": graph_ms(lambda: ops.stdp_column_event_ref(
             bits_t, col, gate, pre, u_pot, u_dep, LEARN_P_POT, LEARN_P_DEP)),
+        "bound_ms": bound_ms, "bound_by": bound_by, "library_ms": None,
+    }
+    print("kernel_check " + json.dumps(row), flush=True)
+    kernels.append(row)
+
+
+def check_column_epoch(card, rng, n_out, n_in, n, kernels, *, tied=False,
+                       offset=False):
+    """stdp_column_epoch (the whole epoch in one block, the readout in
+    shared memory) vs its plain version, bits and wrong count, on the
+    column-event draws of ``PRNGKey(n)``; sample 3's label is -1 (out of
+    range: always wrong, its teacher row wrapped).  ``tied``: every readout
+    row the same, so every V_mem ties."""
+    import torch
+
+    from repro_torch.core import prng
+    from repro_torch.core.esam import learning
+    from repro_torch.kernels.stdp import ops
+
+    bits_t = rng.integers(0, 2, size=(n_out, n_in), dtype=np.int8)
+    if tied:
+        bits_t[:] = bits_t[:1]
+    bits_t = torch.from_numpy(bits_t).cuda()
+    pre = torch.from_numpy(rng.random((n, n_in)) < 0.45).cuda()
+    labels = torch.from_numpy(rng.integers(0, n_out, size=(n,))).cuda()
+    labels[3] = -1
+    off = (torch.from_numpy(rng.normal(size=n_out).astype(np.float32)).cuda()
+           if offset else None)
+    u = learning.column_event_uniforms(prng.PRNGKey(n).cuda(),
+                                       torch.arange(n, device="cuda"), n_in)
+    got = bits_t.clone()
+    wrong = ops.stdp_column_epoch(got, pre, labels, *u, off,
+                                  p_pot=LEARN_P_POT, p_dep=LEARN_P_DEP)
+    want, want_wrong = ops.stdp_column_epoch_ref(
+        bits_t, pre, labels, *u, off, LEARN_P_POT, LEARN_P_DEP)
+    err = _word_err(got, want)
+    if not torch.equal(got, want) or int(wrong) != int(want_wrong):
+        raise AssertionError(
+            f"stdp_column_epoch != plain at [{n_out}, {n_in}] x {n} "
+            f"tied={tied} offset={offset}: {int(wrong)} vs "
+            f"{int(want_wrong)} wrong")
+    work = bits_t.clone()
+
+    def run():
+        return ops.stdp_column_epoch(work, pre, labels, *u, off,
+                                     p_pot=LEARN_P_POT, p_dep=LEARN_P_DEP)
+
+    # every trace byte, draw and label read once, the readout read and
+    # written, the offset, the count; operations: per sample an AND+popc
+    # per readout word and a popc per trace word (popc rate), and three
+    # float32 compares per input
+    n_bytes = (n * n_in * (1 + 3 * 4) + n * labels.element_size()
+               + 2 * n_out * n_in + 4 * n_out * offset + 4)
+    bound_ms, bound_by = card.bound(n_bytes, n * (n_out + 1) * -(-n_in // 32))
+    compare_ms = 3 * n * n_in / F32_OPS_PER_S * 1e3
+    if compare_ms > bound_ms:
+        bound_ms, bound_by = compare_ms, "operations"
+    ms = graph_ms(run, calls=3, replays=5)
+    row = {
+        "kernel": "stdp_column_epoch", "shape": f"{n}x{n_in}->{n_out}",
+        "tied": tied, "offset": offset, "max_abs_err": err, "ms": ms,
+        "us_per_sample": ms * 1e3 / n, "call_ms": call_ms(run, calls=5),
+        "plain_ms": graph_ms(lambda: ops.stdp_column_epoch_ref(
+            bits_t, pre, labels, *u, off, LEARN_P_POT, LEARN_P_DEP),
+            calls=1, replays=3),
         "bound_ms": bound_ms, "bound_by": bound_by, "library_ms": None,
     }
     print("kernel_check " + json.dumps(row), flush=True)
@@ -781,7 +851,8 @@ class PlainForbidden:
          ("cim_matmul_ref", "esam_layer_ref")),
         ("repro_torch.kernels.if_neuron.ops", ("if_neuron_ref",)),
         ("repro_torch.kernels.stdp.ops",
-         ("stdp_column_event_ref", "stdp_update_ref")),
+         ("stdp_column_epoch_ref", "stdp_column_event_ref",
+          "stdp_update_ref")),
         ("repro_torch.kernels.arbiter.ops",
          ("port_schedule_ref", "arbiter_ref")),
     )
@@ -908,12 +979,64 @@ def train_twice(x, y, xe, ye):
                              f"{cpu.accuracy} {cpu.n_updates}")
     hidden = len(PAPER_TOPOLOGY) - 2
     guard.expect("learning path", {
-        "popcount_fire": 2 * hidden,
-        "stdp_column_event": 2 * len(y) * LEARN_EPOCHS})
+        "popcount_fire": 2 * hidden, "stdp_column_epoch": LEARN_EPOCHS})
     return gpu, cpu, guard.counts
 
 
-def profile_learning(net, pre, y, n: int = 512) -> None:
+def time_epochs(x, y, xe, ye, learned) -> list[dict]:
+    """``train_online``'s epochs replayed on the card with their parts timed
+    apart: host clock (synchronised) around the shuffle, the up-front
+    uniform draw and the accuracy readout, CUDA events around the
+    ``stdp_column_epoch`` launch.  Raises unless the replay ends on
+    ``learned`` (``[n_in, n_out]``).  Returns one dict of seconds an
+    epoch."""
+    import torch
+
+    from repro_torch.core import prng
+    from repro_torch.core.esam import learning
+    from repro_torch.kernels.stdp import ops
+
+    net = paper_network("cuda")
+    pre = learning.last_hidden_spikes(net.weight_bits, net.vth, x)
+    eval_pre = learning.last_hidden_spikes(net.weight_bits, net.vth, xe)
+    dev = pre.device
+    labels = torch.as_tensor(y).to(dev).long()
+    eval_labels = torch.as_tensor(ye).to(dev)
+    key = prng.PRNGKey(10).to(dev)
+    bits_t = net.weight_bits[-1].T.contiguous()
+    n, n_in = pre.shape
+    times = []
+    for epoch in range(LEARN_EPOCHS):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        ep_key = prng.fold_in(key, epoch)
+        perm = prng.permutation(prng.fold_in(ep_key, n), n)
+        pre_e, y_e = pre[perm], labels[perm]
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        u = learning.column_event_uniforms(
+            ep_key, torch.arange(n, device=dev), n_in)
+        torch.cuda.synchronize()
+        t2 = time.perf_counter()
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        ops.stdp_column_epoch(bits_t, pre_e, y_e, *u, net.out_offset,
+                              p_pot=LEARN_P_POT, p_dep=LEARN_P_DEP)
+        end.record()
+        end.synchronize()
+        t3 = time.perf_counter()
+        logits = learning.readout_vmem(bits_t, eval_pre).float()
+        int(((logits + net.out_offset).argmax(-1) == eval_labels).sum())
+        times.append({"shuffle_s": t1 - t0, "draw_s": t2 - t1,
+                      "kernel_s": start.elapsed_time(end) / 1e3,
+                      "readout_s": time.perf_counter() - t3})
+    if not torch.equal(bits_t.T, learned):
+        raise AssertionError("replayed epochs end on another readout")
+    return times
+
+
+def profile_learning(net, pre, y, n: int = LEARN_TRAIN) -> None:
     """Where a learning epoch's time goes: ``column_event_epoch`` on ``n``
     samples under torch.profiler; device time, busy share of the same wall,
     launches per sample."""
@@ -961,12 +1084,13 @@ def learning_phase() -> dict:
     x, y = digits.make_spike_dataset(LEARN_TRAIN, seed=3)
     xe, ye = digits.make_spike_dataset(LEARN_EVAL, seed=4)
     gpu, cpu, counts_train = train_twice(x, y, xe, ye)
+    split = time_epochs(x, y, xe, ye, gpu.network.weight_bits[-1])
     c4, c0 = learning.column_update_cost(4), learning.column_update_cost(0)
-    for epoch, (acc, n, sec, sec_cpu) in enumerate(zip(
-            gpu.accuracy, gpu.n_updates, gpu.epoch_s, cpu.epoch_s)):
+    for epoch, (acc, n, sec, sec_cpu, parts) in enumerate(zip(
+            gpu.accuracy, gpu.n_updates, gpu.epoch_s, cpu.epoch_s, split)):
         print("learning_epoch " + json.dumps({
             "epoch": epoch, "accuracy": acc, "column_updates": n,
-            "wall_s": sec, "samples_per_s": LEARN_TRAIN / sec,
+            "wall_s": sec, "samples_per_s": LEARN_TRAIN / sec, **parts,
             "cpu_twin_wall_s": sec_cpu,
             "t_4r_us": n * (c4.read_ns + c4.write_ns) * 1e-3,
             "t_1rw_us": n * (c0.read_ns + c0.write_ns) * 1e-3,
@@ -997,7 +1121,7 @@ def learning_phase() -> dict:
     hidden = len(PAPER_TOPOLOGY) - 2
     guard = out["cuda"][3]
     guard.expect("online_learning_epoch", {
-        "fused_fire_packed": hidden, "stdp_column_event": 2 * LEARN_TRAIN})
+        "fused_fire_packed": hidden, "stdp_column_epoch": 1})
     counts_epoch = guard.counts
     print(f"online_learning_epoch: {LEARN_TRAIN} samples, "
           f"{out['cuda'][1]} column updates, wall {out['cuda'][2]:.3f} s "
@@ -1437,6 +1561,13 @@ def main() -> int:
     for n_out, n_in in ((10, 256), (256, 768)):
         check_column_event(card, rng, n_out, n_in, event_rows)
         check_stdp_update(card, rng, n_out, n_in, update_rows)
+    epoch_rows = []
+    for n_out, n_in, n in ((10, 256, LEARN_TRAIN), (33, 257, 300),
+                           (64, 768, 200)):
+        for tied in (False, True):
+            for offset in (False, True):
+                check_column_epoch(card, rng, n_out, n_in, n, epoch_rows,
+                                   tied=tied, offset=offset)
     arbiter_rows = []
     for name in ("port_schedule", "arbiter"):
         for n in (SWEEP_DIGITS * 6, 8192):
@@ -1575,9 +1706,12 @@ def main() -> int:
              learn["train"]["popcount_fire"]),
         line("popcount_mac", pop_src, "cim_popcount/kernel.py:54",
              pick(mac_rows, f"{BUCKET}x768->10"), mac_launches),
+        line("stdp_column_epoch", stdp_src, "stdp/kernel.py:75",
+             pick(epoch_rows, f"{LEARN_TRAIN}x256->10", tied=False,
+                  offset=True),
+             learn["train"]["stdp_column_epoch"]),
         line("stdp_column_event", stdp_src, "stdp/kernel.py:75",
-             pick(event_rows, "10x256"),
-             learn["train"]["stdp_column_event"]),
+             pick(event_rows, "10x256"), bench["stdp_column_event"]),
         line("stdp_update", stdp_src, "stdp/kernel.py:26",
              pick(update_rows, "10x256"), learn["scan"]["stdp_update"]),
         line("fused_fire_packed", packed_src,

@@ -8,14 +8,15 @@ active pre-neurons potentiate (bit -> 1) with probability ``p_pot`` and
 synapses from silent ones depress (bit -> 0) with probability ``p_dep``.
 
 Weights live transposed-resident, ``{0,1}[n_out, n_in]``, so one learning
-neuron's synapses are one contiguous row, and each supervised event is one
-``kernels/stdp.stdp_column_event`` launch on the card.  Every uniform comes
-from ``core/prng.py``, which reproduces ``jax.random`` bit for bit, so under
-the same key this module gives the reference's weights and update counts.
+neuron's synapses are one contiguous row.  Every uniform comes from
+``core/prng.py``, which reproduces ``jax.random`` bit for bit, so under the
+same key this module gives the reference's weights and update counts.
 
-The reference's epoch is one jitted ``lax.scan``; here it is a Python loop
-over samples that never reads a device value on the host: the readout, the
-argmax, the event gate and both column writes stay on the device.
+The reference's epoch is one jitted ``lax.scan``; here it is one
+``kernels/stdp.stdp_column_epoch`` call: on the card one launch of one
+block that keeps the readout in shared memory and runs every sample's
+readout, argmax and column writes; on the CPU its plain version, a loop
+over samples.
 """
 
 from __future__ import annotations
@@ -194,10 +195,11 @@ def column_event_epoch(
     """One supervised-STDP epoch on the transposed-resident readout.
 
     Per sample: the readout matvec, the argmax, the teacher / wrong-winner
-    events, and two gated column writes (``stdp_column_event``).  The
-    epoch's uniforms (``[batch, 3, n_in]``, a function of ``(key, i)`` only)
-    are drawn up front in one call.  ``bits_t`` is updated in place (the
-    counterpart of the reference's donated buffer) and returned.
+    events and two gated column writes, all in one ``stdp_column_epoch``
+    call.  The epoch's uniforms (``[batch, 3, n_in]``, a function of
+    ``(key, i)`` only) are drawn up front in one call.  ``bits_t`` is
+    updated in place (the counterpart of the reference's donated buffer)
+    and returned.
 
     ``out_offset`` shifts the argmax that names the wrong winner, so learning
     targets the deployed readout; ``None`` is the offset-free argmax.
@@ -207,28 +209,16 @@ def column_event_epoch(
     n_in = bits_t.shape[1]
     pre = torch.as_tensor(pre).to(dev) != 0
     labels = torch.as_tensor(labels).to(dev)
+    if labels.dtype not in (torch.int32, torch.int64):
+        labels = labels.long()
     n = pre.shape[0]
     u_pot, u_dep_t, u_dep_w = column_event_uniforms(
         key.to(dev), torch.arange(n, device=dev), n_in)
-    not_pre = ~pre
     off = None if out_offset is None else out_offset.to(dev, torch.float32)
-    wrong = torch.zeros((n,), dtype=torch.bool, device=dev)
-    for i in range(n):
-        vmem = readout_vmem(bits_t, pre[i])
-        pred = (vmem.argmax() if off is None
-                else (vmem.to(torch.float32) + off).argmax())
-        wrong_i = pred != labels[i]
-        # teacher column: Hebbian — pull it toward the pre pattern
-        stdp_ops.stdp_column_event(
-            bits_t, labels[i], wrong_i, pre[i], u_pot[i], u_dep_t[i],
-            p_pot=p_pot, p_dep=p_dep)
-        # wrong winner: pure depression of active-pre synapses (inverted
-        # trace, potentiation off)
-        stdp_ops.stdp_column_event(
-            bits_t, pred, wrong_i, not_pre[i], u_dep_w[i], u_dep_w[i],
-            p_pot=0.0, p_dep=p_dep)
-        wrong[i] = wrong_i
-    return bits_t, 2 * wrong.sum(dtype=torch.int32)
+    wrong = stdp_ops.stdp_column_epoch(
+        bits_t, pre, labels, u_pot, u_dep_t, u_dep_w, off,
+        p_pot=p_pot, p_dep=p_dep)
+    return bits_t, 2 * wrong
 
 
 def online_learning_epoch(

@@ -6,8 +6,10 @@ N_in]``, given explicit uniform draws.  A synapse of a learning neuron
 potentiates (bit -> 1) when its pre-neuron fired and ``u_pot < p_pot``, and
 depresses (bit -> 0) when it was silent and ``u_dep < p_dep``; ``p_pot`` and
 ``p_dep`` are compared in float32, as the reference compares its float32
-uniforms against them.  The CUDA kernels of ``csrc/stdp.cu`` are held bit
-for bit against these.  Both return new tensors.
+uniforms against them.  ``stdp_column_epoch_ref`` is a whole epoch of
+column events, the reference's ``column_event_epoch`` scan body sample by
+sample.  The CUDA kernels of ``csrc/stdp.cu`` are held bit for bit against
+these.  All return new tensors.
 """
 
 from __future__ import annotations
@@ -60,3 +62,45 @@ def stdp_column_event_ref(
     new = _rule(old, pre != 0, u_pot, u_dep, p_pot, p_dep)
     gate = torch.as_tensor(apply, device=bits_t.device) != 0
     return bits_t.index_copy(0, idx, torch.where(gate, new, old)[None])
+
+
+def stdp_column_epoch_ref(
+    bits_t: torch.Tensor,   # {0,1}[N_out, N_in]
+    pre: torch.Tensor,      # {0,1}[n, N_in] pre-synaptic traces
+    labels: torch.Tensor,   # integer [n] teacher classes
+    u_pot: torch.Tensor,    # float32[n, N_in] teacher potentiation draws
+    u_dep_t: torch.Tensor,  # float32[n, N_in] teacher depression draws
+    u_dep_w: torch.Tensor,  # float32[n, N_in] wrong-winner draws
+    out_offset: torch.Tensor | None,   # float32[N_out] or None
+    p_pot: float,
+    p_dep: float,
+) -> tuple[torch.Tensor, torch.Tensor]:
+    """A supervised column-event epoch, one sample after another.
+
+    Per sample: V_mem = 2 (pre . bits) - |pre| exactly in int32; the
+    prediction is its first argmax (after one float32 add of ``out_offset``
+    when given); when it is not the label, the teacher row learns the rule
+    on ``pre`` and then the predicted row the rule on ``~pre`` with
+    ``p_pot`` 0.  A label outside ``[0, N_out)`` is always wrong, and its
+    teacher row is the label wrapped once if negative and clamped, as the
+    reference's interpret-mode block index is.  Returns (new bits, number
+    of wrong samples as an int32 scalar); nothing syncs with the host."""
+    n_out = bits_t.shape[0]
+    pre = pre != 0
+    not_pre = ~pre
+    labels = labels.long()
+    rows = torch.where(labels < 0, labels + n_out, labels).clamp(0, n_out - 1)
+    n_pre = pre.sum(-1, dtype=torch.int32)
+    wrong = torch.zeros(pre.shape[:1], dtype=torch.bool, device=bits_t.device)
+    for i in range(pre.shape[0]):
+        hits = (bits_t.to(torch.int32) * pre[i]).sum(-1, dtype=torch.int32)
+        vmem = 2 * hits - n_pre[i]
+        pred = (vmem.argmax() if out_offset is None
+                else (vmem.to(torch.float32) + out_offset).argmax())
+        wrong_i = pred != labels[i]
+        bits_t = stdp_column_event_ref(bits_t, rows[i], wrong_i, pre[i],
+                                       u_pot[i], u_dep_t[i], p_pot, p_dep)
+        bits_t = stdp_column_event_ref(bits_t, pred, wrong_i, not_pre[i],
+                                       u_dep_w[i], u_dep_w[i], 0.0, p_dep)
+        wrong[i] = wrong_i
+    return bits_t, wrong.sum(dtype=torch.int32)

@@ -3,7 +3,8 @@
 The same numpy-made networks, spikes and labels, and the same PRNGKey, go
 through both packages; the port draws its own uniforms (core/prng.py) and
 must give the same bits.  Tolerance 0 everywhere: weight bits, spikes,
-V_mem and update counts are equal.  Tests that need a card (the epoch on
+V_mem and update counts are equal, at ragged widths, p of 0 and 1 and with
+a label outside [0, n_out) too.  Tests that need a card (the epoch on
 the CUDA kernels against the same epoch on the CPU) carry the ``cuda``
 marker and skip here."""
 
@@ -153,6 +154,37 @@ def test_column_event_epoch(offset, tied, labels_dtype):
     assert int(got_n) == int(want_n) > 0
 
 
+@pytest.mark.parametrize("n_out,n_in,p_pot,p_dep,bad_label", [
+    (10, 100, 1.0, 1.0, None),
+    (33, 257, 0.0, 0.0, None),
+    (33, 100, 1.0, 0.0, None),
+    (10, 257, 0.25, 0.2, 10),
+    (33, 257, 0.25, 0.2, -1),
+])
+def test_column_event_epoch_widths_probabilities_and_labels(
+        n_out, n_in, p_pot, p_dep, bad_label):
+    """Ragged widths, n_out 33, p of 0 and 1, a label outside [0, n_out)
+    (always wrong; its teacher row is wrapped once and clamped)."""
+    rng = np.random.default_rng(n_in + n_out)
+    bits_t = rng.integers(0, 2, size=(n_out, n_in), dtype=np.int8)
+    pre, y = _data(n_in, 40, n_in, n_out, density=0.45)
+    if bad_label is not None:
+        y[5] = bad_label
+    off = rng.normal(size=n_out).astype(np.float32)
+    want_b, want_n = jl.column_event_epoch(
+        jnp.asarray(bits_t), jnp.asarray(pre), jnp.asarray(y),
+        jax.random.PRNGKey(5), p_pot=p_pot, p_dep=p_dep,
+        out_offset=jnp.asarray(off))
+    t = torch.from_numpy(bits_t.copy())
+    got_b, got_n = learning.column_event_epoch(
+        t, torch.from_numpy(pre), torch.from_numpy(y.astype(np.int64)),
+        prng.PRNGKey(5), p_pot=p_pot, p_dep=p_dep,
+        out_offset=torch.from_numpy(off))
+    assert got_b is t
+    np.testing.assert_array_equal(got_b.numpy(), np.asarray(want_b))
+    assert int(got_n) == int(want_n)
+
+
 @pytest.mark.parametrize("topo", [(70, 32, 32, 10), (70, 40, 10)])
 @pytest.mark.parametrize("given_pre", [False, True])
 def test_online_learning_epoch(topo, given_pre):
@@ -248,7 +280,9 @@ def test_cuda_epochs_match_cpu(cuda, topo):
     cpu, gpu = out["cpu"], out[str(cuda)]
     assert torch.equal(cpu[0], gpu[0]) and cpu[1] == gpu[1]
     assert torch.equal(cpu[2], gpu[2]) and cpu[3] == gpu[3]
-    assert gpu[4] == {"stdp_column_event": 600, "stdp_update": 40}
+    # the epoch is one stdp_column_epoch launch; no per-sample events
+    assert gpu[4] == {"stdp_column_epoch": 1, "stdp_column_event": 0,
+                      "stdp_update": 40}
     hidden_packed = all(n % 32 == 0 for n in topo[1:-1])
     assert gpu[5] == {"fused_fire_packed":
                       len(topo) - 2 if hidden_packed else 0,

@@ -4,18 +4,25 @@ On the CPU the port's plain versions of the column-event and full-matrix
 STDP kernels are held bit for bit against the reference's Pallas kernels in
 interpret mode and against its jnp oracles, on inputs made with numpy from a
 seed (odd widths, the gate on and off, the wrong-winner event's p_pot = 0).
-The wrapper's in-place write and its launch counts are checked too.  The
-CUDA kernels against the plain versions run only on a card (marker
-``cuda``); here they skip."""
+The plain epoch, fed the port's column-event draws, is held bit for bit
+against the reference's ``column_event_epoch`` under the same key (offset
+or none, tied logits, int32 and int64 labels, p of 0 and 1, ragged widths,
+an out-of-range label).  The wrappers' in-place writes, launch counts and
+checks are tested too.  The CUDA kernels against the plain versions run
+only on a card (marker ``cuda``); here they skip."""
 
 from __future__ import annotations
 
+import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
 
+from repro.core.esam import learning as jl
 from repro.kernels.stdp import ops as jops
+from repro_torch.core import prng
+from repro_torch.core.esam import learning
 from repro_torch.kernels.stdp import ops
 
 PROBS = [(1.0, 1.0), (0.25, 0.1), (0.0, 0.3), (0.2, 0.0)]
@@ -64,7 +71,8 @@ def test_column_event_wrapper_writes_in_place_on_the_cpu():
             torch.from_numpy(u_pot), torch.from_numpy(u_dep),
             p_pot=0.0, p_dep=0.5)
         assert out is t
-        assert ops.launch_counts() == {"stdp_column_event": 0,
+        assert ops.launch_counts() == {"stdp_column_epoch": 0,
+                                       "stdp_column_event": 0,
                                        "stdp_update": 0}
         want = jops.stdp_column_event_ref(
             jnp.asarray(bits_t), jnp.asarray(4), jnp.asarray(apply),
@@ -143,6 +151,99 @@ def test_wrapper_checks_shapes_and_devices():
                               p_pot=0.1, p_dep=0.1)
 
 
+def _epoch_operands(seed, n_out, n_in, n, *, tied=False, offset=False,
+                    bad_label=None):
+    """numpy readout, traces, labels and offset for one epoch; ``tied``
+    makes every readout row the same (every V_mem ties), ``bad_label``
+    puts that label (outside [0, n_out)) at sample 3."""
+    rng = np.random.default_rng(seed)
+    bits_t = rng.integers(0, 2, size=(n_out, n_in), dtype=np.int8)
+    if tied:
+        bits_t[:] = bits_t[:1]
+    pre = rng.random((n, n_in)) < 0.45
+    labels = rng.integers(0, n_out, size=(n,)).astype(np.int32)
+    if bad_label is not None:
+        labels[3] = bad_label
+    off = rng.normal(size=n_out).astype(np.float32) if offset else None
+    return bits_t, pre, labels, off
+
+
+#: (n_out, n_in, offset, tied, labels dtype, p_pot, p_dep, bad label)
+EPOCH_CASES = [
+    (10, 100, False, False, np.int32, 0.3, 0.15, None),
+    (10, 100, True, False, np.int64, 0.3, 0.15, None),
+    (10, 257, False, True, np.int64, 0.3, 0.15, None),
+    (10, 257, True, True, np.int32, 0.25, 0.2, None),
+    (33, 257, False, False, np.int32, 1.0, 1.0, None),
+    (33, 100, True, False, np.int64, 0.0, 0.0, None),
+    (33, 257, True, True, np.int32, 0.0, 1.0, None),
+    (10, 100, False, False, np.int64, 1.0, 0.0, 10),
+    (33, 257, True, False, np.int32, 0.3, 0.15, -2),
+]
+
+
+@pytest.mark.parametrize(
+    "n_out,n_in,offset,tied,labels_dtype,p_pot,p_dep,bad_label", EPOCH_CASES)
+def test_column_epoch_matches_reference(n_out, n_in, offset, tied,
+                                        labels_dtype, p_pot, p_dep,
+                                        bad_label):
+    n = 48
+    bits_t, pre, labels, off = _epoch_operands(
+        n_out + n_in, n_out, n_in, n, tied=tied, offset=offset,
+        bad_label=bad_label)
+    want_b, want_n = jl.column_event_epoch(
+        jnp.asarray(bits_t), jnp.asarray(pre), jnp.asarray(labels),
+        jax.random.PRNGKey(n_in), p_pot=p_pot, p_dep=p_dep,
+        out_offset=None if off is None else jnp.asarray(off))
+    want_b = np.asarray(want_b)
+    u = learning.column_event_uniforms(prng.PRNGKey(n_in), torch.arange(n),
+                                       n_in)
+    y = torch.from_numpy(labels.astype(labels_dtype))
+    off_t = None if off is None else torch.from_numpy(off)
+    got_b, wrong = ops.stdp_column_epoch_ref(
+        torch.from_numpy(bits_t), torch.from_numpy(pre), y, *u, off_t,
+        p_pot, p_dep)
+    np.testing.assert_array_equal(got_b.numpy(), want_b)
+    assert wrong.dtype == torch.int32 and 2 * int(wrong) == int(want_n)
+    # the wrapper on CPU tensors: the plain version, in place, no launch
+    t = torch.from_numpy(bits_t.copy())
+    ops.reset_launch_counts()
+    wrong_w = ops.stdp_column_epoch(t, torch.from_numpy(pre), y, *u, off_t,
+                                    p_pot=p_pot, p_dep=p_dep)
+    assert ops.launch_counts()["stdp_column_epoch"] == 0
+    np.testing.assert_array_equal(t.numpy(), want_b)
+    assert int(wrong_w) == int(wrong)
+    if bad_label is not None:     # always wrong, and the teacher row clamps
+        assert int(wrong) > 0
+
+
+def test_column_epoch_wrapper_checks_shapes_and_devices():
+    bits_t, pre, labels, off = (
+        torch.from_numpy(a) for a in _epoch_operands(2, 4, 32, 6,
+                                                     offset=True))
+    u = torch.zeros((6, 32))
+    kw = dict(p_pot=0.1, p_dep=0.1)
+    bad = [
+        ((bits_t[0], pre, labels, u, u, u), ValueError),       # 1-d readout
+        ((bits_t, pre[:, :31], labels, u, u, u), ValueError),  # n_in
+        ((bits_t, pre, labels[:5], u, u, u), ValueError),      # n labels
+        ((bits_t, pre, labels.float(), u, u, u), TypeError),   # label dtype
+        ((bits_t, pre, labels, u[:5], u, u), ValueError),      # draw rows
+        ((bits_t, pre, labels, u, u.double(), u), ValueError),  # draw dtype
+        ((bits_t, pre, labels, u, u, u, off[:3]), ValueError),  # offset
+        ((bits_t, pre, labels, u, u, u, off.double()), TypeError),
+    ]
+    for args, err in bad:
+        with pytest.raises(err):
+            ops.stdp_column_epoch(*args, **kw)
+    meta = torch.device("meta")
+    with pytest.raises(ValueError, match="different devices"):
+        ops.stdp_column_epoch(bits_t.to(meta), pre, labels, u, u, u, **kw)
+    with pytest.raises(ValueError, match="different devices"):
+        ops.stdp_column_epoch(bits_t, pre, labels, u, u, u, off.to(meta),
+                              **kw)
+
+
 # ----------------------------------------------------------------------- #
 # the CUDA kernels against the plain versions, on the card
 # ----------------------------------------------------------------------- #
@@ -185,3 +286,39 @@ def test_cuda_stdp_update_matches_plain(cuda, n_out, n_in, p_pot, p_dep):
     assert ops.launch_counts()["stdp_update"] == 1
     want = ops.stdp_update_ref(bits_t, pre, post, u_pot, u_dep, p_pot, p_dep)
     assert torch.equal(got, want)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n_out,n_in,n", [(10, 256, 4096), (33, 257, 300),
+                                          (64, 768, 200)])
+@pytest.mark.parametrize("tied", [False, True])
+@pytest.mark.parametrize("offset", [False, True])
+def test_cuda_column_epoch_matches_plain(cuda, n_out, n_in, n, tied, offset):
+    bits_t, pre, labels, off = _epoch_operands(
+        n_in + n, n_out, n_in, n, tied=tied, offset=offset, bad_label=-1)
+    bits_t, pre, labels = (torch.from_numpy(a).to(cuda)
+                           for a in (bits_t, pre, labels))
+    off = None if off is None else torch.from_numpy(off).to(cuda)
+    u = learning.column_event_uniforms(prng.PRNGKey(n), torch.arange(n),
+                                       n_in)
+    u = [t.to(cuda) for t in u]
+    ops.reset_launch_counts()
+    got = bits_t.clone()
+    wrong = ops.stdp_column_epoch(got, pre, labels, *u, off,
+                                  p_pot=0.2, p_dep=0.1)
+    assert ops.launch_counts()["stdp_column_epoch"] == 1
+    want, want_wrong = ops.stdp_column_epoch_ref(bits_t, pre, labels, *u,
+                                                 off, 0.2, 0.1)
+    assert torch.equal(got, want) and int(wrong) == int(want_wrong) > 0
+
+
+@pytest.mark.cuda
+def test_cuda_column_epoch_capacity(cuda):
+    n_out, n_in = 2048, 1024       # 264 KiB of bit planes: past one block
+    bits_t = torch.zeros((n_out, n_in), dtype=torch.int8, device=cuda)
+    u = torch.zeros((1, n_in), device=cuda)
+    with pytest.raises(ValueError, match="shared memory"):
+        ops.stdp_column_epoch(
+            bits_t, torch.ones((1, n_in), dtype=torch.bool, device=cuda),
+            torch.zeros((1,), dtype=torch.int32, device=cuda), u, u, u,
+            p_pot=0.2, p_dep=0.1)
