@@ -12,9 +12,14 @@ Phases; any failure raises, so the exit code is non-zero:
    at the paths' shapes and more (B9', B10 and B11 at the bench's shapes,
    ragged ones and 4096 x 768 -> 256; B10 in four spike dtypes; B11 at
    threshold equality and int32 wraparound; B1 at the bench's
-   (768, 768, 768, 10); the epoch kernel at 4096 x 256 -> 10 and ragged
-   and wide readouts, with ties, offsets and an out-of-range label), timed
-   against its bound;
+   (768, 768, 768, 10); the single column event at rows inside and
+   outside [0, n_out); the epoch kernel at 4096 x 256 -> 10 and ragged
+   and wide readouts, with ties, offsets and an out-of-range label; the
+   event round's ``temporal_scan`` at the event path's T 4, 8 and 16 and
+   B 64, at B 1 and 7, with 0 and 1 hidden tiles, per reset mode with
+   refractory 2, and on each of its three routes: planes and state in
+   shared memory, planes past it, state past it too), timed against its
+   bound;
 4. the serving path: ``repro_torch.launch.serve --esam`` at the paper
    topology 768:256:256:256:10, max_batch 128, telemetry on, 4096 digit
    requests, with the launch counters set to 0 just before and read just
@@ -42,11 +47,15 @@ Phases; any failure raises, so the exit code is non-zero:
 8. the event path: ``repro_torch.launch.serve --events`` (256 rate-encoded
    digit streams of T 4, 8 or 16, leak 0.125, max_batch 64, the paper
    topology, through ``SpikeEngine.submit_events`` and the temporal plan),
-   counted the same way (``lif_step`` per hidden tile and step plus the
-   readout's, ``popcount_mac`` once per round for tile 0 and per hidden tile
-   and step); every stream's logits held bit for bit against the same
-   streams served on the CPU, cycles and energy against the float64 cost
-   model, and a T=1, zero-leak round against the packed plan;
+   counted the same way (one ``popcount_mac`` for tile 0 and one
+   ``temporal_scan`` for all T steps a round, no ``lif_step``); every
+   stream's logits held bit for bit against the same streams served on the
+   CPU, against the plain per-step oracle on the card
+   (``temporal_forward_naive``: dense tiles, ``lif_step_ref``, no kernel),
+   cycles and energy against
+   the float64 cost model, and a T=1, zero-leak round against the packed
+   plan; the profiled drain splits its launches a round into the scan,
+   tile 0's MAC and the rest;
 9. the kernel bench path: ``repro_torch.launch.bench_kernels.run`` (every
    lane of the reference's ``benchmarks/bench_kernels.py``: B10
    ``cim_matmul`` and ``esam_layer`` at 256 x 768 -> 256, B8 ``arbiter``,
@@ -56,8 +65,8 @@ Phases; any failure raises, so the exit code is non-zero:
    launch counter is set to 0 just before and held to the calls the bench
    reports just after (the bench times the plain versions by name, so none
    is forbidden here; every other phase forbids them all);
-10. one JSON line of the kernels (14: the 13 Pallas kernels' ports and the
-    epoch kernel), then the result line.
+10. one JSON line of the kernels (15: the 13 Pallas kernels' ports, the
+    epoch kernel and the event round's scan), then the result line.
 
 It needs a CUDA device and exits non-zero without one.
 """
@@ -100,6 +109,9 @@ SCAN_SAMPLES = 64
 #: step's checked shapes (the event round's, a large one, ragged ones)
 EVENT_BATCH, EVENT_LEAK = 64, 0.125
 LIF_SHAPES = ((EVENT_BATCH, 256), (4096, 256), (1, 1), (7, 100))
+#: the event streams' lengths, and the paper topology's hidden widths
+EVENT_STEPS = (4, 8, 16)
+PAPER_HIDDEN = PAPER_TOPOLOGY[1:-1]
 
 #: the kernel bench's comparison shape and cascade
 #: (``launch.bench_kernels``), and the ragged shapes its kernels are checked
@@ -392,27 +404,33 @@ def _stdp_operands(rng, n_out, n_in, u_shape):
 def check_column_event(card, rng, n_out, n_in, kernels):
     """stdp_column_event (one row, in place, index and gate on the device)
     vs its plain version: the teacher event and the wrong-winner event
-    (p_pot 0, inverted trace), gated on and off."""
+    (p_pot 0, inverted trace), gated on and off, at a row inside and at the
+    rows n_out, -1 and -n_out-1 (wrapped once if negative, then clamped),
+    int64 and int32 indices."""
     import torch
 
     from repro_torch.kernels.stdp import ops
 
     bits_t, pre, u_pot, u_dep = _stdp_operands(rng, n_out, n_in, (n_in,))
-    col = torch.tensor(n_out // 2, device="cuda")
     err = 0
-    for apply in (True, False):
-        gate = torch.tensor(apply, device="cuda")
-        for trace, p_pot in ((pre, LEARN_P_POT), (~pre, 0.0)):
-            got = ops.stdp_column_event(
-                bits_t.clone(), col, gate, trace, u_pot, u_dep,
-                p_pot=p_pot, p_dep=LEARN_P_DEP)
-            want = ops.stdp_column_event_ref(
-                bits_t, col, gate, trace, u_pot, u_dep, p_pot, LEARN_P_DEP)
-            err = max(err, _word_err(got, want))
-            if not torch.equal(got, want):
-                raise AssertionError(
-                    f"stdp_column_event != plain at [{n_out}, {n_in}] "
-                    f"apply={apply} p_pot={p_pot}")
+    for c, dtype in [(c, d) for c in (n_out // 2, n_out, -1, -n_out - 1)
+                     for d in (torch.int64, torch.int32)]:
+        idx = torch.tensor(c, dtype=dtype, device="cuda")
+        for apply in (True, False):
+            gate = torch.tensor(apply, device="cuda")
+            for trace, p_pot in ((pre, LEARN_P_POT), (~pre, 0.0)):
+                got = ops.stdp_column_event(
+                    bits_t.clone(), idx, gate, trace, u_pot, u_dep,
+                    p_pot=p_pot, p_dep=LEARN_P_DEP)
+                want = ops.stdp_column_event_ref(
+                    bits_t, idx, gate, trace, u_pot, u_dep, p_pot,
+                    LEARN_P_DEP)
+                err = max(err, _word_err(got, want))
+                if not torch.equal(got, want):
+                    raise AssertionError(
+                        f"stdp_column_event != plain at [{n_out}, {n_in}] "
+                        f"row={c} {dtype} apply={apply} p_pot={p_pot}")
+    col = torch.tensor(n_out // 2, device="cuda")
     gate = torch.tensor(True, device="cuda")
     work = bits_t.clone()
 
@@ -647,6 +665,95 @@ def check_lif(card, rng, batch, n, leak, reset, refractory, kernels):
     kernels.append(row)
 
 
+def _scan_operands(rng, hidden, n_cls, n_steps, batch):
+    """temporal_scan operands on the card: c_in in [-40, 40] (tile 0's MAC
+    range at a few dozen input spikes), full 32-bit plane words, thresholds
+    in [-8, 8] with a tenth at 2^31 - 1."""
+    import torch
+
+    n_first = hidden[0] if hidden else n_cls
+    c_in = rng.integers(-40, 41, size=(n_steps, batch, n_first),
+                        dtype=np.int32)
+    widths = list(hidden) + [n_cls]
+    planes = [rng.integers(-2**31, 2**31, size=(widths[i + 1], n // 32),
+                           dtype=np.int64).astype(np.int32)
+              for i, n in enumerate(hidden)]
+    vth = [rng.integers(-8, 9, size=(n,)).astype(np.int32) for n in hidden]
+    for th in vth:
+        th[rng.random(th.shape) < 0.1] = 2**31 - 1
+    return (torch.from_numpy(c_in).cuda(),
+            tuple(torch.from_numpy(w).cuda() for w in planes),
+            tuple(torch.from_numpy(th).cuda() for th in vth))
+
+
+def scan_bound(card, hidden, n_cls, n_steps, batch, collect, telemetry):
+    """(ms, what bounds it) of one temporal_scan: c_in, the planes and
+    thresholds read once, the readout's membranes (and the collected words
+    and loads) written once; per stream and step one AND+popc per plane
+    word and one popc per spike word, against the popc rate."""
+    n_first = hidden[0] if hidden else n_cls
+    widths = list(hidden) + [n_cls]
+    pairs = sum(widths[i + 1] * (n // 32) + n // 32
+                for i, n in enumerate(hidden))
+    words = sum(n // 32 for n in hidden)
+    n_bytes = 4 * (n_steps * batch * n_first + sum(
+        widths[i + 1] * (n // 32) + n for i, n in enumerate(hidden))
+        + batch * n_cls + n_steps * batch * (
+            words * collect + words // 4 * telemetry))
+    return card.bound(n_bytes, n_steps * batch * pairs)
+
+
+def check_scan(card, rng, hidden, batch, n_steps, kernels, leak=EVENT_LEAK,
+               reset="zero", refractory=0, n_cls=10, route=(1, 1)):
+    """temporal_scan vs its plain version on the card, bit for bit (the
+    readout's membranes, every hidden tile's spike words and loads), timed
+    in a CUDA graph and eagerly against its bound.  ``route`` is the
+    (planes in shared memory, state in shared memory) the widths must
+    take."""
+    import torch
+
+    from repro_torch.kernels.lif_step import ops
+
+    args = _scan_operands(rng, hidden, n_cls, n_steps, batch)
+    kw = dict(leak=leak, reset=reset, refractory=refractory, collect=True,
+              telemetry=True)
+
+    def run():
+        return ops.temporal_scan(*args, **kw)
+
+    got, want = run(), ops.temporal_scan_ref(*args, **kw)
+    torch.cuda.synchronize()
+    err = float((got[0].double() - want[0].double()).abs().max())
+    same = torch.equal(got[0], want[0]) and all(
+        torch.equal(g, w) for g, w in zip(got[1] + got[2], want[1] + want[2]))
+    if err or not same:
+        raise AssertionError(
+            f"temporal_scan != plain at T={n_steps} B={batch} {hidden} "
+            f"{kw}: max_abs_err={err}, words and loads equal={same}")
+    bound_ms, bound_by = scan_bound(card, hidden, n_cls, n_steps, batch,
+                                    True, True)
+    took = ops._scan_route(torch.cuda.current_device(), tuple(hidden),
+                           n_cls)[:2] if hidden else None
+    if hidden and took != route:
+        raise AssertionError(f"temporal_scan at {hidden}: route {took}, "
+                             f"want {route}")
+    row = {
+        "kernel": "temporal_scan",
+        "shape": f"{n_steps}x{batch}x" + ":".join(map(str, (*hidden, n_cls))),
+        "leak": leak, "reset": reset, "refractory": refractory,
+        "route": took, "max_abs_err": err,
+        "chain_links": n_steps * (len(hidden) + 1),
+        "fired": int(sum(int(w.sum()) for w in got[2])),
+        "ms": graph_ms(run), "call_ms": call_ms(run),
+        # the plain version is ~100 launches a step: two calls a graph
+        "plain_ms": graph_ms(lambda: ops.temporal_scan_ref(*args, **kw),
+                             calls=2, replays=3),
+        "bound_ms": bound_ms, "bound_by": bound_by, "library_ms": None,
+    }
+    print("kernel_check " + json.dumps(row), flush=True)
+    kernels.append(row)
+
+
 def _spike_rows(rng, batch: int, n: int, dtype):
     """{0,1} spikes [batch, n] at p=0.4 in ``dtype``, on the card."""
     import torch
@@ -841,7 +948,8 @@ class PlainForbidden:
 
     #: (kernel module, its plain versions that the wrappers dispatch to)
     PLAIN = (
-        ("repro_torch.kernels.lif_step.ops", ("lif_step_ref",)),
+        ("repro_torch.kernels.lif_step.ops",
+         ("lif_step_ref", "temporal_scan_ref")),
         ("repro_torch.kernels.cim_popcount.ops",
          ("esam_cascade_popcount_ref", "cim_popcount_ref",
           "esam_layer_popcount_ref")),
@@ -1329,14 +1437,13 @@ def cycle_phase() -> dict:
     return counts
 
 
-def _rounds_and_steps(requests, max_batch: int) -> tuple[int, int]:
-    """(rounds, sum over rounds of T) of one event drain: streams that share
-    T go out in rounds of at most ``max_batch``."""
+def _event_rounds(requests, max_batch: int) -> int:
+    """Rounds of one event drain: streams that share T go out in rounds of
+    at most ``max_batch``."""
     by_t: dict[int, int] = {}
     for r in requests:
         by_t[r.n_steps] = by_t.get(r.n_steps, 0) + 1
-    rounds = {t: -(-n // max_batch) for t, n in by_t.items()}
-    return sum(rounds.values()), sum(t * k for t, k in rounds.items())
+    return sum(-(-n // max_batch) for n in by_t.values())
 
 
 def profile_events(net, requests, temporal) -> dict:
@@ -1363,11 +1470,23 @@ def profile_events(net, requests, temporal) -> dict:
     launches = sum(e.count for e in on_device)
     rounds = eng.stats()["rounds_event"]
     top = sorted(on_device, key=lambda e: -e.self_device_time_total)[:10]
+    # a round's device work: the scan, tile 0's MAC (popcount_mac runs the
+    # popcount_fire kernel), and the rest (the events' loads, the offset
+    # add, the telemetry's cost model, copies)
+    split = {"scan": 0, "tile0": 0, "rest": 0}
+    split_ms = dict.fromkeys(split, 0.0)
+    for e in on_device:
+        part = ("scan" if "temporal_scan" in e.key else
+                "tile0" if "popcount_fire" in e.key else "rest")
+        split[part] += e.count
+        split_ms[part] += e.self_device_time_total / 1e3
     row = {
         "streams": len(reqs), "rounds": rounds,
         "timesteps": eng.stats()["timesteps_total"], "device_s": device_s,
         "profiled_wall_s": wall_s, "device_busy_share": device_s / wall_s,
         "device_launches": launches, "launches_per_round": launches / rounds,
+        "launches_per_round_split": {k: v / rounds for k, v in split.items()},
+        "device_ms_split": split_ms,
         "top": [{"name": e.key[:60], "count": e.count,
                  "device_ms": e.self_device_time_total / 1e3} for e in top],
     }
@@ -1385,6 +1504,7 @@ def events_phase() -> dict:
     from repro_torch.core import packing
     from repro_torch.core.esam import cost_model as cm
     from repro_torch.core.esam.network import EsamNetwork
+    from repro_torch.core.esam.temporal import temporal_forward_naive
     from repro_torch.launch import serve as serve_mod
     from repro_torch.serve.engine import EventRequest, SpikeEngine
 
@@ -1392,19 +1512,17 @@ def events_phase() -> dict:
         run = serve_mod.main(["--events", "--device", "cuda"])
         torch.cuda.synchronize()
     eng, st = run.engine, run.engine.stats()
-    hidden = len(PAPER_TOPOLOGY) - 2
-    warm_rounds, warm_steps = _rounds_and_steps(run.warm_requests,
-                                                eng.max_batch)
-    rounds, steps = _rounds_and_steps(run.requests, eng.max_batch)
+    warm_rounds = _event_rounds(run.warm_requests, eng.max_batch)
+    rounds = _event_rounds(run.requests, eng.max_batch)
     if (run.net.topology != PAPER_TOPOLOGY or eng.max_batch != EVENT_BATCH
             or eng._temporal.leak != EVENT_LEAK or st["rounds_event"] != rounds
             or run.warm_engine.stats()["rounds_event"] != warm_rounds):
         raise AssertionError(f"event path: topology {run.net.topology}, "
                              f"max_batch {eng.max_batch}, {eng._temporal}, "
                              f"rounds {st['rounds_event']} != {rounds}")
-    guard.expect("event path", {
-        "lif_step": (hidden + 1) * (warm_steps + steps),
-        "popcount_mac": warm_rounds + rounds + hidden * (warm_steps + steps)})
+    # one tile-0 MAC and one scan a round; no single LIF step
+    guard.expect("event path", {"temporal_scan": warm_rounds + rounds,
+                                "popcount_mac": warm_rounds + rounds})
 
     # the same streams on the CPU (the plain versions)
     cpu_net = EsamNetwork.from_numpy(*run.net.to_numpy(), device="cpu")
@@ -1444,14 +1562,27 @@ def events_phase() -> dict:
     if worst > 1e-6:
         raise AssertionError(f"event energy off by {worst:.3g} relative")
 
+    # the plain per-step oracle on the card (temporal_forward_naive: dense
+    # tiles and lif_step_ref, no kernel) on each T's streams
+    t0 = time.perf_counter()
+    for t, reqs in by_t.items():
+        cfg = dataclasses.replace(eng._temporal, n_steps=t)
+        spikes = packing.unpack_spikes_np(
+            np.stack([r.events for r in reqs], axis=1), PAPER_TOPOLOGY[0])
+        naive = temporal_forward_naive(run.net, spikes, cfg)
+        if not np.array_equal(np.stack([r.logits for r in reqs]), naive):
+            raise AssertionError(f"T={t}: served logits differ from the "
+                                 "per-step oracle")
+    torch.cuda.synchronize()
+    oracle_wall = time.perf_counter() - t0
+
     # T=1, no leak, reset to zero: the packed plan's logits
     first = [EventRequest(events=r.events[:1]) for r in
              run.requests[:EVENT_BATCH]]
     with PlainForbidden() as guard1:
         SpikeEngine(run.net, max_batch=EVENT_BATCH, device="cuda").serve(first)
         torch.cuda.synchronize()
-    guard1.expect("T=1 round", {"lif_step": hidden + 1,
-                                "popcount_mac": 1 + hidden})
+    guard1.expect("T=1 round", {"temporal_scan": 1, "popcount_mac": 1})
     packed = run.net.plan(mode="packed")(packing.words_from_np(
         np.stack([r.events[0] for r in first])).cuda()).logits.cpu().numpy()
     if not np.array_equal(np.stack([r.logits for r in first]), packed):
@@ -1468,6 +1599,7 @@ def events_phase() -> dict:
         "host_pack_s": st["host_pack_s_total"],
         "dispatch_s": st["dispatch_s_total"], "flush_and_rest_s": rest,
         "cpu_twin_wall_s": cpu_wall, "energy_max_rel_err": worst,
+        "per_step_oracle_wall_s": oracle_wall,
         "launches": guard.counts}), flush=True)
     profile_events(run.net, run.requests, eng._temporal)
     return guard.counts
@@ -1586,9 +1718,29 @@ def main() -> int:
                 for refractory in (0, 2):
                     check_lif(card, rng, batch, n, leak, reset, refractory,
                               lif_rows)
-    # popcount_mac at the event path's shapes: tile 0 over a T=16 round,
-    # a hidden tile and the readout over one step
-    for batch, n_in, n_out in ((16 * EVENT_BATCH, 768, 256),
+    # the event round's scan: the event path's shapes (T 4, 8 and 16 at
+    # B 64), ragged rounds, 0 and 1 hidden tiles, each reset mode with
+    # refractory 2, and its three routes: planes and state in shared
+    # memory, planes past it (read from device memory), state past it too
+    # (a device scratch)
+    scan_rows = []
+    for n_steps in EVENT_STEPS:
+        check_scan(card, rng, PAPER_HIDDEN, EVENT_BATCH, n_steps, scan_rows)
+    for batch in (1, 7):
+        check_scan(card, rng, PAPER_HIDDEN, batch, 8, scan_rows)
+    for hidden in ((), (256,)):
+        check_scan(card, rng, hidden, EVENT_BATCH, 8, scan_rows)
+    check_scan(card, rng, (2048, 2048), 9, 4, scan_rows, route=(0, 1))
+    check_scan(card, rng, (16384, 16384), 2, 2, scan_rows, route=(0, 0))
+    for reset in ("zero", "subtract"):
+        check_scan(card, rng, PAPER_HIDDEN, EVENT_BATCH, 16, scan_rows,
+                   reset=reset, refractory=2)
+    # popcount_mac at the event path's shapes: tile 0 over a round of T 4,
+    # 8 and 16 (the scan's first operand); and the per-step shapes of the
+    # route before the scan, a hidden tile and the readout over one step
+    for batch, n_in, n_out in ((4 * EVENT_BATCH, 768, 256),
+                               (8 * EVENT_BATCH, 768, 256),
+                               (16 * EVENT_BATCH, 768, 256),
                                (EVENT_BATCH, 256, 256),
                                (EVENT_BATCH, 256, 10)):
         check_mac(card, rng, batch, n_in, n_out, mac_rows)
@@ -1723,12 +1875,20 @@ def main() -> int:
              next(r for r in arbiter_rows if r["kernel"] == "arbiter"
                   and r["shape"] == f"16x{ROW_GROUP}" and r["ports"] == 4),
              bench["arbiter"]),
+        # no path runs the single step since the event round became one
+        # scan: its count is the event path's, 0; check_lif holds its bits
         line("lif_step", "lif_step/csrc/lif_step.cu", "lif_step/kernel.py:38",
              next(r for r in lif_rows
                   if r["shape"] == f"{EVENT_BATCH}x256"
                   and r["leak"] == EVENT_LEAK and r["reset"] == "zero"
                   and r["refractory"] == 0),
              events_counts["lif_step"]),
+        line("temporal_scan", "lif_step/csrc/lif_step.cu",
+             "lif_step/kernel.py:38",
+             next(r for r in scan_rows
+                  if r["shape"] == f"16x{EVENT_BATCH}x256:256:256:10"
+                  and r["reset"] == "zero" and r["refractory"] == 0),
+             events_counts["temporal_scan"]),
         line("cim_matmul_packed", packed_src,
              "cim_matmul_packed/kernel.py:47",
              pick(packed_mac_rows, bench_shape), bench["cim_matmul_packed"]),

@@ -25,10 +25,10 @@ Modes (every mode of the reference):
 ``temporal``    the multi-timestep LIF plane (``core/esam/temporal.py``) over
                 a time-first ``[T, ..., n_in]`` event stream; needs a
                 :class:`~repro_torch.core.esam.temporal.TemporalConfig`.  On
-                the card: one ``popcount_mac`` for tile 0, then per step and
-                hidden tile a ``lif_step``, a re-pack and a ``popcount_mac``,
-                and the readout's ``lif_step``.  With T=1, zero leak and zero
-                reset it is ``packed`` bit for bit.
+                the card: one ``popcount_mac`` for tile 0, then one
+                ``temporal_scan`` for every step's LIF steps, re-packs,
+                hidden-tile MACs and readout leak.  With T=1, zero leak and
+                zero reset it is ``packed`` bit for bit.
 
 Orthogonal flags: ``collect`` returns the inter-tile planes (cycle plans
 ignore it: their traces hold every tile's spikes), ``telemetry`` returns

@@ -11,23 +11,22 @@ membrane after T steps plus the per-class offset.
 
 ``temporal_forward`` is the port of the reference's fused scan
 (``repro.core.esam.temporal.temporal_forward``).  Torch runs eagerly, so the
-scan is a Python loop over timesteps; the state never leaves the device:
+scan is a kernel, not a Python loop over timesteps:
 
 * tile 0's MAC depends only on the events, so it leaves the time loop as
-  ONE ``[T*B, n_in]`` MAC (on the card one ``popcount_mac`` launch);
-* each step then runs, per hidden tile, the LIF step (``kernels/lif_step``,
-  CUDA on the card), a re-pack of the fired spikes into wire words, and the
-  next tile's MAC on those words (``popcount_mac`` on the card);
-* the readout leaks and integrates through the same LIF step with a
-  threshold no membrane reaches (``READOUT_NEVER_FIRE``), so it rounds
-  exactly as the hidden tiles do: once, as one fused multiply-add.  An eager
-  ``out_v * decay + contrib`` would round twice and miss the reference at
-  every nonzero leak.
+  ONE ``[T*B, n_in]`` popcount MAC (``cim_popcount_matmul``: on the card one
+  ``popcount_mac`` launch);
+* every later step is ONE ``temporal_scan`` (``kernels/lif_step``): per
+  step and hidden tile the LIF step, the fired spikes packed into wire
+  words, and the next tile's MAC on those words; the readout leaks and
+  integrates with one rounding (a fused multiply-add) and never fires.  On
+  the card the whole loop is one launch that keeps every stream's
+  membranes on the SM; an eager ``out_v * decay + contrib`` would round
+  twice and miss the reference at every nonzero leak.
 
-On the CPU the MACs are ``tile.exact_matmul`` on the ±1 float32 operand and
-the LIF step is its plain version.  Both datapaths are the reference's bit
-for bit: the MACs are exact integer arithmetic, and the LIF step rounds as
-the reference's jitted plan does (``kernels/lif_step/ref.py``).
+On the CPU both are their plain versions, the reference's bit for bit: the
+MACs are exact integer arithmetic, and the LIF step rounds as the
+reference's jitted plan does (``kernels/lif_step/ref.py``).
 
 ``temporal_forward_naive`` is the per-step oracle: dense tiles and the plain
 LIF step on unpacked spikes, one step at a time.
@@ -56,10 +55,6 @@ from repro_torch.kernels.lif_step.ref import (
     leak_integrate,
     lif_step_ref,
 )
-
-#: the readout's threshold: int32 2^31 - 1 compares as float32 2^31, which
-#: no membrane reaches (|V| <= T * n_in), so the readout never fires
-READOUT_NEVER_FIRE = 2**31 - 1
 
 
 @dataclasses.dataclass(frozen=True)
@@ -105,14 +100,10 @@ def init_state(topology, batch: int, device="cuda"):
 
 
 def mac_operands(weight_bits) -> tuple:
-    """Per tile, the operand of the temporal plane's MACs on the weights'
-    device: int32 weight planes ``[N, ceil(K/32)]`` for ``popcount_mac`` on
-    the card, the ±1 float32 decode ``[K, N]`` for ``exact_matmul`` on the
-    CPU.  ``EsamPlan`` builds them once per parameter set."""
-    if weight_bits[0].device.type == "cuda":
-        return tuple(packing.pack_weight_planes(w) for w in weight_bits)
-    return tuple(nrn.decode_bitlines(w).to(torch.float32)
-                 for w in weight_bits)
+    """Per tile, the int32 weight planes ``[N, ceil(K/32)]`` of the temporal
+    plane's popcount MACs, on the weights' device.  ``EsamPlan`` builds them
+    once per parameter set."""
+    return tuple(packing.pack_weight_planes(w) for w in weight_bits)
 
 
 def temporal_forward(
@@ -132,57 +123,30 @@ def temporal_forward(
     ``collect``) and ``"loads"`` (with ``telemetry``): tuples over tiles of
     the tile-input words ``[B, T, W]`` and arbiter loads ``[B, T, groups]``,
     batch-first; tile 0's entry is the input stream itself.  The events'
-    device picks the datapath: CUDA kernels on the card, plain versions on
+    device picks the datapath: CUDA kernels on the card (one
+    ``popcount_mac`` and one ``temporal_scan`` launch), plain versions on
     the CPU.
     """
     t, batch, _ = events.shape
     if t != cfg.n_steps:
         raise ValueError(f"events hold {t} steps, the config {cfg.n_steps}")
-    dev = events.device
-    on_card = dev.type == "cuda"
-    if on_card:
-        def mac(i, spikes, words):
-            return pop_ops.cim_popcount_matmul(words, weights[i])
-    else:
-        def mac(i, spikes, words):
-            return tile_mod.exact_matmul(spikes, weights[i]).to(torch.int32)
-
-    # tile 0 sees only the events: one [T*B, n_in] MAC before the loop
-    flat = events.reshape(t * batch, -1)
-    c_in = mac(0, None if on_card
-               else packing.unpack_spikes(flat, topology[0], torch.float32),
-               flat).reshape(t, batch, topology[1])
-
-    hidden, out_v = init_state(topology, batch, dev)
-    hidden = list(hidden)
-    never = torch.full((topology[-1],), READOUT_NEVER_FIRE,
-                       dtype=torch.int32, device=dev)
-    no_refrac = torch.zeros((batch, topology[-1]), dtype=torch.int32,
-                            device=dev)
-    keep_words = on_card or collect or telemetry
-    planes = [[] for _ in hidden]
-    kw = dict(leak=cfg.leak, reset=cfg.reset, refractory=cfg.refractory)
-    for step in range(t):
-        contrib = c_in[step]
-        for i, (v, r) in enumerate(hidden):
-            spikes, v, r = lif_ops.lif_step(v, contrib, vth[i], r, **kw)
-            hidden[i] = (v, r)
-            words = packing.pack_spikes(spikes) if keep_words else None
-            if keep_words:
-                planes[i].append(words)
-            contrib = mac(i + 1, spikes, words)
-        _, out_v, _ = lif_ops.lif_step(out_v, contrib, never, no_refrac,
-                                       leak=cfg.leak)
-
+    if len(weights) != len(topology) - 1:
+        raise ValueError(f"{len(weights)} weight tiles for topology "
+                         f"{topology}")
+    # tile 0 sees only the events: one [T*B, n_in] MAC before the scan
+    c_in = pop_ops.cim_popcount_matmul(
+        events.reshape(t * batch, -1), weights[0]).reshape(
+            t, batch, topology[1])
+    out_v, words, loads = lif_ops.temporal_scan(
+        c_in, weights[1:], vth[:-1], leak=cfg.leak, reset=cfg.reset,
+        refractory=cfg.refractory, collect=collect, telemetry=telemetry)
     out: dict = {"logits": out_v + out_offset}
-    if collect or telemetry:
-        # time-first stacks, handed out batch-first
-        wires = [events] + [torch.stack(p) for p in planes]
-        if collect:
-            out["planes"] = tuple(w.transpose(0, 1) for w in wires)
-        if telemetry:
-            out["loads"] = tuple(packing.group_popcount(w).transpose(0, 1)
-                                 for w in wires)
+    # time-first from the scan, handed out batch-first
+    if collect:
+        out["planes"] = tuple(w.transpose(0, 1) for w in (events, *words))
+    if telemetry:
+        out["loads"] = tuple(ld.transpose(0, 1) for ld in (
+            packing.group_popcount(events), *loads))
     return out
 
 

@@ -1,19 +1,22 @@
-"""Wrapper of the LIF-step kernel, dispatched by device.
+"""Wrappers of the LIF-step kernels, dispatched by device.
 
-``lif_step`` is what the temporal plane (``core.esam.temporal``) issues once
-per hidden tile and timestep, and once per timestep for the leaking readout
-(with a threshold no membrane can reach).  CPU tensors run the plain version
-in ``ref.py``; CUDA tensors launch ``csrc/lif_step.cu`` (built by
-``kernels/_build.py`` at first use) or the call raises.  Launches are
-counted (:func:`launch_counts`).
+``temporal_scan`` is what the temporal plane (``core.esam.temporal``)
+calls once per event round: every hidden tile's LIF step, spike re-pack and
+next-tile MAC, and the readout's leak, for all T steps.  ``lif_step`` is one
+step of one tile, the counterpart of the reference's ``lif_step`` op.  CPU
+tensors run the plain versions in ``ref.py``; CUDA tensors launch
+``csrc/lif_step.cu`` (built by ``kernels/_build.py`` at first use) or the
+call raises.  Launches are counted (:func:`launch_counts`).
 """
 
 from __future__ import annotations
 
 import ctypes
+import functools
 
 import torch
 
+from repro_torch.core.packing import LANE_BITS
 from repro_torch.kernels import _build
 from repro_torch.kernels.common import (
     check_cuda_operands,
@@ -25,18 +28,26 @@ from repro_torch.kernels.lif_step.ref import (  # noqa: F401  (re-export)
     RESET_MODES,
     decay_of,
     lif_step_ref,
+    temporal_scan_ref,
 )
 
 __all__ = [
     "RESET_MODES",
     "lif_step",
     "lif_step_ref",
+    "temporal_scan",
+    "temporal_scan_ref",
     "launch_counts",
     "reset_launch_counts",
 ]
 
 #: kernel launches since the last reset
-_LAUNCHES = {"lif_step": 0}
+_LAUNCHES = {"lif_step": 0, "temporal_scan": 0}
+
+#: hidden tiles one ``temporal_scan`` launch takes (``kMaxHidden``)
+SCAN_MAX_HIDDEN = 32
+#: spikes per row group of the arbiter loads (``packing.group_popcount``)
+_ROW_GROUP = 128
 
 #: resident blocks per SM the grid-stride launch asks for at most
 _BLOCKS_PER_SM = 8
@@ -57,6 +68,14 @@ def _declare(lib: ctypes.CDLL) -> None:
     lib.lif_step.argtypes = [vp, vp, vp, vp, vp, vp, vp, i32, i32, f, i32,
                              i32, i32, vp]
     lib.lif_step.restype = i32
+    ip = ctypes.POINTER(ctypes.c_int)
+    lib.temporal_scan.argtypes = [vp, i32, i32, i32, ip, i32, vp, vp, vp, vp,
+                                  vp, vp, f, i32, i32, i32, i32, vp]
+    lib.temporal_scan.restype = i32
+    lib.temporal_scan_smem_bytes.argtypes = [i32, ip, i32, i32, i32]
+    lib.temporal_scan_smem_bytes.restype = ctypes.c_longlong
+    lib.temporal_scan_smem_optin.argtypes = [i32]
+    lib.temporal_scan_smem_optin.restype = i32
 
 
 def _library() -> _build.KernelLibrary:
@@ -121,3 +140,123 @@ def lif_step(
     _build.check(kl, err, "lif_step launch")
     _LAUNCHES["lif_step"] += 1
     return spikes, vmem_out, refrac_out
+
+
+def _check_scan(c_in, planes, vth, telemetry) -> tuple[list[int], int]:
+    """(hidden widths, readout width) of a scan's operands; raises on a
+    type, shape or width the scan does not take."""
+    if c_in.dim() != 3 or c_in.dtype != torch.int32:
+        raise ValueError(f"c_in must be int32[T, B, N], got "
+                         f"{c_in.dtype}{list(c_in.shape)}")
+    if c_in.shape[0] < 1:
+        raise ValueError("c_in holds no step")
+    if len(planes) != len(vth):
+        raise ValueError(f"{len(planes)} plane tensors for {len(vth)} "
+                         "hidden thresholds")
+    for i, th in enumerate(vth):
+        if (th.dim() != 1 or th.dtype != torch.int32 or not th.shape[0]
+                or th.shape[0] % LANE_BITS):
+            raise ValueError(f"vth[{i}] must be int32[N] with N a multiple "
+                             f"of {LANE_BITS}, got {th.dtype}"
+                             f"{list(th.shape)}")
+    hidden = [int(th.shape[0]) for th in vth]
+    n_cls = int(planes[-1].shape[0]) if planes else int(c_in.shape[-1])
+    if hidden and c_in.shape[-1] != hidden[0]:
+        raise ValueError(f"c_in holds {c_in.shape[-1]} neurons, the first "
+                         f"hidden tile {hidden[0]}")
+    for i, w in enumerate(planes):
+        n = hidden[i]
+        n_next = hidden[i + 1] if i + 1 < len(hidden) else n_cls
+        if tuple(w.shape) != (n_next, n // LANE_BITS) or w.dtype != torch.int32:
+            raise ValueError(f"planes[{i}] must be int32"
+                             f"[{n_next}, {n // LANE_BITS}], got "
+                             f"{w.dtype}{list(w.shape)}")
+        if telemetry and n % _ROW_GROUP:
+            raise ValueError(f"telemetry needs hidden widths in "
+                             f"{_ROW_GROUP}-spike row groups, got {n}")
+    return hidden, n_cls
+
+
+@functools.lru_cache(maxsize=None)
+def _scan_route(device_index: int, hidden: tuple,
+                n_cls: int) -> tuple[int, int, int]:
+    """(planes in shared memory, state in shared memory, bytes): the first
+    of the kernel's routes whose block fits the card's opt-in shared
+    memory.  The planes leave it first, then the state."""
+    kl = _library()
+    arr = (ctypes.c_int * max(1, len(hidden)))(*hidden)
+    limit = kl.lib.temporal_scan_smem_optin(device_index)
+    for planes_smem, state_smem in ((1, 1), (0, 1), (0, 0)):
+        need = kl.lib.temporal_scan_smem_bytes(len(hidden), arr, n_cls,
+                                               planes_smem, state_smem)
+        if 0 <= need <= limit:
+            return planes_smem, state_smem, need
+    raise ValueError(f"temporal_scan: no route fits {limit} B of shared "
+                     f"memory at hidden widths {hidden}")
+
+
+def temporal_scan(
+    c_in: torch.Tensor,       # int32[T, B, N_1]: tile 0's MAC, per step
+    planes,                   # per hidden tile i: int32[N_{i+1}, N_i / 32]
+    vth,                      # per hidden tile i: int32[N_i]
+    *,
+    leak: float = 0.0,
+    reset: str = "zero",
+    refractory: int = 0,
+    collect: bool = False,
+    telemetry: bool = False,
+) -> tuple[torch.Tensor, tuple | None, tuple | None]:
+    """The event round's T steps after tile 0's MAC (see
+    ``ref.temporal_scan_ref``): returns (out_v float32[B, n_cls], words,
+    loads), new tensors on the operands' device, time-first.
+
+    On the card it is one launch, one block a stream.
+    """
+    if reset not in RESET_MODES:
+        raise ValueError(f"reset {reset!r} not in {RESET_MODES}")
+    if refractory < 0:
+        raise ValueError(f"refractory must be >= 0, got {refractory}")
+    planes, vth = tuple(planes), tuple(vth)
+    hidden, n_cls = _check_scan(c_in, planes, vth, telemetry)
+    kw = dict(leak=leak, reset=reset, refractory=refractory, collect=collect,
+              telemetry=telemetry)
+    if on_cpu(c_in, *planes, *vth):
+        return temporal_scan_ref(c_in, planes, vth, **kw)
+    dev = check_cuda_operands(
+        {"c_in": c_in, **{f"planes[{i}]": w for i, w in enumerate(planes)},
+         **{f"vth[{i}]": th for i, th in enumerate(vth)}})
+    if len(hidden) > SCAN_MAX_HIDDEN:
+        raise ValueError(f"temporal_scan takes at most {SCAN_MAX_HIDDEN} "
+                         f"hidden tiles, got {len(hidden)}")
+    T, B, _ = c_in.shape
+    c_in = c_in.contiguous()
+    planes = tuple(w.contiguous() for w in planes)
+    vth = tuple(th.contiguous() for th in vth)
+    out_v = torch.empty((B, n_cls), dtype=torch.float32, device=dev)
+    words = tuple(torch.empty((T, B, n // LANE_BITS), dtype=torch.int32,
+                              device=dev) for n in hidden) if collect else None
+    loads = tuple(torch.empty((T, B, n // _ROW_GROUP), dtype=torch.int32,
+                              device=dev) for n in hidden) if telemetry else None
+    if B == 0:
+        return out_v, words, loads
+    k = len(hidden)
+    ptrs = ctypes.c_void_p * max(1, k)
+    kl = _library()
+    with torch.cuda.device(dev):
+        planes_smem, state_smem, _ = _scan_route(dev.index, tuple(hidden),
+                                                 n_cls)
+        scratch = None if state_smem else torch.empty(
+            (B, 2 * sum(hidden) + n_cls), dtype=torch.float32, device=dev)
+        err = kl.lib.temporal_scan(
+            c_in.data_ptr(), T, B, k, (ctypes.c_int * max(1, k))(*hidden),
+            n_cls, ptrs(*(w.data_ptr() for w in planes)),
+            ptrs(*(th.data_ptr() for th in vth)),
+            None if words is None else ptrs(*(w.data_ptr() for w in words)),
+            None if loads is None else ptrs(*(ld.data_ptr() for ld in loads)),
+            out_v.data_ptr(), None if scratch is None else scratch.data_ptr(),
+            decay_of(leak), int(reset == "subtract"), refractory,
+            planes_smem, state_smem, stream_ptr(dev))
+    _build.check(kl, err, "temporal_scan launch")
+    _LAUNCHES["temporal_scan"] += 1
+    return out_v, words, loads
+

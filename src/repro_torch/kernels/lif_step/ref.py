@@ -1,5 +1,7 @@
-"""Plain PyTorch version of the LIF-step kernel: leak-integrate-fire-reset
-on resident membrane state, for any device.
+"""Plain PyTorch versions of the LIF-step kernels: one leak-integrate-fire-
+reset step on resident membrane state (``lif_step_ref``), and the event
+round's whole T-step loop after tile 0's MAC (``temporal_scan_ref``), for
+any device.
 
 Semantics (one SNN timestep for one tile's neuron array), the reference's
 ``repro.kernels.lif_step.ref.lif_step_ref``:
@@ -47,6 +49,9 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from repro_torch.core import packing
+from repro_torch.kernels.cim_popcount.ref import cim_popcount_ref
+
 RESET_MODES = ("zero", "subtract")
 
 
@@ -92,3 +97,54 @@ def lif_step_ref(
     refrac_next = torch.where(
         fired, torch.full_like(refrac, refractory), (refrac - 1).clamp_min(0))
     return fired.to(torch.int8), v_next, refrac_next.to(torch.int32)
+
+
+def temporal_scan_ref(
+    c_in: torch.Tensor,       # int32[T, B, N_1]: tile 0's MAC, per step
+    planes,                   # per hidden tile i: int32[N_{i+1}, N_i / 32]
+    vth,                      # per hidden tile i: int32[N_i]
+    *,
+    leak: float = 0.0,
+    reset: str = "zero",
+    refractory: int = 0,
+    collect: bool = False,
+    telemetry: bool = False,
+) -> tuple[torch.Tensor, tuple | None, tuple | None]:
+    """Every step of an event round after tile 0's lifted MAC.
+
+    From zero state, per step ``t``: the LIF step of each hidden tile on
+    its contribution (``c_in[t]`` for the first), its fired spikes packed
+    into wire words, and the exact popcount MAC of those words with the next
+    tile's planes; the last planes feed the readout, which leaks and
+    integrates with one rounding and never fires.  With no hidden tile the
+    readout integrates ``c_in`` itself.
+
+    Returns (out_v float32[B, n_cls], words, loads): ``words`` (with
+    ``collect``) and ``loads`` (with ``telemetry``) are tuples over hidden
+    tiles of int32 ``[T, B, N_i / 32]`` and ``[T, B, N_i / 128]``, else
+    None.  The caller adds the readout's offset.
+    """
+    t, batch, _ = c_in.shape
+    n_cls = planes[-1].shape[0] if len(planes) else c_in.shape[-1]
+    decay = decay_of(leak)
+    state = [(torch.zeros((batch, th.shape[0]), dtype=torch.float32,
+                          device=c_in.device),
+              torch.zeros((batch, th.shape[0]), dtype=torch.int32,
+                          device=c_in.device)) for th in vth]
+    out_v = torch.zeros((batch, n_cls), dtype=torch.float32,
+                        device=c_in.device)
+    words = [[] for _ in vth]
+    for step in range(t):
+        contrib = c_in[step]
+        for i, (v, r) in enumerate(state):
+            spikes, v, r = lif_step_ref(v, contrib, vth[i], r, leak=leak,
+                                        reset=reset, refractory=refractory)
+            state[i] = (v, r)
+            w = packing.pack_spikes(spikes)
+            words[i].append(w)
+            contrib = cim_popcount_ref(w, planes[i])
+        out_v = leak_integrate(out_v, decay, contrib)
+    stacked = tuple(torch.stack(w) for w in words)
+    return (out_v, stacked if collect else None,
+            tuple(packing.group_popcount(w) for w in stacked)
+            if telemetry else None)

@@ -61,7 +61,8 @@ __device__ __forceinline__ long long load_index(const void* p, int bytes) {
 }
 
 // One block of kThreads walks the event row; a row index out of [0, n_out)
-// writes nothing.
+// is wrapped once if negative and clamped, as the reference's
+// interpret-mode block index is.
 __global__ void __launch_bounds__(kThreads)
 column_event_kernel(int8_t* __restrict__ bits, int n_out, int n_in,
                     long long ld, const void* col, int col_bytes,
@@ -70,8 +71,9 @@ column_event_kernel(int8_t* __restrict__ bits, int n_out, int n_in,
                     const float* __restrict__ u_dep, float p_pot,
                     float p_dep) {
   if (!*apply) return;
-  const long long c = load_index(col, col_bytes);
-  if (c < 0 || c >= n_out) return;
+  long long c = load_index(col, col_bytes);
+  if (c < 0) c += n_out;
+  c = c < 0 ? 0 : (c >= n_out ? n_out - 1 : c);
   int8_t* row = bits + c * ld;
   for (int i = threadIdx.x; i < n_in; i += blockDim.x)
     row[i] = rule(row[i], pre[i] != 0, __ldg(u_pot + i), __ldg(u_dep + i),

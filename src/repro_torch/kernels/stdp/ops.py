@@ -177,7 +177,8 @@ def stdp_column_event(
     """Column event: rewrite row ``col`` of ``bits_t`` in place when
     ``apply``; returns ``bits_t``.  On the card ``col`` and ``apply`` stay in
     device memory and the kernel reads them (a ``col`` outside
-    ``[0, N_out)`` writes nothing there)."""
+    ``[0, N_out)`` is wrapped once if negative and clamped, as the
+    reference's interpret-mode block index is)."""
     if bits_t.dim() != 2:
         raise ValueError(f"bits_t must be [N_out, N_in], got "
                          f"{tuple(bits_t.shape)}")

@@ -56,8 +56,12 @@ def stdp_column_event_ref(
     p_dep: float,
 ) -> torch.Tensor:
     """One column event: the rule on row ``col`` only, gated by ``apply``.
-    ``col`` and ``apply`` may be tensors on the device; nothing syncs."""
+    ``col`` and ``apply`` may be tensors on the device; nothing syncs.  A
+    ``col`` outside ``[0, N_out)`` is wrapped once if negative and clamped,
+    as the reference's interpret-mode block index is."""
+    n_out = bits_t.shape[0]
     idx = torch.as_tensor(col, device=bits_t.device).reshape(1).long()
+    idx = torch.where(idx < 0, idx + n_out, idx).clamp(0, n_out - 1)
     old = bits_t.index_select(0, idx)[0]
     new = _rule(old, pre != 0, u_pot, u_dep, p_pot, p_dep)
     gate = torch.as_tensor(apply, device=bits_t.device) != 0
@@ -83,13 +87,12 @@ def stdp_column_epoch_ref(
     on ``pre`` and then the predicted row the rule on ``~pre`` with
     ``p_pot`` 0.  A label outside ``[0, N_out)`` is always wrong, and its
     teacher row is the label wrapped once if negative and clamped, as the
-    reference's interpret-mode block index is.  Returns (new bits, number
-    of wrong samples as an int32 scalar); nothing syncs with the host."""
-    n_out = bits_t.shape[0]
+    reference's interpret-mode block index is (``stdp_column_event_ref``).
+    Returns (new bits, number of wrong samples as an int32 scalar); nothing
+    syncs with the host."""
     pre = pre != 0
     not_pre = ~pre
     labels = labels.long()
-    rows = torch.where(labels < 0, labels + n_out, labels).clamp(0, n_out - 1)
     n_pre = pre.sum(-1, dtype=torch.int32)
     wrong = torch.zeros(pre.shape[:1], dtype=torch.bool, device=bits_t.device)
     for i in range(pre.shape[0]):
@@ -98,7 +101,7 @@ def stdp_column_epoch_ref(
         pred = (vmem.argmax() if out_offset is None
                 else (vmem.to(torch.float32) + out_offset).argmax())
         wrong_i = pred != labels[i]
-        bits_t = stdp_column_event_ref(bits_t, rows[i], wrong_i, pre[i],
+        bits_t = stdp_column_event_ref(bits_t, labels[i], wrong_i, pre[i],
                                        u_pot[i], u_dep_t[i], p_pot, p_dep)
         bits_t = stdp_column_event_ref(bits_t, pred, wrong_i, not_pre[i],
                                        u_dep_w[i], u_dep_w[i], 0.0, p_dep)

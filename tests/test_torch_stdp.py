@@ -90,6 +90,43 @@ def test_column_event_wrapper_writes_in_place_on_the_cpu():
     np.testing.assert_array_equal(t.numpy(), bits_t)
 
 
+def _out_of_range_cols(n_out):
+    return [n_out, -1, -n_out - 1]
+
+
+@pytest.mark.parametrize("n_out,n_in", [(10, 256), (7, 99)])
+@pytest.mark.parametrize("where", ["n_out", "minus_1", "minus_n_out_minus_1"])
+@pytest.mark.parametrize("apply", [True, False])
+def test_column_event_out_of_range_row_matches_reference(n_out, n_in, where,
+                                                         apply):
+    """A row index outside [0, n_out): the plain version and the CPU wrapper
+    write the row the reference's interpret-mode kernel writes (a negative
+    index wrapped once, then clamped), or nothing when the gate is off."""
+    col = dict(zip(("n_out", "minus_1", "minus_n_out_minus_1"),
+                   _out_of_range_cols(n_out)))[where]
+    bits_t, pre, u_pot, u_dep = _operands(n_out + n_in, n_out, n_in, (n_in,))
+    want = np.asarray(jops.stdp_column_event(
+        jnp.asarray(bits_t), jnp.asarray(col, jnp.int32), jnp.asarray(apply),
+        jnp.asarray(pre), jnp.asarray(u_pot), jnp.asarray(u_dep),
+        p_pot=0.5, p_dep=0.5, interpret=True))
+    args = (torch.tensor(apply), torch.from_numpy(pre),
+            torch.from_numpy(u_pot), torch.from_numpy(u_dep))
+    for col_t in (torch.tensor(col), torch.tensor(col, dtype=torch.int32)):
+        got = ops.stdp_column_event_ref(torch.from_numpy(bits_t), col_t,
+                                        *args, 0.5, 0.5)
+        np.testing.assert_array_equal(got.numpy(), want)
+        t = torch.from_numpy(bits_t.copy())
+        ops.reset_launch_counts()
+        assert ops.stdp_column_event(t, col_t, *args, p_pot=0.5,
+                                     p_dep=0.5) is t
+        assert ops.launch_counts()["stdp_column_event"] == 0
+        np.testing.assert_array_equal(t.numpy(), want)
+    # the row written is the wrapped, clamped index (apply) or none
+    changed = np.flatnonzero((want != bits_t).any(-1))
+    row = min(max(col + n_out if col < 0 else col, 0), n_out - 1)
+    assert set(changed) <= ({row} if apply else set())
+
+
 @pytest.mark.parametrize("n_out,n_in", [(16, 128), (8, 64), (24, 384)])
 @pytest.mark.parametrize("p_pot,p_dep", PROBS)
 def test_stdp_update_matches_reference(n_out, n_in, p_pot, p_dep):
@@ -271,6 +308,28 @@ def test_cuda_column_event_matches_plain(cuda, n_out, n_in, p_pot, p_dep):
             want = ops.stdp_column_event_ref(bits_t, col, gate, pre, u_pot,
                                              u_dep, p_pot, p_dep)
             assert torch.equal(got, want)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n_out,n_in", [(10, 256), (7, 99)])
+@pytest.mark.parametrize("where", ["n_out", "minus_1", "minus_n_out_minus_1"])
+@pytest.mark.parametrize("apply", [True, False])
+def test_cuda_column_event_out_of_range_row_matches_plain(cuda, n_out, n_in,
+                                                          where, apply):
+    col = dict(zip(("n_out", "minus_1", "minus_n_out_minus_1"),
+                   _out_of_range_cols(n_out)))[where]
+    bits_t, pre, u_pot, u_dep = (torch.from_numpy(a).to(cuda) for a in
+                                 _operands(n_out + n_in, n_out, n_in, (n_in,)))
+    gate = torch.tensor(apply, device=cuda)
+    for dtype in (torch.int64, torch.int32):
+        c = torch.tensor(col, dtype=dtype, device=cuda)
+        ops.reset_launch_counts()
+        got = ops.stdp_column_event(bits_t.clone(), c, gate, pre, u_pot,
+                                    u_dep, p_pot=0.5, p_dep=0.5)
+        assert ops.launch_counts()["stdp_column_event"] == 1
+        want = ops.stdp_column_event_ref(bits_t, c, gate, pre, u_pot, u_dep,
+                                         0.5, 0.5)
+        assert torch.equal(got, want)
 
 
 @pytest.mark.cuda

@@ -3,10 +3,13 @@
 The twin of tests/test_temporal.py.  The same seeded numpy inputs go through
 both packages: the LIF step (bit for bit against ``jax.jit`` of the
 reference, whose compiler rounds the leak and the integrate once, as one
-fused multiply-add), the temporal plan (logits, planes and loads bit for
-bit), the temporal cost model, and event-stream serving through
-``SpikeEngine``.  Plus a ``cuda``-marked test of the CUDA LIF step against
-its plain version, which skips without a card.
+fused multiply-add), the event round's scan (``temporal_scan_ref`` and the
+CPU wrapper against the reference's ``temporal_forward`` at 0, 1 and 3
+hidden tiles, every leak, reset and refractory setting, T 1 and 5, with and
+without collect and telemetry), the temporal plan (logits, planes and loads
+bit for bit), the temporal cost model, and event-stream serving through
+``SpikeEngine``.  Plus ``cuda``-marked tests of the CUDA LIF step and scan
+against their plain versions, which skip without a card.
 """
 
 from __future__ import annotations
@@ -177,7 +180,8 @@ def test_lif_step_wrapper_checks_and_counts():
     got = lif_ops.lif_step(*ops, leak=0.25)
     for g, w in zip(got, lif_step_ref(*ops, leak=0.25)):
         assert torch.equal(g, w)
-    assert lif_ops.launch_counts() == {"lif_step": 0}   # the plain path
+    assert lif_ops.launch_counts() == {"lif_step": 0,   # the plain path
+                                       "temporal_scan": 0}
     vmem, contrib, vth, refrac = ops
     with pytest.raises(ValueError):
         lif_ops.lif_step(vmem, contrib.float(), vth, refrac)
@@ -215,6 +219,128 @@ def test_temporal_plan_matches_reference(kw):
     bare = net.plan(mode="temporal", temporal=cfg)(ev)
     assert bare.planes is None and bare.loads is None
     assert torch.equal(bare.logits, got.logits)
+
+
+#: (leak, reset, refractory) of the scan's cases
+SCAN_DYNAMICS = [(leak, reset, refractory) for leak in (0.0, 0.125, 0.3)
+                 for reset in ("zero", "subtract") for refractory in (0, 2)]
+#: 0, 1 and 3 hidden tiles at n_in 100 and 768 (hidden widths in row groups
+#: of 128, so telemetry applies)
+SCAN_TOPOLOGIES = [(n_in,) + hidden + (10,) for n_in in (100, 768)
+                   for hidden in ((), (128,), (128, 256, 128))]
+
+
+def _scan_operands(net, ev):
+    """(c_in, hidden planes, hidden thresholds) of a CPU network's scan:
+    tile 0's exact MAC of the packed events, then the scan's operands."""
+    from repro_torch.core.esam.temporal import mac_operands
+    from repro_torch.kernels.cim_popcount.ref import cim_popcount_ref
+
+    planes = mac_operands(net.weight_bits)
+    words = packing.words_from_np(packing.pack_spikes_np(ev))
+    t, b, _ = words.shape
+    c_in = cim_popcount_ref(words.reshape(t * b, -1), planes[0]).reshape(
+        t, b, -1)
+    return c_in, planes[1:], tuple(net.vth[:-1])
+
+
+@pytest.mark.parametrize("topo", SCAN_TOPOLOGIES,
+                         ids=lambda t: ":".join(map(str, t)))
+@pytest.mark.parametrize("leak,reset,refractory", SCAN_DYNAMICS)
+def test_temporal_scan_matches_reference(topo, leak, reset, refractory):
+    """temporal_scan_ref (fed tile 0's MAC) and temporal_forward against the
+    reference's temporal_forward, bit for bit: logits, every hidden tile's
+    spike words and loads, at T 1 and 5, with collect and telemetry each on
+    and off."""
+    from repro_torch.core.esam import temporal as ttemporal
+    from repro_torch.kernels.lif_step.ref import temporal_scan_ref
+
+    kw = dict(leak=leak, reset=reset, refractory=refractory)
+    ref, net = _pair(topo, len(topo) + int(leak * 8) + refractory)
+    for n_steps in (1, 5):
+        cfg, jcfg = _configs(n_steps=n_steps, **kw)
+        ev = _events(n_steps + topo[0], n_steps, 6, topo[0], rate=0.35)
+        want = jtemporal.temporal_forward(
+            ref.weight_bits, ref.vth, ref.out_offset,
+            jnp.asarray(jpacking.pack_spikes_np(ev)), jcfg, collect=True,
+            telemetry=True)
+        want_logits = np.asarray(want["logits"])
+        c_in, planes, vth = _scan_operands(net, ev)
+        weights = ttemporal.mac_operands(net.weight_bits)
+        words = packing.words_from_np(packing.pack_spikes_np(ev))
+        for collect in (False, True):
+            for telemetry in (False, True):
+                flags = dict(collect=collect, telemetry=telemetry)
+                out_v, w, ld = temporal_scan_ref(c_in, planes, vth, **kw,
+                                                 **flags)
+                got = ttemporal.temporal_forward(
+                    weights, net.vth, net.out_offset, words, cfg, topo,
+                    **flags)
+                for logits in (out_v + net.out_offset, got["logits"]):
+                    assert logits.dtype == torch.float32
+                    np.testing.assert_array_equal(logits.numpy(),
+                                                  want_logits)
+                assert (w is None) == (not collect)
+                assert (ld is None) == (not telemetry)
+                if collect:
+                    _assert_planes_equal([p.transpose(0, 1) for p in w],
+                                         want["planes"][1:])
+                    _assert_planes_equal(got["planes"], want["planes"])
+                if telemetry:
+                    _assert_loads_equal([x.transpose(0, 1) for x in ld],
+                                        want["loads"][1:])
+                    _assert_loads_equal(got["loads"], want["loads"])
+
+
+def test_temporal_scan_wrapper_checks_and_counts():
+    """The CPU wrapper is the plain version and launches nothing; it raises
+    on bad types, shapes, widths and mixed devices."""
+    from repro_torch.kernels.lif_step.ref import temporal_scan_ref
+
+    _, net = _pair((100, 128, 256, 10), 5)
+    ev = _events(6, 3, 4, 100)
+    c_in, planes, vth = _scan_operands(net, ev)
+    kw = dict(leak=0.125, reset="subtract", refractory=2, collect=True,
+              telemetry=True)
+    lif_ops.reset_launch_counts()
+    got = lif_ops.temporal_scan(c_in, planes, vth, **kw)
+    want = temporal_scan_ref(c_in, planes, vth, **kw)
+    assert torch.equal(got[0], want[0])
+    for g, w in zip(got[1] + got[2], want[1] + want[2]):
+        assert torch.equal(g, w)
+    assert [w.shape for w in got[1]] == [(3, 4, 4), (3, 4, 8)]
+    assert [x.shape for x in got[2]] == [(3, 4, 1), (3, 4, 2)]
+    assert lif_ops.launch_counts() == {"lif_step": 0, "temporal_scan": 0}
+    bad = [
+        (c_in[0], planes, vth, {}),                     # not [T, B, N]
+        (c_in.float(), planes, vth, {}),                # not int32
+        (c_in[:0], planes, vth, {}),                    # no step
+        (c_in[..., :64], planes, vth, {}),              # c_in != N_1
+        (c_in, planes[:1], vth, {}),                    # tiles differ
+        (c_in, (planes[0][:, :2], planes[1]), vth, {}),  # plane words
+        (c_in, (planes[0][:100], planes[1]), vth, {}),   # next tile rows
+        (c_in, (planes[0].to(torch.int64), planes[1]), vth, {}),
+        (c_in, planes, (vth[0].to(torch.int64), vth[1]), {}),
+        (c_in, planes, vth, {"reset": "hold"}),
+        (c_in, planes, vth, {"refractory": -1}),
+    ]
+    for args in bad:
+        with pytest.raises(ValueError):
+            lif_ops.temporal_scan(*args[:3], **args[3])
+    # hidden widths must be 32-aligned, and row groups of 128 for telemetry
+    _, net96 = _pair((100, 96, 10), 6)
+    c96, p96, v96 = _scan_operands(net96, ev)
+    lif_ops.temporal_scan(c96, p96, v96, collect=True)
+    with pytest.raises(ValueError, match="row groups"):
+        lif_ops.temporal_scan(c96, p96, v96, telemetry=True)
+    with pytest.raises(ValueError, match="multiple of 32"):
+        lif_ops.temporal_scan(c96[..., :90], (p96[0][:, :3],),
+                              (v96[0][:90],))
+    meta = torch.device("meta")
+    with pytest.raises(ValueError, match="different devices"):
+        lif_ops.temporal_scan(c_in, (planes[0].to(meta), planes[1]), vth)
+    with pytest.raises(ValueError, match="different devices"):
+        lif_ops.temporal_scan(c_in.to(meta), planes, vth)
 
 
 def test_temporal_accepts_wire_format_and_leading_shapes():
@@ -520,6 +646,106 @@ def test_cuda_lif_step_matches_plain(cuda, shape, leak, reset, refractory):
     kw = dict(leak=leak, reset=reset, refractory=refractory)
     lif_ops.reset_launch_counts()
     got = lif_ops.lif_step(*ops, **kw)
-    assert lif_ops.launch_counts() == {"lif_step": 1}
+    assert lif_ops.launch_counts() == {"lif_step": 1, "temporal_scan": 0}
     for g, w in zip(got, lif_step_ref(*ops, **kw)):
         assert g.dtype == w.dtype and torch.equal(g, w)
+
+
+# ----------------------------------------------------------------------- #
+# the CUDA temporal scan against its plain version, on the card
+# ----------------------------------------------------------------------- #
+PAPER_HIDDEN = (256, 256, 256)
+
+
+def _random_scan_operands(seed, hidden, n_cls, n_steps, batch, device):
+    """Scan operands of random planes: c_in in [-40, 40], full 32-bit plane
+    words, thresholds in [-8, 8] (some at 2^31 - 1)."""
+    rng = np.random.default_rng(seed)
+    n_first = hidden[0] if hidden else n_cls
+    c_in = rng.integers(-40, 41, size=(n_steps, batch, n_first),
+                        dtype=np.int32)
+    widths = list(hidden) + [n_cls]
+    planes = [rng.integers(-2**31, 2**31, size=(widths[i + 1], n // 32),
+                           dtype=np.int64).astype(np.int32)
+              for i, n in enumerate(hidden)]
+    vth = [rng.integers(-8, 9, size=(n,), dtype=np.int32) for n in hidden]
+    for th in vth:
+        th[rng.random(th.shape) < 0.1] = 2**31 - 1
+    return (torch.from_numpy(c_in).to(device),
+            tuple(torch.from_numpy(w).to(device) for w in planes),
+            tuple(torch.from_numpy(th).to(device) for th in vth))
+
+
+def _assert_scan_equal(got, want):
+    assert got[0].dtype == torch.float32 and torch.equal(got[0], want[0])
+    for g, w in zip(got[1:], want[1:]):
+        assert (g is None) == (w is None)
+        if g is not None:
+            assert len(g) == len(w)
+            assert all(torch.equal(a, b) for a, b in zip(g, w))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("hidden,batch,n_steps", [
+    (PAPER_HIDDEN, 64, 4), (PAPER_HIDDEN, 64, 8), (PAPER_HIDDEN, 64, 16),
+    (PAPER_HIDDEN, 1, 5), (PAPER_HIDDEN, 7, 5), ((), 64, 8), ((256,), 7, 8),
+    ((128, 384), 33, 3)])
+@pytest.mark.parametrize("leak,reset,refractory", [
+    (0.125, "zero", 0), (0.125, "subtract", 2), (0.3, "zero", 2),
+    (0.0, "subtract", 0)])
+def test_cuda_temporal_scan_matches_plain(cuda, hidden, batch, n_steps, leak,
+                                          reset, refractory):
+    ops = _random_scan_operands(batch + n_steps + len(hidden), hidden, 10,
+                                n_steps, batch, cuda)
+    kw = dict(leak=leak, reset=reset, refractory=refractory, collect=True,
+              telemetry=True)
+    want = lif_ops.temporal_scan_ref(*ops, **kw)
+    lif_ops.reset_launch_counts()
+    _assert_scan_equal(lif_ops.temporal_scan(*ops, **kw), want)
+    assert lif_ops.launch_counts() == {"lif_step": 0, "temporal_scan": 1}
+    bare = lif_ops.temporal_scan(*ops, leak=leak, reset=reset,
+                                 refractory=refractory)
+    assert bare[1] is None and bare[2] is None
+    assert torch.equal(bare[0], want[0])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("hidden,batch,n_steps,planes_smem,state_smem", [
+    ((2048, 2048), 9, 4, False, True),      # planes past shared memory
+    ((16384, 16384), 2, 2, False, False),   # state past it as well
+])
+def test_cuda_temporal_scan_past_shared_memory(cuda, hidden, batch, n_steps,
+                                               planes_smem, state_smem):
+    route = lif_ops._scan_route(torch.cuda.current_device(), hidden, 10)
+    assert route[:2] == (planes_smem, state_smem)
+    ops = _random_scan_operands(11, hidden, 10, n_steps, batch, cuda)
+    kw = dict(leak=0.125, reset="zero", refractory=2, collect=True,
+              telemetry=True)
+    _assert_scan_equal(lif_ops.temporal_scan(*ops, **kw),
+                       lif_ops.temporal_scan_ref(*ops, **kw))
+
+
+@pytest.mark.cuda
+def test_cuda_temporal_plan_is_one_mac_and_one_scan(cuda):
+    """On the card the temporal plan is one popcount_mac (tile 0) and one
+    temporal_scan a call, with the CPU plan's logits, planes and loads."""
+    from repro_torch.kernels.cim_popcount import ops as pop_ops
+
+    topo = (768,) + PAPER_HIDDEN + (10,)
+    _, net = _pair(topo, 12)
+    gpu = EsamNetwork.from_numpy(*net.to_numpy(), device=cuda)
+    cfg = TemporalConfig(n_steps=6, leak=0.125, reset="subtract",
+                         refractory=2)
+    ev = _events(13, 6, 64, topo[0])
+    want = net.plan(mode="temporal", temporal=cfg, collect=True,
+                    telemetry=True)(ev)
+    plan = gpu.plan(mode="temporal", temporal=cfg, collect=True,
+                    telemetry=True)
+    lif_ops.reset_launch_counts()
+    pop_ops.reset_launch_counts()
+    got = plan(ev)
+    assert lif_ops.launch_counts() == {"lif_step": 0, "temporal_scan": 1}
+    assert pop_ops.launch_counts()["popcount_mac"] == 1
+    assert torch.equal(got.logits.cpu(), want.logits)
+    for g, w in zip(got.planes + got.loads, want.planes + want.loads):
+        assert torch.equal(g.cpu(), w)
