@@ -12,14 +12,20 @@ Phases; any failure raises, so the exit code is non-zero:
    at the paths' shapes and more (B9', B10 and B11 at the bench's shapes,
    ragged ones and 4096 x 768 -> 256; B10 in four spike dtypes; B11 at
    threshold equality and int32 wraparound; B1 at the bench's
-   (768, 768, 768, 10); the single column event at rows inside and
+   (768, 768, 768, 10) and on each route of its launcher: clusters of 1,
+   2, 4, 8 and 16 CTAs, word counts fixed at compile time and not, a
+   partly empty last slice, more slices than clusters, each asserted,
+   and under two geometries its launcher does not pick (``mega_geometry``
+   lines);
+   the single column event at rows inside and
    outside [0, n_out); the epoch kernel at 4096 x 256 -> 10 and ragged
    and wide readouts, with ties, offsets and an out-of-range label; the
    event round's ``temporal_scan`` at the event path's T 4, 8 and 16 and
    B 64, at B 1 and 7, with 0 and 1 hidden tiles, per reset mode with
    refractory 2, and on each of its three routes: planes and state in
-   shared memory, planes past it, state past it too), timed against its
-   bound;
+   shared memory, planes past it, state past it too; at hidden widths
+   that are not multiples of 32, and at 34 hidden tiles, two launches),
+   timed against its bound;
 4. the serving path: ``repro_torch.launch.serve --esam`` at the paper
    topology 768:256:256:256:10, max_batch 128, telemetry on, 4096 digit
    requests, with the launch counters set to 0 just before and read just
@@ -167,9 +173,19 @@ def random_words(rng, batch: int, n: int):
         packing.pack_spikes_np(rng.integers(0, 2, size=(batch, n))))
 
 
-def check_mega(card, rng, topology, batch, kernels, sweep=()):
-    """mega_cascade vs the plain cascade on the card at one shape; each
-    ``block_b`` in ``sweep`` is checked and timed as well."""
+#: B1's device time in a CUDA graph before its redesign (PR 20's run, NVIDIA
+#: H100 80GB HBM3, 700 W), printed beside the new time
+MEGA_BEFORE_MS = {("768:256:256:256:10", 128): 0.0110,
+                  ("768:768:768:10", 1024): 0.0442}
+
+
+def check_mega(card, rng, topology, batch, kernels, **route):
+    """mega_cascade vs the plain cascade on the card at one shape, bit for
+    bit, timed against its bound.  ``route`` holds what the launcher's
+    geometry must be there: ``cluster`` (CTAs a cluster), ``fixed`` (per
+    tile, the MAC's word count fixed at compile time), ``partial`` (the
+    last slice of rows partly empty), ``persistent`` (fewer clusters than
+    slices)."""
     import torch
 
     from repro_torch.core import packing
@@ -183,9 +199,14 @@ def check_mega(card, rng, topology, batch, kernels, sweep=()):
                                               dtype=np.int32)).cuda()
                 for n in topology[1:])
     w_stack, vth_stack = ops.stack_cascade_operands(planes, vth, topology)
+    tiles = ops.cascade_tiles(w_stack, vth_stack, topology)
     x = random_words(rng, batch, topology[0]).cuda()
-    logits, fired = ops.esam_cascade_popcount(
-        x, w_stack, vth_stack, topology=topology)
+
+    def run():
+        return ops.esam_cascade_popcount(x, w_stack, vth_stack,
+                                         topology=topology, tiles=tiles)
+
+    logits, fired = run()
     ref_logits, ref_fired = ops.esam_cascade_popcount_ref(x, planes, vth)
     torch.cuda.synchronize()
     err = int((logits.long() - ref_logits.long()).abs().max()) if batch else 0
@@ -194,6 +215,14 @@ def check_mega(card, rng, topology, batch, kernels, sweep=()):
         raise AssertionError(
             f"mega_cascade != plain at {topology} B={batch}: logits "
             f"max_abs_err={err}, fired planes equal={fired_equal}")
+    took = ops._cascade_route(tuple(topology), batch,
+                              torch.cuda.current_device())
+    got = {"cluster": took.cluster, "fixed": took.fixed_words,
+           "partial": took.slices * took.rows > batch,
+           "persistent": took.clusters < took.slices}
+    if any(got[k] != v for k, v in route.items()):
+        raise AssertionError(f"mega_cascade at {topology} B={batch}: route "
+                             f"{took}, want {route}")
     g = ops.cascade_geometry(topology)
     hidden = topology[1:-1]
     n_bytes = 4 * (batch * g["w_words"][0]
@@ -203,30 +232,81 @@ def check_mega(card, rng, topology, batch, kernels, sweep=()):
     n_popc = batch * (sum(n * w for n, w in zip(topology[1:], g["w_words"]))
                       + g["w_words"][0] + sum(h // 32 for h in hidden))
     bound_ms, bound_by = card.bound(n_bytes, n_popc)
+    shape = ":".join(map(str, topology))
     row = {
-        "kernel": "mega_cascade", "topology": ":".join(map(str, topology)),
-        "batch": batch, "max_abs_err": err, "fired_equal": fired_equal,
-        "ms": graph_ms(lambda: ops.esam_cascade_popcount(
-            x, w_stack, vth_stack, topology=topology)),
-        "call_ms": call_ms(lambda: ops.esam_cascade_popcount(
-            x, w_stack, vth_stack, topology=topology)),
+        "kernel": "mega_cascade", "topology": shape, "batch": batch,
+        "route": took._asdict(), "max_abs_err": err,
+        "fired_equal": fired_equal, "ms": graph_ms(run),
+        "call_ms": call_ms(run),
+        "before_ms": MEGA_BEFORE_MS.get((shape, batch)),
+        # the plain version is three launches a word: wide rows capture
+        # two calls a graph
         "plain_ms": graph_ms(lambda: ops.esam_cascade_popcount_ref(
-            x, planes, vth)),
+            x, planes, vth), **({"calls": 2, "replays": 3}
+                                if sum(g["w_words"]) > 64 else {})),
         "bound_ms": bound_ms, "bound_by": bound_by, "library_ms": None,
     }
     print("kernel_check " + json.dumps(row), flush=True)
     kernels.append(row)
-    for block_b in sweep:
-        out = ops.esam_cascade_popcount(
-            x, w_stack, vth_stack, topology=topology, block_b=block_b)
-        if not (torch.equal(out[0], ref_logits) and all(
-                torch.equal(a, b) for a, b in zip(out[1], ref_fired))):
-            raise AssertionError(f"mega_cascade block_b={block_b} != plain")
-        print("block_sweep " + json.dumps({
-            "kernel": "mega_cascade", "batch": batch, "block_b": block_b,
-            "ms": graph_ms(lambda: ops.esam_cascade_popcount(
-                x, w_stack, vth_stack, topology=topology, block_b=block_b)),
-        }), flush=True)
+
+
+def mega_geometries(rng, topology, batch) -> None:
+    """The cascade kernel under the launcher's geometry and two it does not
+    pick, called through its C interface, each held bit for bit against the
+    plain cascade and timed in a CUDA graph: clusters of 8 with the same
+    rows a slice, and one CTA an SM walking the slices (clusters of 1)."""
+    import torch
+
+    from repro_torch.core import packing
+    from repro_torch.kernels.cim_popcount import ops
+    from repro_torch.kernels.common import stream_ptr
+
+    planes = tuple(
+        packing.pack_weight_planes(torch.from_numpy(
+            rng.integers(0, 2, size=(k, n), dtype=np.int8)).cuda())
+        for k, n in zip(topology[:-1], topology[1:]))
+    vth = tuple(torch.from_numpy(rng.integers(-8, 9, size=(n,),
+                                              dtype=np.int32)).cuda()
+                for n in topology[1:])
+    tiles = ops.cascade_tiles(*ops.stack_cascade_operands(planes, vth,
+                                                          topology), topology)
+    x = random_words(rng, batch, topology[0]).cuda()
+    want_logits, want_fired = ops.esam_cascade_popcount_ref(x, planes, vth)
+    want = torch.cat([want_logits.reshape(-1)]
+                     + [f.reshape(-1) for f in want_fired])
+    dev = torch.device("cuda", torch.cuda.current_device())
+    lib = ops._library().lib
+    n_out, w_words = ops._cascade_arrays(tuple(topology))
+    logits = torch.empty_like(want_logits)
+    fired = torch.empty(sum(f.numel() for f in want_fired),
+                        dtype=torch.int32, device=dev)
+    route = ops._cascade_route(tuple(topology), batch, dev.index)
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    row = {"topology": ":".join(map(str, topology)), "batch": batch}
+    for name, cluster, rows, clusters in (
+            ("launcher", route.cluster, route.rows, route.clusters),
+            ("cluster_8", 8, route.rows, None),
+            ("cta_per_sm", 1, route.rows, sms)):
+        slices = -(-batch // rows)
+        fits = lib.cim_mega_cascade_max_clusters(
+            len(topology) - 1, n_out, w_words, cluster, rows)
+        clusters = min(slices, fits, clusters or slices)
+
+        def run():
+            err = lib.cim_mega_cascade(
+                x.data_ptr(), batch, tiles.data_ptr(), tiles.numel(),
+                logits.data_ptr(), fired.data_ptr(), len(topology) - 1,
+                n_out, w_words, cluster, rows, clusters, stream_ptr(dev))
+            if err:
+                raise RuntimeError(f"mega_cascade launch failed: {err}")
+
+        run()
+        torch.cuda.synchronize()
+        if not torch.equal(torch.cat([logits.reshape(-1), fired]), want):
+            raise AssertionError(f"mega_cascade {name} geometry != plain")
+        row[name] = {"cluster": cluster, "rows": rows, "clusters": clusters,
+                     "ms": graph_ms(run)}
+    print("mega_geometry " + json.dumps(row), flush=True)
 
 
 def check_mac(card, rng, batch, n_in, n_out, kernels):
@@ -675,7 +755,7 @@ def _scan_operands(rng, hidden, n_cls, n_steps, batch):
     c_in = rng.integers(-40, 41, size=(n_steps, batch, n_first),
                         dtype=np.int32)
     widths = list(hidden) + [n_cls]
-    planes = [rng.integers(-2**31, 2**31, size=(widths[i + 1], n // 32),
+    planes = [rng.integers(-2**31, 2**31, size=(widths[i + 1], -(-n // 32)),
                            dtype=np.int64).astype(np.int32)
               for i, n in enumerate(hidden)]
     vth = [rng.integers(-8, 9, size=(n,)).astype(np.int32) for n in hidden]
@@ -693,11 +773,11 @@ def scan_bound(card, hidden, n_cls, n_steps, batch, collect, telemetry):
     word and one popc per spike word, against the popc rate."""
     n_first = hidden[0] if hidden else n_cls
     widths = list(hidden) + [n_cls]
-    pairs = sum(widths[i + 1] * (n // 32) + n // 32
-                for i, n in enumerate(hidden))
-    words = sum(n // 32 for n in hidden)
+    w = [-(-n // 32) for n in hidden]
+    pairs = sum(widths[i + 1] * w[i] + w[i] for i in range(len(hidden)))
+    words = sum(w)
     n_bytes = 4 * (n_steps * batch * n_first + sum(
-        widths[i + 1] * (n // 32) + n for i, n in enumerate(hidden))
+        widths[i + 1] * w[i] + n for i, n in enumerate(hidden))
         + batch * n_cls + n_steps * batch * (
             words * collect + words // 4 * telemetry))
     return card.bound(n_bytes, n_steps * batch * pairs)
@@ -706,44 +786,58 @@ def scan_bound(card, hidden, n_cls, n_steps, batch, collect, telemetry):
 def check_scan(card, rng, hidden, batch, n_steps, kernels, leak=EVENT_LEAK,
                reset="zero", refractory=0, n_cls=10, route=(1, 1)):
     """temporal_scan vs its plain version on the card, bit for bit (the
-    readout's membranes, every hidden tile's spike words and loads), timed
-    in a CUDA graph and eagerly against its bound.  ``route`` is the
-    (planes in shared memory, state in shared memory) the widths must
-    take."""
+    readout's membranes, every hidden tile's spike words, and their loads
+    where the widths are row groups of 128), timed in a CUDA graph and
+    eagerly against its bound.  ``route`` is the (planes in shared memory,
+    state in shared memory) the widths must take; a stack deeper than one
+    launch takes runs as consecutive launches with a popcount_mac between,
+    and the launches are counted."""
     import torch
 
+    from repro_torch.kernels.cim_popcount import ops as pop_ops
     from repro_torch.kernels.lif_step import ops
 
     args = _scan_operands(rng, hidden, n_cls, n_steps, batch)
+    telemetry = all(n % ROW_GROUP == 0 for n in hidden)
     kw = dict(leak=leak, reset=reset, refractory=refractory, collect=True,
-              telemetry=True)
+              telemetry=telemetry)
 
     def run():
         return ops.temporal_scan(*args, **kw)
 
+    ops.reset_launch_counts()
+    pop_ops.reset_launch_counts()
     got, want = run(), ops.temporal_scan_ref(*args, **kw)
     torch.cuda.synchronize()
+    launches = -(-len(hidden) // ops.SCAN_MAX_HIDDEN) if hidden else 1
+    counts = (ops.launch_counts()["temporal_scan"],
+              pop_ops.launch_counts()["popcount_mac"])
+    if counts != (launches, launches - 1):
+        raise AssertionError(f"temporal_scan at {len(hidden)} hidden tiles: "
+                             f"(scan, mac) launches {counts}, want "
+                             f"{(launches, launches - 1)}")
     err = float((got[0].double() - want[0].double()).abs().max())
     same = torch.equal(got[0], want[0]) and all(
-        torch.equal(g, w) for g, w in zip(got[1] + got[2], want[1] + want[2]))
+        torch.equal(g, w) for g, w in zip(got[1] + (got[2] or ()),
+                                          want[1] + (want[2] or ())))
     if err or not same:
         raise AssertionError(
             f"temporal_scan != plain at T={n_steps} B={batch} {hidden} "
             f"{kw}: max_abs_err={err}, words and loads equal={same}")
     bound_ms, bound_by = scan_bound(card, hidden, n_cls, n_steps, batch,
-                                    True, True)
+                                    True, telemetry)
     took = ops._scan_route(torch.cuda.current_device(), tuple(hidden),
-                           n_cls)[:2] if hidden else None
-    if hidden and took != route:
+                           n_cls)[:2] if launches == 1 and hidden else None
+    if launches == 1 and hidden and took != route:
         raise AssertionError(f"temporal_scan at {hidden}: route {took}, "
                              f"want {route}")
     row = {
         "kernel": "temporal_scan",
         "shape": f"{n_steps}x{batch}x" + ":".join(map(str, (*hidden, n_cls))),
         "leak": leak, "reset": reset, "refractory": refractory,
-        "route": took, "max_abs_err": err,
+        "route": took, "launches": launches, "max_abs_err": err,
         "chain_links": n_steps * (len(hidden) + 1),
-        "fired": int(sum(int(w.sum()) for w in got[2])),
+        "fired": int(sum(int(w.sum()) for w in got[2])) if telemetry else None,
         "ms": graph_ms(run), "call_ms": call_ms(run),
         # the plain version is ~100 launches a step: two calls a graph
         "plain_ms": graph_ms(lambda: ops.temporal_scan_ref(*args, **kw),
@@ -1605,6 +1699,20 @@ def events_phase() -> dict:
     return guard.counts
 
 
+def phase_timer():
+    """A function that prints, at each call, the wall seconds since the
+    last call (or since this one) as a ``phase_wall`` line."""
+    last = [time.perf_counter()]
+
+    def lap(phase: str) -> None:
+        now = time.perf_counter()
+        print("phase_wall " + json.dumps({"phase": phase,
+                                          "s": now - last[0]}), flush=True)
+        last[0] = now
+
+    return lap
+
+
 def kernel_modules() -> list:
     """Every kernel wrapper module (each keeps its launch counters)."""
     import importlib
@@ -1674,13 +1782,32 @@ def main() -> int:
                 print("ptxas: " + line.strip(), flush=True)
 
     # 3. kernels vs plain, on the card
+    lap = phase_timer()
     rng = np.random.default_rng(2024)
+    # B1 at the serving path's and the bench's shapes, then on each of its
+    # routes: every cluster size the launcher picks (1 for one group a
+    # tile; 2; 4, 8 and 16 where a CTA's share of 2 does not fit), MACs at
+    # run-time word counts, a partly empty last slice, more slices than
+    # clusters
     mega_rows, mac_rows = [], []
+    paper_fixed = (True,) * (len(PAPER_TOPOLOGY) - 1)
     for batch in (1, 7, BUCKET, 1000, SERVE_REQUESTS):
-        check_mega(card, rng, PAPER_TOPOLOGY, batch, mega_rows,
-                   sweep=(1, 2, 4, 8, 16, 32)
-                   if batch in (BUCKET, SERVE_REQUESTS) else ())
-    check_mega(card, rng, (768, 256, 10), BUCKET, mega_rows)
+        check_mega(card, rng, PAPER_TOPOLOGY, batch, mega_rows, cluster=2,
+                   fixed=paper_fixed, partial=False,
+                   persistent=batch == SERVE_REQUESTS)
+    check_mega(card, rng, PAPER_TOPOLOGY, 333, mega_rows, partial=True)
+    check_mega(card, rng, (768, 256, 10), BUCKET, mega_rows, cluster=2)
+    check_mega(card, rng, (100, 64, 96, 33), 45, mega_rows, cluster=2,
+               fixed=(False, False, False))
+    for topology, cluster in (((100, 32, 10), 1), ((1024, 4096, 10), 4),
+                              ((2048, 4096, 10), 8), ((4096, 4096, 10), 16)):
+        check_mega(card, rng, topology, 8, mega_rows, cluster=cluster)
+    # why those geometries: the same kernel under two the launcher does
+    # not pick, bit for bit and timed
+    for topology, batch in ((PAPER_TOPOLOGY, BUCKET),
+                            (PAPER_TOPOLOGY, SERVE_REQUESTS),
+                            (BENCH_CASCADE, BENCH_B)):
+        mega_geometries(rng, topology, batch)
     check_mac(card, rng, BUCKET, 768, 10, mac_rows)
     check_mac(card, rng, 37, 100, 77, mac_rows)
     fire_rows, packed_rows, event_rows, update_rows = [], [], [], []
@@ -1735,6 +1862,12 @@ def main() -> int:
     for reset in ("zero", "subtract"):
         check_scan(card, rng, PAPER_HIDDEN, EVENT_BATCH, 16, scan_rows,
                    reset=reset, refractory=2)
+    # hidden widths that are not multiples of 32, and a stack deeper than
+    # one launch takes (two launches and a popcount_mac)
+    for hidden, batch in (((31,), 2), ((37, 70, 33), 5), ((129, 255), 64)):
+        check_scan(card, rng, hidden, batch, 3, scan_rows, leak=0.7,
+                   reset="subtract", refractory=3)
+    check_scan(card, rng, (9, 40) * 17, 3, 2, scan_rows, n_cls=5)
     # popcount_mac at the event path's shapes: tile 0 over a round of T 4,
     # 8 and 16 (the scan's first operand); and the per-step shapes of the
     # route before the scan, a hidden tile and the readout over one step
@@ -1749,8 +1882,8 @@ def main() -> int:
     # kernels only the bench runs at its shapes, ragged ones and a large one
     check_mac(card, rng, BENCH_B, BENCH_K, BENCH_N, mac_rows)
     check_fire(card, rng, BENCH_B, BENCH_K, BENCH_N, fire_rows)
-    check_mega(card, rng, BENCH_CASCADE, BENCH_B, mega_rows,
-               sweep=(1, 2, 4, 8, 16))
+    check_mega(card, rng, BENCH_CASCADE, BENCH_B, mega_rows, cluster=2,
+               fixed=(True, True, True))
     check_arbiter(card, rng, "arbiter", 16, 4, arbiter_rows)
     matmul_rows, packed_mac_rows, if_rows = [], [], []
     for fire in (False, True):
@@ -1768,6 +1901,8 @@ def main() -> int:
         check_if_neuron(card, rng, batch, rounds, n, if_rows)
     check_if_neuron(card, rng, 8, 3, 128, if_rows, fill="equal")
     check_if_neuron(card, rng, 8, 4, 128, if_rows, fill="wrap")
+
+    lap("3 kernels vs plain")
 
     # 4. the main path
     from repro_torch.launch import serve as serve_mod
@@ -1796,6 +1931,8 @@ def main() -> int:
         - st["dispatch_s_total"],
         "rounds": st["rounds_static"]}), flush=True)
 
+    lap("4 serving")
+
     # 5. the one-tile path
     net1 = serve_mod.random_esam_network((768, 10), seed=1, device="cuda")
     reqs1 = [SpikeRequest(spikes=s) for s in run.spikes[:1000]]
@@ -1810,17 +1947,23 @@ def main() -> int:
     print(f"one-tile path: {len(reqs1)} requests, {rounds1} rounds, "
           f"launches {guard.counts}", flush=True)
 
+    lap("5 one-tile")
+
     # 6. the learning paths
     learn = learning_phase()
+    lap("6 learning")
 
     # 7. the cycle plane
     cyc = cycle_phase()
+    lap("7 cycle plane")
 
     # 8. the event path
     events_counts = events_phase()
+    lap("8 events")
 
     # 9. the kernel bench path
     bench = bench_phase()
+    lap("9 kernel bench")
 
     # 10. each kernel at its path's shape, then the result
     def line(name, source, replaces, row, launches):

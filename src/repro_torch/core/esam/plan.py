@@ -190,6 +190,8 @@ class EsamPlan:
             planes = tuple(packing.pack_weight_planes(w) for w in wb)
             params["w_stack"], params["vth_stack"] = (
                 pop_ops.stack_cascade_operands(planes, vth, self.topology))
+            params["cascade_tiles"] = pop_ops.cascade_tiles(
+                params["w_stack"], params["vth_stack"], self.topology)
         return params
 
     def _prepare(self) -> dict[str, Any]:
@@ -308,7 +310,7 @@ class EsamPlan:
         elif spec.mode == "packed":
             vmem, fired = pop_ops.esam_cascade_popcount(
                 x, params["w_stack"], params["vth_stack"],
-                topology=self.topology)
+                topology=self.topology, tiles=params["cascade_tiles"])
             planes = (x,) + tuple(fired)
             out["logits"] = vmem.to(torch.float32) + off
             if spec.collect:

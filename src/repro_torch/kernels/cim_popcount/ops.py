@@ -14,15 +14,17 @@ kernel launches (:func:`launch_counts`), so a run can show that its main path
 went through the kernels.
 
 ``esam_cascade_popcount`` is the single-launch cascade: the caller stacks
-every tile's weight planes and thresholds once (``stack_cascade_operands``,
-done at plan-build time by ``EsamPlan``) and each call runs MAC, IF fire,
-re-pack and the next tile in one launch.
+every tile's weight planes and thresholds once (``stack_cascade_operands``)
+and regroups them for the card (``cascade_tiles``), both at plan-build time
+in ``EsamPlan``, and each call runs MAC, IF fire, re-pack and the next tile
+in one launch.
 """
 
 from __future__ import annotations
 
 import ctypes
 import functools
+from typing import NamedTuple
 
 import torch
 
@@ -49,6 +51,7 @@ __all__ = [
     "esam_layer_popcount",
     "esam_cascade_popcount",
     "stack_cascade_operands",
+    "cascade_tiles",
     "cascade_geometry",
     "launch_counts",
     "reset_launch_counts",
@@ -66,9 +69,15 @@ VTH_NEVER_FIRE = 1 << 30
 #: reference's layout, kept so the operands are the same arrays)
 _COL_PAD = 128
 
-#: most batch rows one block of the mega cascade carries through every tile
-#: by default (see ``_default_block_b``)
-CASCADE_MAX_BLOCK_B = 8
+#: tiles the card's cascade takes (``kMaxTiles``)
+_MAX_TILES = 16
+
+#: CTAs of a mega cascade cluster, unless a tile has one group (then 1) or
+#: a CTA's share does not fit shared memory (then doubled, up to 16)
+_CLUSTER = 2
+#: batch rows a slice: batch // _ROW_BATCH, from 1 to _MAX_ROWS (the best
+#: of a geometry sweep on an NVIDIA H100 80GB HBM3: PERF.md, PR 21)
+_ROW_BATCH, _MAX_ROWS = 64, 8
 
 #: most batch rows one block of ``popcount_fire`` carries
 FIRE_MAX_ROWS = 32
@@ -100,10 +109,14 @@ def _declare(lib: ctypes.CDLL) -> None:
     vp, i32, i64 = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
     ip = ctypes.POINTER(ctypes.c_int)
     lib.cim_mega_cascade.argtypes = [
-        vp, i32, vp, vp, vp, vp, i32, ip, ip, i32, i32, i32, vp]
+        vp, i32, vp, i64, vp, vp, i32, ip, ip, i32, i32, i32, vp]
     lib.cim_mega_cascade.restype = i32
-    lib.cim_mega_cascade_smem_bytes.argtypes = [i32, ip, ip, i32]
+    lib.cim_mega_cascade_smem_bytes.argtypes = [i32, ip, ip, i32, i32]
     lib.cim_mega_cascade_smem_bytes.restype = i64
+    lib.cim_mega_cascade_max_clusters.argtypes = [i32, ip, ip, i32, i32]
+    lib.cim_mega_cascade_max_clusters.restype = i32
+    lib.cim_mega_cascade_fixed_words.argtypes = [i32]
+    lib.cim_mega_cascade_fixed_words.restype = i32
     lib.cim_popcount_fire.argtypes = [
         vp, i64, vp, i64, vp, vp, i32, i32, i32, i32, i32, i32, vp]
     lib.cim_popcount_fire.restype = i32
@@ -124,37 +137,76 @@ def _int_array(values) -> ctypes.Array:
     return (ctypes.c_int * len(values))(*values)
 
 
-def _default_block_b(batch: int, device_index: int) -> int:
-    """Rows per block: spread the batch over two blocks per SM -- one row
-    per block while the batch is no larger than twice the SM count -- up to
-    ``CASCADE_MAX_BLOCK_B`` rows.  Each block stages every tile's weights
-    once, so more rows per block amortise that, while fewer rows put more
-    blocks (and warps) in flight.  On an NVIDIA H100 80GB HBM3 (700 W
-    limit) a 128-row batch of the paper topology ran fastest at 1 row per
-    block, a 4096-row batch at 8 or 16, and a 1024-row batch of
-    (768, 768, 768, 10) at 4 (44.2 us; 55.0 at 8), as
-    ``chip_smoke.py``'s ``block_sweep`` lines show."""
-    rows = -(-batch // (2 * sm_count(device_index)))
-    return max(1, min(CASCADE_MAX_BLOCK_B, rows))
+@functools.lru_cache(maxsize=None)
+def _cascade_arrays(topology: tuple[int, ...]) -> tuple:
+    """(n_out, w_words) of a topology as the launcher's ctypes arrays."""
+    return (_int_array(topology[1:]),
+            _int_array(cascade_geometry(topology)["w_words"]))
+
+
+class CascadeRoute(NamedTuple):
+    """How ``mega_cascade`` runs one topology and batch on one card."""
+
+    #: CTAs of a cluster; each owns ceil(groups / cluster) of every tile's
+    #: 32-neuron groups
+    cluster: int
+    #: batch rows a cluster carries through every tile at a time (a slice)
+    rows: int
+    #: slices of the batch, ceil(B / rows); the last one is partly empty
+    #: when rows does not divide B
+    slices: int
+    #: clusters launched; each walks slices/clusters slices in turn
+    clusters: int
+    #: dynamic shared memory of one CTA, bytes
+    smem: int
+    #: per tile, whether its MAC's word count is fixed at compile time
+    fixed_words: tuple
 
 
 @functools.lru_cache(maxsize=None)
-def _cascade_launch_args(topology: tuple[int, ...], device_index: int,
-                         block_b: int):
-    """The cascade's ctypes geometry arrays, once per launch configuration;
-    raises if a block would need more shared memory than the card allows."""
+def _cascade_route(topology: tuple[int, ...], batch: int,
+                   device_index: int) -> CascadeRoute:
+    """The mega cascade's geometry, derived from the topology, the batch and
+    the card: clusters of ``_CLUSTER`` CTAs (1 where every hidden tile is
+    one 32-neuron group), doubled up to 16 while a CTA's share of the tiles
+    does not fit shared memory; one row a slice for every ``_ROW_BATCH``
+    rows of the batch, at most ``_MAX_ROWS``; as many clusters as slices,
+    at most as many as the card holds at once.  Raises when the topology
+    fits no cluster."""
     lib = _library().lib
     g = cascade_geometry(topology)
-    n_out = _int_array(topology[1:])
-    w_words = _int_array(g["w_words"])
-    smem = lib.cim_mega_cascade_smem_bytes(
-        g["n_tiles"], n_out, w_words, block_b)
+    n_tiles = g["n_tiles"]
+    if n_tiles > _MAX_TILES:
+        raise ValueError(f"the card's cascade takes at most {_MAX_TILES} "
+                         f"tiles, got {n_tiles}")
+    n_out, w_words = _cascade_arrays(topology)
     limit = lib.cim_max_shared_optin(device_index)
-    if smem < 0 or limit < 0 or smem > limit:
+
+    def smem(cluster: int, rows: int) -> int:
+        return lib.cim_mega_cascade_smem_bytes(n_tiles, n_out, w_words,
+                                               cluster, rows)
+
+    cluster = 1 if max(topology[1:-1]) <= LANE_BITS else _CLUSTER
+    while cluster < 16 and not 0 <= smem(cluster, 1) <= limit:
+        cluster *= 2
+    if limit < 0 or not 0 <= smem(cluster, 1) <= limit:
         raise ValueError(
-            f"topology {topology} needs {smem} B of shared memory per block; "
-            f"the card allows {limit} B")
-    return n_out, w_words
+            f"topology {topology} needs {smem(cluster, 1)} B of shared memory "
+            f"per CTA in clusters of {cluster}; the card allows {limit} B")
+    rows = max(1, min(_MAX_ROWS, batch // _ROW_BATCH))
+    while rows > 1 and smem(cluster, rows) > limit:
+        rows -= 1
+    slices = cdiv(batch, rows)
+    active = lib.cim_mega_cascade_max_clusters(n_tiles, n_out, w_words,
+                                               cluster, rows)
+    if active < 1:
+        raise ValueError(f"no cluster of {cluster} CTAs for topology "
+                         f"{topology} fits the card (code {active})")
+    return CascadeRoute(
+        cluster=cluster, rows=rows, slices=slices,
+        clusters=min(slices, active), smem=smem(cluster, rows),
+        fixed_words=tuple(bool(lib.cim_mega_cascade_fixed_words(w))
+                          for w in g["w_words"]))
 
 
 def cim_popcount_matmul(packed: torch.Tensor,
@@ -305,22 +357,46 @@ def stack_cascade_operands(weight_planes, vth, topology):
     return w_stack, vth_stack
 
 
+def cascade_tiles(w_stack: torch.Tensor, vth_stack: torch.Tensor,
+                  topology) -> torch.Tensor:
+    """The stacked operands regrouped for the card's cascade: per tile t,
+    per 32-neuron group g, a block of ``(w_t + 1) x 32`` words whose row
+    j < w_t holds word j of neurons 32g..32g+31's planes (lane-minor) and
+    whose last row holds their thresholds (zero for the readout).  A CTA's
+    share of a tile is then one contiguous run of blocks, one bulk copy.
+    Built once per parameter set, beside :func:`stack_cascade_operands`."""
+    g = cascade_geometry(tuple(topology))
+    blocks = []
+    for t, (n, w) in enumerate(zip(topology[1:], g["w_words"])):
+        groups = cdiv(n, LANE_BITS)
+        planes = w_stack[t, : groups * LANE_BITS, :w]
+        th = (vth_stack[t, : groups * LANE_BITS]
+              if t + 1 < g["n_tiles"] else torch.zeros_like(planes[:, 0]))
+        blocks.append(torch.cat([
+            planes.reshape(groups, LANE_BITS, w).transpose(1, 2),
+            th.to(WORD_DTYPE).reshape(groups, 1, LANE_BITS)], 1).reshape(-1))
+    return torch.cat(blocks).contiguous()
+
+
 def esam_cascade_popcount(
     packed: torch.Tensor,      # int32 words[B, ceil(n_in/32)]
     w_stack: torch.Tensor,     # int32 words[n_tiles, n_max_pad, w_max]
     vth_stack: torch.Tensor,   # int32[n_hidden, n_max_pad]
     *,
     topology: tuple[int, ...],
-    block_b: int | None = None,
+    tiles: torch.Tensor | None = None,   # cascade_tiles(w_stack, ...)
 ) -> tuple[torch.Tensor, tuple]:
     """The whole tile cascade: on the card, in ONE kernel launch.
 
-    ``block_b`` is the batch rows one thread block carries through every
-    tile (the grid is ``ceil(B / block_b)`` blocks); ``None`` picks it from
-    the batch and the card (``_default_block_b``).  Returns (logits
-    int32[B, n_cls], fired hidden planes tuple of int32 words[B, N_t/32]).
-    A one-tile network has no cascade and goes to
-    :func:`cim_popcount_matmul`, as in the reference.
+    Returns (logits int32[B, n_cls], fired hidden planes tuple of int32
+    words[B, N_t/32]).  On the card, clusters of CTAs split every tile's
+    neurons and carry slices of the batch through all tiles; the geometry
+    comes from the topology, the batch and the card (``_cascade_route``).
+    The kernel reads its weights and thresholds from ``tiles``, the stacks
+    regrouped once by :func:`cascade_tiles`; the card needs it, the CPU
+    (the plain version, on the stacks) does not read it.  A one-tile
+    network has no cascade and goes to :func:`cim_popcount_matmul`, as in
+    the reference.
     """
     topology = tuple(topology)
     g = cascade_geometry(topology)
@@ -354,10 +430,17 @@ def esam_cascade_popcount(
     if n_tiles == 1:
         return (cim_popcount_matmul(
             packed, w_stack[0, : topology[1], : g["w_words"][0]]), ())
-    for name, t in (("packed", packed), ("w_stack", w_stack),
-                    ("vth_stack", vth_stack)):
-        if not t.is_contiguous():
-            raise ValueError(f"{name} must be contiguous")
+    n_words = sum(cdiv(n, LANE_BITS) * (w + 1) * LANE_BITS
+                  for n, w in zip(topology[1:], g["w_words"]))
+    if (tiles is None or tuple(tiles.shape) != (n_words,)
+            or tiles.dtype != WORD_DTYPE or tiles.device != dev):
+        raise ValueError(
+            f"the card's cascade needs tiles = cascade_tiles(w_stack, "
+            f"vth_stack, topology): int32[{n_words}] on {dev}, got "
+            + ("None" if tiles is None else
+               f"{tiles.dtype}{list(tiles.shape)} on {tiles.device}"))
+    if not (packed.is_contiguous() and tiles.is_contiguous()):
+        raise ValueError("packed and tiles must be contiguous")
     hidden_words = [n // LANE_BITS for n in topology[1:-1]]
     logits = torch.empty((B, topology[-1]), dtype=torch.int32, device=dev)
     fired_buf = torch.empty((B * sum(hidden_words),), dtype=WORD_DTYPE,
@@ -369,16 +452,13 @@ def esam_cascade_popcount(
     if B == 0:
         return logits, tuple(fired)
     kl = _library()
-    if block_b is None:
-        block_b = _default_block_b(B, dev.index)
-    if block_b < 1:
-        raise ValueError(f"block_b must be >= 1, got {block_b}")
-    n_out, w_words = _cascade_launch_args(topology, dev.index, block_b)
+    n_out, w_words = _cascade_arrays(topology)
     with torch.cuda.device(dev):
+        route = _cascade_route(topology, B, dev.index)
         err = kl.lib.cim_mega_cascade(
-            packed.data_ptr(), B, w_stack.data_ptr(), vth_stack.data_ptr(),
+            packed.data_ptr(), B, tiles.data_ptr(), n_words,
             logits.data_ptr(), fired_buf.data_ptr(), n_tiles, n_out, w_words,
-            g["n_max_pad"], g["w_max"], block_b, stream_ptr(dev))
+            route.cluster, route.rows, route.clusters, stream_ptr(dev))
     _build.check(kl, err, "mega_cascade launch")
     _LAUNCHES["mega_cascade"] += 1
     return logits, tuple(fired)

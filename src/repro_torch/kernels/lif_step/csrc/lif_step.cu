@@ -58,6 +58,11 @@
 // * The membranes and refractory counters of every hidden tile and the
 //   readout's membrane live in shared memory for all T steps, zeroed in the
 //   kernel; they never touch device memory.
+// * Any hidden width: a tile's words are ceil(n / 32), and the lanes of its
+//   last warp past n are neurons that never fire and hold no state, so the
+//   tail bits of its words are zero, as the wire format has them.  At most
+//   kMaxHidden hidden tiles a launch; the wrapper runs a deeper stack as
+//   consecutive launches.
 // * __ballot_sync of the fired flags IS the packed wire word: bit l of the
 //   ballot of the warp holding neurons 32m..32m+31 is neuron 32m + l, the
 //   LSB-first layout.  Lane 0 stores it to a word ring in shared memory
@@ -122,7 +127,7 @@ struct ScanLayer {
   const int32_t* vth;      // [n] thresholds
   int32_t* words;          // [T, B, w] collected spike words, or null
   int32_t* loads;          // [T, B, w / 4] row-group loads, or null
-  int n, w, n_next;        // width, words (n / 32), the next tile's width
+  int n, w, n_next;        // width, words ceil(n / 32), the next width
   int stride;              // row stride of the staged planes (odd)
   int plane_off;           // words before these planes in shared memory
   int state_off;           // neurons before this tile in the state arrays
@@ -277,20 +282,25 @@ temporal_scan_kernel(const __grid_constant__ ScanArgs a) {
       float* v_h = vm + L.state_off;
       int32_t* r_h = rf + L.state_off;
       uint32_t* wout = ring + L.words_off;
-      // warp-uniform: n is 32-aligned, so every lane of a warp takes part
+      // warp-uniform: base is 32-aligned, so every lane of a warp takes
+      // part; lanes past the tile's width are neurons that never fire
       for (int base = warp * 32; base < L.n; base += tps) {
         const int n = base + lane;
-        // the state and threshold first: their loads run under the MAC
-        const float vmem = v_h[n];
-        const int32_t r = r_h[n];
-        const float th = __int2float_rn(__ldg(L.vth + n));
-        const int32_t c =
-            h > 0 ? row_mac<kPlanesSmem>(win, pl + (size_t)n * s_in, w_in, tot)
+        bool fired = false;
+        if (n < L.n) {
+          // the state and threshold first: their loads run under the MAC
+          const float vmem = v_h[n];
+          const int32_t r = r_h[n];
+          const float th = __int2float_rn(__ldg(L.vth + n));
+          const int32_t c =
+              h > 0
+                  ? row_mac<kPlanesSmem>(win, pl + (size_t)n * s_in, w_in, tot)
                   : (kStateSmem ? cur[n] : __ldg(cg + n));
-        const float v = __fmaf_rn(vmem, a.decay, __int2float_rn(c));
-        const bool fired = (v >= th) && (r == 0);
-        v_h[n] = fired ? (kSubtract ? __fsub_rn(v, th) : 0.0f) : v;
-        r_h[n] = fired ? a.refractory : (r > 0 ? r - 1 : 0);
+          const float v = __fmaf_rn(vmem, a.decay, __int2float_rn(c));
+          fired = (v >= th) && (r == 0);
+          v_h[n] = fired ? (kSubtract ? __fsub_rn(v, th) : 0.0f) : v;
+          r_h[n] = fired ? a.refractory : (r > 0 ? r - 1 : 0);
+        }
         const uint32_t word = __ballot_sync(0xffffffffu, fired);
         if (lane == 0) wout[base >> 5] = word;
       }
@@ -339,10 +349,10 @@ bool scan_layout(ScanArgs& a, int k, const int* hidden, int n_cls,
   a.n_first = k ? hidden[0] : n_cls;
   a.sum_n = a.sum_w = a.plane_words = 0;
   for (int h = 0; h < k; ++h) {
-    if (hidden[h] < 32 || hidden[h] % 32) return false;
+    if (hidden[h] < 1) return false;
     ScanLayer& L = a.layer[h];
     L.n = hidden[h];
-    L.w = hidden[h] / 32;
+    L.w = (hidden[h] + 31) / 32;
     L.n_next = h + 1 < k ? hidden[h + 1] : n_cls;
     L.stride = L.w | 1;
     L.plane_off = a.plane_words;
@@ -415,7 +425,7 @@ int lif_step(const void* vmem, const void* contrib, const void* vth,
 }
 
 // Dynamic shared memory of one temporal_scan block (one stream): k hidden
-// widths (32-aligned), n_cls readout neurons; planes_smem stages the weight
+// widths, n_cls readout neurons; planes_smem stages the weight
 // planes, state_smem keeps the state there.  -1 on a shape the kernel
 // cannot take.
 long long temporal_scan_smem_bytes(int k, const int* hidden, int n_cls,
@@ -436,14 +446,14 @@ int temporal_scan_smem_optin(int device) {
 
 // The event round's T steps after tile 0's MAC, in one launch:
 // c_in int32[T, b, n_first] (n_first = hidden[0], or n_cls when k = 0);
-// per hidden tile h < k: planes[h] int32[n_next, hidden[h] / 32] (n_next the
-// next hidden width, n_cls for the last), vth[h] int32[hidden[h]],
-// words[h] int32[T, b, hidden[h] / 32] or null, loads[h]
-// int32[T, b, hidden[h] / 128] or null (words and loads may be null
-// arrays); out_v float32[b, n_cls].  scratch float32[b, 2 sum(hidden) +
-// n_cls] when !state_smem.  One block serves each stream, one thread per
-// neuron of the widest tile (at most kScanMaxThreads).  Returns
-// cudaGetLastError().
+// per hidden tile h < k (any width; w_h = ceil(hidden[h] / 32)): planes[h]
+// int32[n_next, w_h] (n_next the next hidden width, n_cls for the last),
+// vth[h] int32[hidden[h]], words[h] int32[T, b, w_h] or null, loads[h]
+// int32[T, b, w_h / 4] or null (words and loads may be null arrays, and
+// their entries null); out_v float32[b, n_cls].  scratch float32[b,
+// 2 sum(hidden) + n_cls] when !state_smem.  One block serves each stream,
+// one thread per neuron of the widest tile (at most kScanMaxThreads).
+// Returns cudaGetLastError().
 int temporal_scan(const void* c_in, int T, int b, int k, const int* hidden,
                   int n_cls, const void* const* planes,
                   const void* const* vth, void* const* words,

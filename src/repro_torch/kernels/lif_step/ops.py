@@ -2,11 +2,12 @@
 
 ``temporal_scan`` is what the temporal plane (``core.esam.temporal``)
 calls once per event round: every hidden tile's LIF step, spike re-pack and
-next-tile MAC, and the readout's leak, for all T steps.  ``lif_step`` is one
-step of one tile, the counterpart of the reference's ``lif_step`` op.  CPU
-tensors run the plain versions in ``ref.py``; CUDA tensors launch
-``csrc/lif_step.cu`` (built by ``kernels/_build.py`` at first use) or the
-call raises.  Launches are counted (:func:`launch_counts`).
+next-tile MAC, and the readout's leak, for all T steps, at any hidden width
+and depth.  ``lif_step`` is one step of one tile, the counterpart of the
+reference's ``lif_step`` op.  CPU tensors run the plain versions in
+``ref.py``; CUDA tensors launch ``csrc/lif_step.cu`` (built by
+``kernels/_build.py`` at first use) or the call raises.  Launches are
+counted (:func:`launch_counts`).
 """
 
 from __future__ import annotations
@@ -16,8 +17,9 @@ import functools
 
 import torch
 
-from repro_torch.core.packing import LANE_BITS
+from repro_torch.core.packing import packed_width
 from repro_torch.kernels import _build
+from repro_torch.kernels.cim_popcount.ops import cim_popcount_matmul
 from repro_torch.kernels.common import (
     check_cuda_operands,
     on_cpu,
@@ -44,7 +46,8 @@ __all__ = [
 #: kernel launches since the last reset
 _LAUNCHES = {"lif_step": 0, "temporal_scan": 0}
 
-#: hidden tiles one ``temporal_scan`` launch takes (``kMaxHidden``)
+#: hidden tiles one ``temporal_scan`` launch takes (``kMaxHidden``); a
+#: deeper stack runs as consecutive launches
 SCAN_MAX_HIDDEN = 32
 #: spikes per row group of the arbiter loads (``packing.group_popcount``)
 _ROW_GROUP = 128
@@ -142,9 +145,8 @@ def lif_step(
     return spikes, vmem_out, refrac_out
 
 
-def _check_scan(c_in, planes, vth, telemetry) -> tuple[list[int], int]:
-    """(hidden widths, readout width) of a scan's operands; raises on a
-    type, shape or width the scan does not take."""
+def _check_scan(c_in, planes, vth, telemetry) -> None:
+    """Raises on a type, shape or width the scan does not take."""
     if c_in.dim() != 3 or c_in.dtype != torch.int32:
         raise ValueError(f"c_in must be int32[T, B, N], got "
                          f"{c_in.dtype}{list(c_in.shape)}")
@@ -154,11 +156,9 @@ def _check_scan(c_in, planes, vth, telemetry) -> tuple[list[int], int]:
         raise ValueError(f"{len(planes)} plane tensors for {len(vth)} "
                          "hidden thresholds")
     for i, th in enumerate(vth):
-        if (th.dim() != 1 or th.dtype != torch.int32 or not th.shape[0]
-                or th.shape[0] % LANE_BITS):
-            raise ValueError(f"vth[{i}] must be int32[N] with N a multiple "
-                             f"of {LANE_BITS}, got {th.dtype}"
-                             f"{list(th.shape)}")
+        if th.dim() != 1 or th.dtype != torch.int32 or not th.shape[0]:
+            raise ValueError(f"vth[{i}] must be int32[N] with N >= 1, got "
+                             f"{th.dtype}{list(th.shape)}")
     hidden = [int(th.shape[0]) for th in vth]
     n_cls = int(planes[-1].shape[0]) if planes else int(c_in.shape[-1])
     if hidden and c_in.shape[-1] != hidden[0]:
@@ -167,14 +167,13 @@ def _check_scan(c_in, planes, vth, telemetry) -> tuple[list[int], int]:
     for i, w in enumerate(planes):
         n = hidden[i]
         n_next = hidden[i + 1] if i + 1 < len(hidden) else n_cls
-        if tuple(w.shape) != (n_next, n // LANE_BITS) or w.dtype != torch.int32:
-            raise ValueError(f"planes[{i}] must be int32"
-                             f"[{n_next}, {n // LANE_BITS}], got "
+        want = (n_next, packed_width(n))
+        if tuple(w.shape) != want or w.dtype != torch.int32:
+            raise ValueError(f"planes[{i}] must be int32{list(want)}, got "
                              f"{w.dtype}{list(w.shape)}")
         if telemetry and n % _ROW_GROUP:
             raise ValueError(f"telemetry needs hidden widths in "
                              f"{_ROW_GROUP}-spike row groups, got {n}")
-    return hidden, n_cls
 
 
 @functools.lru_cache(maxsize=None)
@@ -197,7 +196,7 @@ def _scan_route(device_index: int, hidden: tuple,
 
 def temporal_scan(
     c_in: torch.Tensor,       # int32[T, B, N_1]: tile 0's MAC, per step
-    planes,                   # per hidden tile i: int32[N_{i+1}, N_i / 32]
+    planes,                   # per hidden tile i: int32[N_{i+1}, ceil(N_i/32)]
     vth,                      # per hidden tile i: int32[N_i]
     *,
     leak: float = 0.0,
@@ -208,16 +207,19 @@ def temporal_scan(
 ) -> tuple[torch.Tensor, tuple | None, tuple | None]:
     """The event round's T steps after tile 0's MAC (see
     ``ref.temporal_scan_ref``): returns (out_v float32[B, n_cls], words,
-    loads), new tensors on the operands' device, time-first.
+    loads), new tensors on the operands' device, time-first.  Hidden widths
+    are any N >= 1 (``ceil(N/32)`` words a tile, zero tail bits); telemetry
+    needs them in row groups of 128.
 
-    On the card it is one launch, one block a stream.
+    On the card it is one launch, one block a stream, for every
+    ``SCAN_MAX_HIDDEN`` hidden tiles (see ``_scan_in_launches``).
     """
     if reset not in RESET_MODES:
         raise ValueError(f"reset {reset!r} not in {RESET_MODES}")
     if refractory < 0:
         raise ValueError(f"refractory must be >= 0, got {refractory}")
     planes, vth = tuple(planes), tuple(vth)
-    hidden, n_cls = _check_scan(c_in, planes, vth, telemetry)
+    _check_scan(c_in, planes, vth, telemetry)
     kw = dict(leak=leak, reset=reset, refractory=refractory, collect=collect,
               telemetry=telemetry)
     if on_cpu(c_in, *planes, *vth):
@@ -225,15 +227,49 @@ def temporal_scan(
     dev = check_cuda_operands(
         {"c_in": c_in, **{f"planes[{i}]": w for i, w in enumerate(planes)},
          **{f"vth[{i}]": th for i, th in enumerate(vth)}})
-    if len(hidden) > SCAN_MAX_HIDDEN:
-        raise ValueError(f"temporal_scan takes at most {SCAN_MAX_HIDDEN} "
-                         f"hidden tiles, got {len(hidden)}")
+    return _scan_in_launches(c_in, planes, vth, dev=dev, **kw)
+
+
+def _scan_in_launches(c_in, planes, vth, *, scan=None,
+                      max_hidden: int = SCAN_MAX_HIDDEN, collect: bool,
+                      telemetry: bool, **kw):
+    """A stack of any depth as consecutive scans of at most ``max_hidden``
+    hidden tiles (``scan``: one launch each, or the plain version).  The
+    network is feed-forward, so a later scan's ``c_in`` is the exact MAC
+    (``cim_popcount_matmul``) of the last scan's last-tile words with the
+    planes behind them, over all T steps; the earlier scans' readouts are
+    dropped, and their words and loads joined."""
+    scan = scan or _scan_launch
+    k = len(vth)
+    words, loads = [], []
+    for h0 in range(0, max(k, 1), max_hidden):
+        h1 = min(h0 + max_hidden, k)
+        more = h1 < k
+        out_v, w, ld = scan(c_in, planes[h0:h1], vth[h0:h1],
+                            collect=collect or more, telemetry=telemetry,
+                            **kw)
+        words += w or ()
+        loads += ld or ()
+        if more:
+            t, b, _ = c_in.shape
+            c_in = cim_popcount_matmul(
+                w[-1].reshape(t * b, -1), planes[h1 - 1]).reshape(t, b, -1)
+    return (out_v, tuple(words) if collect else None,
+            tuple(loads) if telemetry else None)
+
+
+def _scan_launch(c_in, planes, vth, *, dev, leak: float, reset: str,
+                 refractory: int, collect: bool, telemetry: bool):
+    """One ``temporal_scan`` launch over at most ``SCAN_MAX_HIDDEN`` hidden
+    tiles of any width."""
+    hidden = [int(th.shape[0]) for th in vth]
+    n_cls = int(planes[-1].shape[0]) if planes else int(c_in.shape[-1])
     T, B, _ = c_in.shape
     c_in = c_in.contiguous()
     planes = tuple(w.contiguous() for w in planes)
     vth = tuple(th.contiguous() for th in vth)
     out_v = torch.empty((B, n_cls), dtype=torch.float32, device=dev)
-    words = tuple(torch.empty((T, B, n // LANE_BITS), dtype=torch.int32,
+    words = tuple(torch.empty((T, B, packed_width(n)), dtype=torch.int32,
                               device=dev) for n in hidden) if collect else None
     loads = tuple(torch.empty((T, B, n // _ROW_GROUP), dtype=torch.int32,
                               device=dev) for n in hidden) if telemetry else None
@@ -259,4 +295,3 @@ def temporal_scan(
     _build.check(kl, err, "temporal_scan launch")
     _LAUNCHES["temporal_scan"] += 1
     return out_v, words, loads
-

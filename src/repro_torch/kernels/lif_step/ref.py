@@ -101,7 +101,7 @@ def lif_step_ref(
 
 def temporal_scan_ref(
     c_in: torch.Tensor,       # int32[T, B, N_1]: tile 0's MAC, per step
-    planes,                   # per hidden tile i: int32[N_{i+1}, N_i / 32]
+    planes,                   # per hidden tile i: int32[N_{i+1}, ceil(N_i/32)]
     vth,                      # per hidden tile i: int32[N_i]
     *,
     leak: float = 0.0,
@@ -121,7 +121,7 @@ def temporal_scan_ref(
 
     Returns (out_v float32[B, n_cls], words, loads): ``words`` (with
     ``collect``) and ``loads`` (with ``telemetry``) are tuples over hidden
-    tiles of int32 ``[T, B, N_i / 32]`` and ``[T, B, N_i / 128]``, else
+    tiles of int32 ``[T, B, ceil(N_i / 32)]`` and ``[T, B, N_i / 128]``, else
     None.  The caller adds the readout's offset.
     """
     t, batch, _ = c_in.shape

@@ -263,6 +263,7 @@ class _Comparison:
         tile_planes = [packing.pack_weight_planes(x) for x in wb]
         w_stack, vth_stack = pop_ops.stack_cascade_operands(
             tile_planes, vths, topo)
+        tiles = pop_ops.cascade_tiles(w_stack, vth_stack, topo)
         self.packed, self.w, self.planes = packed, w, planes
 
         def cascade_plain():
@@ -308,10 +309,10 @@ class _Comparison:
             lambda: pop_ops.esam_cascade_popcount_ref(
                 packed, tuple(tile_planes), tuple(vths))[0],
             lambda: pop_ops.esam_cascade_popcount(
-                packed, w_stack, vth_stack, topology=topo)[0],
+                packed, w_stack, vth_stack, topology=topo, tiles=tiles)[0],
             {"mega_cascade": 1},
-            "launches=1;datapath=popcount;weights=staged_in_shared;"
-            "fired_planes=shared_resident")
+            "launches=1;datapath=popcount;weights=cluster_split_bulk_staged;"
+            "fired_planes=distributed_shared")
 
     def lanes(self) -> list[Lane]:
         return [self.matmul_packed, self.popcount, self.popcount_fused,

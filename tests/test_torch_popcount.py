@@ -229,6 +229,46 @@ def test_cascade_rejects_bad_operands():
     with pytest.raises(TypeError):
         ops.esam_cascade_popcount(_t(x).to(torch.int64), w_stack, vth_stack,
                                   topology=topo)
+    with pytest.raises(ValueError, match="w_stack"):
+        ops.esam_cascade_popcount(_t(x), w_stack[:, :64], vth_stack,
+                                  topology=topo)
+    with pytest.raises(ValueError, match="vth_stack"):
+        ops.esam_cascade_popcount(_t(x), w_stack, vth_stack.to(torch.int64),
+                                  topology=topo)
+    # the geometry is the launcher's, derived: no block size to pass
+    with pytest.raises(TypeError):
+        ops.esam_cascade_popcount(_t(x), w_stack, vth_stack, topology=topo,
+                                  block_b=4)
+
+
+@pytest.mark.parametrize("topo", [PAPER, (100, 64, 96, 33), (768, 10)],
+                         ids=lambda t: ":".join(map(str, t)))
+def test_cascade_tiles_layout(topo):
+    """The card's regrouped operands: per tile, per 32-neuron group, a
+    (w + 1) x 32 block of the group's planes (word-major, lane-minor) and
+    its thresholds (zero for the readout), tiles back to back."""
+    _, planes, vth = _cascade_operands(3, topo, 1)
+    w_stack, vth_stack = ops.stack_cascade_operands(
+        [_t(p) for p in planes], [torch.from_numpy(v) for v in vth], topo)
+    tiles = ops.cascade_tiles(w_stack, vth_stack, topo)
+    assert tiles.dtype == torch.int32 and tiles.is_contiguous()
+    off = 0
+    for t, (n, p) in enumerate(zip(topo[1:], planes)):
+        groups, w = -(-n // 32), p.shape[1]
+        blocks = tiles[off: off + groups * (w + 1) * 32].reshape(
+            groups, w + 1, 32)
+        off += blocks.numel()
+        padded = np.zeros((groups * 32, w), np.uint32)
+        padded[:n] = p
+        np.testing.assert_array_equal(
+            packing.words_to_np(blocks[:, :w].contiguous()),
+            padded.reshape(groups, 32, w).transpose(0, 2, 1))
+        th = blocks[:, w].reshape(-1).numpy()
+        if t + 1 < len(planes):
+            np.testing.assert_array_equal(th[:n], vth[t])
+        else:
+            assert (th == 0).all()
+    assert off == tiles.numel()
 
 
 def test_no_plain_fallback_off_the_cpu():
@@ -264,23 +304,69 @@ def cuda():
     return torch.device("cuda")
 
 
+#: (topology, batch, the launcher's route there): its cluster size, whether
+#: every tile's word count is fixed at compile time, the last slice of rows
+#: partly empty, fewer clusters than slices (None: not asserted)
+CUDA_CASCADE_CASES = [
+    (PAPER, 1, (2, True, False, False)),
+    (PAPER, 7, (2, True, False, False)),
+    (PAPER, 128, (2, True, False, False)),
+    (PAPER, 1000, (2, True, False, False)),
+    (PAPER, 4096, (2, True, False, True)),
+    (PAPER, 333, (2, True, True, None)),
+    ((768, 768, 768, 10), 1024, (2, True, False, None)),
+    ((768, 256, 10), 33, (2, True, None, None)),
+    ((100, 64, 96, 33), 45, (2, False, None, None)),
+    ((100, 32, 10), 3, (1, False, None, None)),
+    ((1024, 4096, 10), 8, (4, False, None, None)),
+    ((2048, 4096, 10), 8, (8, False, None, None)),
+    ((4096, 4096, 10), 8, (16, False, None, None)),
+]
+
+
 @pytest.mark.cuda
-@pytest.mark.parametrize("topo,B", [(PAPER, 1), (PAPER, 7), (PAPER, 128),
-                                    (PAPER, 1000), ((768, 256, 10), 33),
-                                    ((100, 64, 96, 33), 45)])
-def test_cuda_cascade_matches_plain(cuda, topo, B):
+@pytest.mark.parametrize("topo,B,route", CUDA_CASCADE_CASES,
+                         ids=lambda v: ":".join(map(str, v))
+                         if isinstance(v, tuple) and len(v) > 4 else str(v))
+def test_cuda_cascade_matches_plain(cuda, topo, B, route):
+    """One mega_cascade launch, bit for bit the plain cascade, on each of
+    the launcher's routes."""
     x, planes, vth = _cascade_operands(B + len(topo), topo, B)
     planes_t = tuple(_t(p).to(cuda) for p in planes)
     vth_t = tuple(torch.from_numpy(v).to(cuda) for v in vth)
     w_stack, vth_stack = ops.stack_cascade_operands(planes_t, vth_t, topo)
+    tiles = ops.cascade_tiles(w_stack, vth_stack, topo)
     ops.reset_launch_counts()
     logits, fired = ops.esam_cascade_popcount(
-        _t(x).to(cuda), w_stack, vth_stack, topology=topo)
+        _t(x).to(cuda), w_stack, vth_stack, topology=topo, tiles=tiles)
     assert ops.launch_counts()["mega_cascade"] == 1
     ref_logits, ref_fired = ops.esam_cascade_popcount_ref(
         _t(x).to(cuda), planes_t, vth_t)
     assert torch.equal(logits, ref_logits)
     assert all(torch.equal(a, b) for a, b in zip(fired, ref_fired))
+    took = ops._cascade_route(topo, B, torch.cuda.current_device())
+    got = (took.cluster, all(took.fixed_words),
+           took.slices * took.rows > B, took.clusters < took.slices)
+    for g, want in zip(got, route):
+        assert want is None or g == want, (took, route)
+    assert took.fixed_words == tuple(w in (8, 24) for w in
+                                     ops.cascade_geometry(topo)["w_words"])
+
+
+@pytest.mark.cuda
+def test_cuda_cascade_needs_its_tiles(cuda):
+    """On the card the cascade reads the regrouped operands: without them,
+    or with another topology's, it raises instead of computing."""
+    topo = (100, 64, 10)
+    x, planes, vth = _cascade_operands(2, topo, 4)
+    w_stack, vth_stack = ops.stack_cascade_operands(
+        [_t(p).to(cuda) for p in planes],
+        [torch.from_numpy(v).to(cuda) for v in vth], topo)
+    tiles = ops.cascade_tiles(w_stack, vth_stack, topo)
+    for bad in (None, tiles[:-32], tiles.cpu()):
+        with pytest.raises(ValueError, match="cascade_tiles"):
+            ops.esam_cascade_popcount(_t(x).to(cuda), w_stack, vth_stack,
+                                      topology=topo, tiles=bad)
 
 
 @pytest.mark.cuda

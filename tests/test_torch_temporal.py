@@ -6,7 +6,9 @@ reference, whose compiler rounds the leak and the integrate once, as one
 fused multiply-add), the event round's scan (``temporal_scan_ref`` and the
 CPU wrapper against the reference's ``temporal_forward`` at 0, 1 and 3
 hidden tiles, every leak, reset and refractory setting, T 1 and 5, with and
-without collect and telemetry), the temporal plan (logits, planes and loads
+without collect and telemetry; ``temporal_forward`` also at hidden widths
+that are not multiples of 32 and deeper than one scan launch takes), the
+temporal plan (logits, planes and loads
 bit for bit), the temporal cost model, and event-stream serving through
 ``SpikeEngine``.  Plus ``cuda``-marked tests of the CUDA LIF step and scan
 against their plain versions, which skip without a card.
@@ -327,20 +329,104 @@ def test_temporal_scan_wrapper_checks_and_counts():
     for args in bad:
         with pytest.raises(ValueError):
             lif_ops.temporal_scan(*args[:3], **args[3])
-    # hidden widths must be 32-aligned, and row groups of 128 for telemetry
+    # any hidden width (ceil(N/32) plane words); row groups of 128 for
+    # telemetry
     _, net96 = _pair((100, 96, 10), 6)
     c96, p96, v96 = _scan_operands(net96, ev)
     lif_ops.temporal_scan(c96, p96, v96, collect=True)
     with pytest.raises(ValueError, match="row groups"):
         lif_ops.temporal_scan(c96, p96, v96, telemetry=True)
-    with pytest.raises(ValueError, match="multiple of 32"):
-        lif_ops.temporal_scan(c96[..., :90], (p96[0][:, :3],),
+    got = lif_ops.temporal_scan(c96[..., :90], (p96[0][:, :3],),
+                                (v96[0][:90],), collect=True)
+    want = temporal_scan_ref(c96[..., :90], (p96[0][:, :3],),
+                             (v96[0][:90],), collect=True)
+    assert torch.equal(got[0], want[0]) and torch.equal(got[1][0], want[1][0])
+    assert got[1][0].shape == (3, 4, 3)
+    with pytest.raises(ValueError, match=r"planes\[0\]"):
+        lif_ops.temporal_scan(c96[..., :90], (p96[0][:, :2],),
                               (v96[0][:90],))
+    with pytest.raises(ValueError, match="N >= 1"):
+        lif_ops.temporal_scan(c96[..., :0], (p96[0][:, :0],), (v96[0][:0],))
     meta = torch.device("meta")
     with pytest.raises(ValueError, match="different devices"):
         lif_ops.temporal_scan(c_in, (planes[0].to(meta), planes[1]), vth)
     with pytest.raises(ValueError, match="different devices"):
         lif_ops.temporal_scan(c_in.to(meta), planes, vth)
+
+
+#: hidden widths that are not multiples of 32 (the reference computes them)
+UNALIGNED_TOPOLOGIES = [(65, 31, 7), (100, 37, 70, 33, 10), (33, 129, 255, 3)]
+#: more hidden tiles than one temporal_scan launch takes, narrow
+DEEP_TOPOLOGY = (20,) + (9, 40) * 17 + (5,)
+
+
+def _forward_pair(topo, cfg, jcfg, ev, collect):
+    """(port, reference) temporal_forward of one CPU network pair."""
+    from repro_torch.core.esam import temporal as ttemporal
+
+    ref, net = _pair(topo, sum(topo) % 97)
+    want = jtemporal.temporal_forward(
+        ref.weight_bits, ref.vth, ref.out_offset,
+        jnp.asarray(jpacking.pack_spikes_np(ev)), jcfg, collect=collect)
+    got = ttemporal.temporal_forward(
+        ttemporal.mac_operands(net.weight_bits), net.vth, net.out_offset,
+        packing.words_from_np(packing.pack_spikes_np(ev)), cfg, topo,
+        collect=collect)
+    return got, want
+
+
+@pytest.mark.parametrize("topo", UNALIGNED_TOPOLOGIES + [DEEP_TOPOLOGY],
+                         ids=lambda t: ":".join(map(str, t[:5]))
+                         + f"-{len(t) - 2}h")
+@pytest.mark.parametrize("leak", [0.0, 0.7])
+@pytest.mark.parametrize("reset", ["zero", "subtract"])
+@pytest.mark.parametrize("refractory", [0, 3])
+def test_temporal_forward_any_hidden_width_and_depth(topo, leak, reset,
+                                                     refractory):
+    """The port's temporal_forward against the reference's, bit for bit, at
+    hidden widths that are not multiples of 32 (T 3) and at more hidden
+    tiles than one scan launch takes (T 2): logits, and the collected
+    planes with collect on (telemetry off: the reference's loads need row
+    groups of 128)."""
+    n_steps = 2 if topo == DEEP_TOPOLOGY else 3
+    cfg, jcfg = _configs(n_steps=n_steps, leak=leak, reset=reset,
+                         refractory=refractory)
+    ev = _events(len(topo) + refractory, n_steps, 5, topo[0], rate=0.4)
+    for collect in (False, True):
+        got, want = _forward_pair(topo, cfg, jcfg, ev, collect)
+        np.testing.assert_array_equal(got["logits"].numpy(),
+                                      np.asarray(want["logits"]))
+        assert ("planes" in got) == collect
+        if collect:
+            _assert_planes_equal(got["planes"], want["planes"])
+            assert [p.shape[-1] for p in got["planes"]] == [
+                -(-n // 32) for n in topo[:-1]]
+
+
+@pytest.mark.parametrize("max_hidden", [1, 2, 4, 32])
+def test_temporal_scan_in_launches_matches_one_scan(max_hidden):
+    """The card's split of a deep stack into launches of at most
+    ``max_hidden`` hidden tiles (run here with the plain scan per launch):
+    the same readout, words and loads as one plain scan."""
+    from repro_torch.kernels.lif_step.ref import temporal_scan_ref
+
+    _, net = _pair((100, 128, 256, 128, 384, 128, 10), max_hidden)
+    c_in, planes, vth = _scan_operands(net, _events(max_hidden, 4, 3, 100))
+    kw = dict(leak=0.3, reset="subtract", refractory=2, collect=True,
+              telemetry=True)
+    got = lif_ops._scan_in_launches(c_in, planes, vth, scan=temporal_scan_ref,
+                                    max_hidden=max_hidden, **kw)
+    want = temporal_scan_ref(c_in, planes, vth, **kw)
+    assert torch.equal(got[0], want[0])
+    assert len(got[1]) == len(got[2]) == 5
+    for g, w in zip(got[1] + got[2], want[1] + want[2]):
+        assert torch.equal(g, w)
+    bare = lif_ops._scan_in_launches(
+        c_in, planes, vth, scan=temporal_scan_ref, max_hidden=max_hidden,
+        leak=0.3, reset="subtract", refractory=2, collect=False,
+        telemetry=False)
+    assert bare[1] is None and bare[2] is None
+    assert torch.equal(bare[0], want[0])
 
 
 def test_temporal_accepts_wire_format_and_leading_shapes():
@@ -665,7 +751,7 @@ def _random_scan_operands(seed, hidden, n_cls, n_steps, batch, device):
     c_in = rng.integers(-40, 41, size=(n_steps, batch, n_first),
                         dtype=np.int32)
     widths = list(hidden) + [n_cls]
-    planes = [rng.integers(-2**31, 2**31, size=(widths[i + 1], n // 32),
+    planes = [rng.integers(-2**31, 2**31, size=(widths[i + 1], -(-n // 32)),
                            dtype=np.int64).astype(np.int32)
               for i, n in enumerate(hidden)]
     vth = [rng.integers(-8, 9, size=(n,), dtype=np.int32) for n in hidden]
@@ -689,20 +775,31 @@ def _assert_scan_equal(got, want):
 @pytest.mark.parametrize("hidden,batch,n_steps", [
     (PAPER_HIDDEN, 64, 4), (PAPER_HIDDEN, 64, 8), (PAPER_HIDDEN, 64, 16),
     (PAPER_HIDDEN, 1, 5), (PAPER_HIDDEN, 7, 5), ((), 64, 8), ((256,), 7, 8),
-    ((128, 384), 33, 3)])
+    ((128, 384), 33, 3), ((31,), 2, 3), ((37, 70, 33), 5, 3),
+    ((129, 255), 64, 3), (DEEP_TOPOLOGY[1:-1], 3, 2)])
 @pytest.mark.parametrize("leak,reset,refractory", [
     (0.125, "zero", 0), (0.125, "subtract", 2), (0.3, "zero", 2),
-    (0.0, "subtract", 0)])
+    (0.0, "subtract", 0), (0.7, "subtract", 3)])
 def test_cuda_temporal_scan_matches_plain(cuda, hidden, batch, n_steps, leak,
                                           reset, refractory):
+    """The kernel against its plain version: the paper's and ragged rounds,
+    hidden widths that are not multiples of 32 (telemetry where the widths
+    are row groups of 128), and a stack deeper than one launch takes (two
+    launches with a popcount_mac between)."""
+    from repro_torch.kernels.cim_popcount import ops as pop_ops
+
     ops = _random_scan_operands(batch + n_steps + len(hidden), hidden, 10,
                                 n_steps, batch, cuda)
     kw = dict(leak=leak, reset=reset, refractory=refractory, collect=True,
-              telemetry=True)
+              telemetry=all(n % 128 == 0 for n in hidden))
     want = lif_ops.temporal_scan_ref(*ops, **kw)
     lif_ops.reset_launch_counts()
+    pop_ops.reset_launch_counts()
     _assert_scan_equal(lif_ops.temporal_scan(*ops, **kw), want)
-    assert lif_ops.launch_counts() == {"lif_step": 0, "temporal_scan": 1}
+    launches = -(-len(hidden) // lif_ops.SCAN_MAX_HIDDEN) if hidden else 1
+    assert lif_ops.launch_counts() == {"lif_step": 0,
+                                       "temporal_scan": launches}
+    assert pop_ops.launch_counts()["popcount_mac"] == launches - 1
     bare = lif_ops.temporal_scan(*ops, leak=leak, reset=reset,
                                  refractory=refractory)
     assert bare[1] is None and bare[2] is None
