@@ -7,9 +7,17 @@ Phases; any failure raises, so the exit code is non-zero:
 
 1. the card's name and power limit (``nvidia-smi``), torch and CUDA versions;
 2. build the CUDA kernels from ``src/repro_torch/kernels/*/csrc`` (one
-   ``nvcc`` per library, all started together);
+   ``nvcc`` per library, and one for ``probes/rate_probe.cu``, all
+   started together); then the issue rates of the b1 and int8 tensor-core
+   products and the popc unit, with the SM clock (``rate_probe``; the b1
+   reading is the rate of B2's and B3's bound), and the tensor-core
+   instruction in B2/B3's kernel (``cuobjdump``, ``sass``);
 3. each kernel against its plain PyTorch version on the card, bit for bit,
-   at the paths' shapes and more (B9', B10 and B11 at the bench's shapes,
+   at the paths' shapes and more (B2 and B3 at ragged shapes in every
+   output mode, on all-zero and all-one operands, at thresholds of -2^31
+   and 2^31 - 1 and on strided spike rows, each with its route, the
+   CUDA-core kernel's time before it and three bounds (b1, int8, popc);
+   B9', B10 and B11 at the bench's shapes,
    ragged ones and 4096 x 768 -> 256; B10 in four spike dtypes; B11 at
    threshold equality and int32 wraparound; B1 at the bench's
    (768, 768, 768, 10) and on each route of its launcher: clusters of 1,
@@ -153,6 +161,9 @@ class Card:
         self.sms = props.multi_processor_count
         self.max_sm_mhz = float(nvidia_smi("clocks.max.sm", units=False))
         self.popc_per_s = popc_ops_per_s(self.sms, self.max_sm_mhz)
+        #: the b1 tensor-core product's AND+popc operations a second (two
+        #: a bit pair), set by ``probe_rates`` from this run's reading
+        self.b1_ops_per_s = None
 
     def bound(self, n_bytes: float, n_ops: float,
               ops_per_s: float | None = None) -> tuple[float, str]:
@@ -162,6 +173,119 @@ class Card:
         t_ops = n_ops / (ops_per_s or self.popc_per_s)
         return (max(t_bytes, t_ops) * 1e3,
                 "bytes" if t_bytes >= t_ops else "operations")
+
+
+#: the rate probe (``probes/rate_probe.cu``): its index, name, and the
+#: AND+popc products one instruction computes (a warp's mma, a thread's popc)
+RATE_PROBES = ((0, "mma_b1_m16n8k256_and_popc", 16 * 8 * 256),
+               (1, "mma_s8_m16n8k32", 16 * 8 * 32),
+               (2, "popc_b32", 32))
+PROBE_ITERS = 4096
+PROBE_SOURCE = ROOT / "probes" / "rate_probe.cu"
+
+
+def start_probe_build():
+    """Start nvcc on the rate probe, which is no part of the port's kernel
+    libraries; returns (process, library path) for ``probe_rates``."""
+    from repro_torch.kernels import _build
+
+    out = _build.build_dir() / "librate_probe.so"
+    out.parent.mkdir(parents=True, exist_ok=True)
+    include = ROOT / "src/repro_torch/kernels/cim_popcount/csrc"
+    proc = subprocess.Popen(
+        [_build._nvcc(), *_build.NVCC_FLAGS, f"-I{include}", "-o", str(out),
+         str(PROBE_SOURCE)],
+        stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+    return proc, out
+
+
+def probe_rates(card, build) -> dict:
+    """The rate probe on one SM and on every SM: instructions and AND+popc
+    products per clock per SM of the b1 and int8 tensor-core products and
+    of the 32-bit popc, and the SM clock (the kernel's own clock64 cycles
+    over its CUDA-event time).  Printed as a ``rate_probe`` line.  Sets
+    ``card.b1_ops_per_s`` from the b1 product's higher reading at the
+    card's maximum SM clock: a measured rate is a floor on the peak."""
+    import ctypes
+
+    import torch
+
+    from repro_torch.kernels.common import stream_ptr
+
+    proc, path = build
+    text, _ = proc.communicate()
+    if proc.returncode != 0:
+        raise RuntimeError(f"nvcc failed on {PROBE_SOURCE.name}:\n{text}")
+    lib = ctypes.CDLL(str(path))
+    vp, i32 = ctypes.c_void_p, ctypes.c_int
+    lib.cim_popcount_rate_probe.argtypes = [i32, i32, i32, vp, vp, vp]
+    lib.cim_popcount_rate_probe.restype = i32
+    threads = lib.cim_popcount_probe_threads()
+    chains = lib.cim_popcount_probe_chains()
+    dev = torch.device("cuda", torch.cuda.current_device())
+    out = {}
+    for which, name, per_instr in RATE_PROBES:
+        for label, blocks in (("one_sm", 1), ("all_sms", card.sms)):
+            sink = torch.empty(blocks * threads, dtype=torch.int32,
+                               device=dev)
+            cycles = torch.empty(blocks, dtype=torch.int64, device=dev)
+
+            def launch():
+                err = lib.cim_popcount_rate_probe(
+                    which, blocks, PROBE_ITERS, sink.data_ptr(),
+                    cycles.data_ptr(), stream_ptr(dev))
+                if err:
+                    raise RuntimeError(f"rate probe {name} failed: {err}")
+
+            launch()   # warm-up
+            start = torch.cuda.Event(enable_timing=True)
+            end = torch.cuda.Event(enable_timing=True)
+            start.record()
+            launch()
+            end.record()
+            end.synchronize()
+            ms = start.elapsed_time(end)
+            cyc = int(cycles.max())
+            per_thread = chains * PROBE_ITERS
+            instrs = blocks * per_thread * (threads if which == 2
+                                            else threads // 32)
+            out[f"{name}/{label}"] = {
+                "ms": ms, "sm_mhz": cyc / (ms * 1e3),
+                "instr_per_clk_sm": instrs / cyc / blocks,
+                "products_per_clk_sm": instrs * per_instr / cyc / blocks,
+                "products_per_s": instrs * per_instr / (ms * 1e-3)}
+    b1 = max(out[f"{RATE_PROBES[0][1]}/{label}"]["products_per_clk_sm"]
+             for label in ("one_sm", "all_sms"))
+    card.b1_ops_per_s = 2 * b1 * card.sms * card.max_sm_mhz * 1e6
+    out["b1_bound_ops_per_s"] = card.b1_ops_per_s
+    print("rate_probe " + json.dumps(out), flush=True)
+    return out
+
+
+def tile_sass(lib_path) -> dict:
+    """Tensor-core instructions in the SASS of each instantiation of B2/B3's
+    kernel (``popcount_fire_kernel``), from ``cuobjdump -sass`` of the
+    built library; raises unless every one holds the b1 product (BMMA)."""
+    import re
+
+    from repro_torch.kernels import _build
+
+    cuobjdump = Path(_build._nvcc()).with_name("cuobjdump")
+    sass = subprocess.run([str(cuobjdump), "-sass", str(lib_path)],
+                          capture_output=True, text=True, check=True,
+                          timeout=120).stdout
+    found = {}
+    for section in sass.split("Function : ")[1:]:
+        name = section.split(maxsplit=1)[0]
+        if "popcount_fire_kernel" in name:
+            ops = re.findall(r"\b((?:BMMA|IMMA|HMMA)[.A-Z0-9_]*)", section)
+            found[name] = {op: ops.count(op) for op in sorted(set(ops))}
+    if not found or not all(any(op.startswith("BMMA") for op in v)
+                            for v in found.values()):
+        raise AssertionError(
+            f"popcount_fire_kernel SASS without BMMA: {found}")
+    print("sass " + json.dumps(found), flush=True)
+    return found
 
 
 def random_words(rng, batch: int, n: int):
@@ -309,42 +433,161 @@ def mega_geometries(rng, topology, batch) -> None:
     print("mega_geometry " + json.dumps(row), flush=True)
 
 
-def check_mac(card, rng, batch, n_in, n_out, kernels):
-    """popcount_mac vs the plain MAC on the card at one shape; the library
+#: B2's and B3's device time in a CUDA graph before their redesign (the
+#: CUDA-core MAC on staged planes, timed by its own commit's check_mac /
+#: check_fire on NVIDIA H100 80GB HBM3, 700 W; PERF.md), printed
+#: beside the tensor-core kernel's on random, contiguous operands; keyed
+#: (kernel, shape, pack_output)
+POP_BEFORE_MS = {
+    ("popcount_mac", "128x768->10", None): 0.003414,
+    ("popcount_mac", "37x100->77", None): 0.003093,
+    ("popcount_mac", "256x768->256", None): 0.006328,
+    ("popcount_mac", "512x768->256", None): 0.007354,
+    ("popcount_mac", "1024x768->256", None): 0.009843,
+    ("popcount_mac", "64x256->256", None): 0.003416,
+    ("popcount_mac", "64x256->10", None): 0.003219,
+    ("popcount_mac", "1024x768->768", None): 0.015410,
+    ("popcount_mac", "1x100->10", None): 0.002840,
+    ("popcount_mac", "7x777->77", None): 0.004227,
+    ("popcount_mac", "37x40000->96", None): 0.045997,
+    ("popcount_mac", "1x777->96", None): 0.004360,
+    ("popcount_mac", "7x100->77", None): 0.003075,
+    ("popcount_mac", "37x40000->10", None): 0.043963,
+    ("popcount_fire", "4096x768->256", True): 0.027627,
+    ("popcount_fire", "4096x256->256", True): 0.017584,
+    ("popcount_fire", "1000x777->256", True): 0.011723,
+    ("popcount_fire", "37x100->96", False): 0.003050,
+    ("popcount_fire", "1024x768->768", True): 0.016354,
+    ("popcount_fire", "1x100->10", False): 0.003078,
+    ("popcount_fire", "7x777->77", False): 0.004622,
+    ("popcount_fire", "37x40000->96", True): 0.046251,
+    ("popcount_fire", "1x777->96", True): 0.004419,
+    ("popcount_fire", "7x100->77", False): 0.003165,
+    ("popcount_fire", "37x40000->10", False): 0.044373,
+    ("popcount_fire", "37x40000->96", False): 0.045982,
+}
+
+#: the ragged tile shapes B2 and B3 are checked at besides the paths':
+#: B 1, 7, 37; N 10, 77, 96; K 100, 777, 40000 (W 4, 25, 1250)
+POP_RAGGED = ((1, 100, 10), (7, 777, 77), (37, 40000, 96), (1, 777, 96),
+              (7, 100, 77), (37, 40000, 10))
+
+
+def _tile_operands(rng, batch, n_in, n_out, fill, stride_pad):
+    """Weight bits [n_in, n_out] and their planes, spike words [batch, W]
+    (rows ``stride_pad`` words apart beyond W: a strided view), by ``fill``:
+    random, or all-zero / all-one spikes and planes."""
+    import torch
+
+    from repro_torch.core import packing
+
+    if fill == "random":
+        bits = rng.integers(0, 2, size=(n_in, n_out), dtype=np.int8)
+        spikes = rng.integers(0, 2, size=(batch, n_in + 32 * stride_pad))
+    else:
+        value = 1 if fill == "ones" else 0
+        bits = np.full((n_in, n_out), value, np.int8)
+        spikes = np.full((batch, n_in + 32 * stride_pad), value)
+    # zero tail bits in the last real word (the wire format); the words a
+    # strided row skips are all ones, so reading one would show
+    words = packing.packed_width(n_in)
+    spikes[:, n_in: 32 * words] = 0
+    spikes[:, 32 * words:] = 1
+    bits = torch.from_numpy(bits).cuda()
+    planes = packing.pack_weight_planes(bits)
+    x = packing.words_from_np(packing.pack_spikes_np(spikes)).cuda()
+    return bits, planes, x[:, :words]
+
+
+def _tile_route(x, planes, route):
+    """The route B2/B3 took for these operands, checked against what the
+    caller expects of it (``route``: FireRoute fields) and against the
+    shape: the grid covers B rows and N neurons, with less than one block
+    past each."""
+    from repro_torch.kernels.cim_popcount import ops
+
+    took = ops._route_for(x, planes)
+    B, N = x.shape[0], planes.shape[0]
+    rows = ops._FIRE_WARPS * ops._FIRE_TILE_ROWS
+    if (not 0 <= took.grid[0] * rows - B < rows
+            or not 0 <= took.grid[1] * ops._FIRE_TILE_NEURONS - N
+            < ops._FIRE_TILE_NEURONS
+            or any(getattr(took, k) != v for k, v in route.items())):
+        raise AssertionError(f"B2/B3 route {took} at B={B} N={N}, "
+                             f"want {route}")
+    return took._asdict()
+
+
+def _tile_bounds(card, batch, n_in, n_out, n_bytes) -> dict:
+    """B2's and B3's bounds, each against the bytes: the b1 product's, the
+    datapath the kernel runs (2 B N K operations at this run's probed b1
+    rate, ``probe_rates``), and beside it the int8 product's (the same
+    operations at the int8 data-sheet rate) and the popc unit's (AND+popc
+    word pairs and spike-word popcs), so that earlier rows stay
+    comparable."""
+    from repro_torch.core import packing
+
+    if card.b1_ops_per_s is None:
+        raise RuntimeError("B2/B3 bounds need the b1 rate: run probe_rates")
+    words = packing.packed_width(n_in)
+    n_ops = 2 * batch * n_out * n_in
+    b1_ms, b1_by = card.bound(n_bytes, n_ops, card.b1_ops_per_s)
+    int8_ms, int8_by = card.bound(n_bytes, n_ops, INT8_OPS_PER_S)
+    popc_ms, popc_by = card.bound(n_bytes, batch * n_out * words
+                                  + batch * words)
+    return {"bound_ms": b1_ms, "bound_by": b1_by,
+            "int8_bound_ms": int8_ms, "int8_bound_by": int8_by,
+            "popc_bound_ms": popc_ms, "popc_bound_by": popc_by}
+
+
+def _plain_ms(fn, n_in) -> float:
+    """The plain version's device time (three launches a word: wide inputs
+    capture two calls a graph)."""
+    return graph_ms(fn, **({"calls": 2, "replays": 3} if n_in > 2048
+                           else {}))
+
+
+def check_mac(card, rng, batch, n_in, n_out, kernels, *, fill="random",
+              stride_pad=0, **route):
+    """popcount_mac vs the plain MAC on the card at one shape, bit for bit,
+    with the route it took (``route``: what it must be); the library
     yardstick is torch.matmul on the unpacked ±1 float32 operands."""
     import torch
 
     from repro_torch.core import packing
     from repro_torch.kernels.cim_popcount import ops
 
-    bits = torch.from_numpy(
-        rng.integers(0, 2, size=(n_in, n_out), dtype=np.int8)).cuda()
-    planes = packing.pack_weight_planes(bits)
-    x = random_words(rng, batch, n_in).cuda()
+    bits, planes, x = _tile_operands(rng, batch, n_in, n_out, fill,
+                                     stride_pad)
+    ops.reset_launch_counts()
     out = ops.cim_popcount_matmul(x, planes)
+    if ops.launch_counts()["popcount_mac"] != 1:
+        raise AssertionError(f"popcount_mac launches {ops.launch_counts()}")
     ref = ops.cim_popcount_ref(x, planes)
     s = packing.unpack_spikes(x, n_in, torch.float32)
     w = 2.0 * bits.to(torch.float32) - 1.0
     with tf32_off():
         lib = torch.matmul(s, w)
     torch.cuda.synchronize()
-    err = int((out.long() - ref.long()).abs().max())
+    err = _word_err(out, ref)
     if err or not torch.equal(out, ref) or not torch.equal(
             out, lib.to(torch.int32)):
         raise AssertionError(
-            f"popcount_mac != plain at B={batch} {n_in}->{n_out}: "
-            f"max_abs_err={err}")
+            f"popcount_mac != plain at B={batch} {n_in}->{n_out} {fill} "
+            f"stride_pad={stride_pad}: max_abs_err={err}")
     words = packing.packed_width(n_in)
     n_bytes = 4 * (batch * words + n_out * words + batch * n_out)
-    n_popc = batch * n_out * words + batch * words
-    bound_ms, bound_by = card.bound(n_bytes, n_popc)
+    shape = f"{batch}x{n_in}->{n_out}"
     row = {
-        "kernel": "popcount_mac", "shape": f"{batch}x{n_in}->{n_out}",
-        "batch": batch, "max_abs_err": err,
+        "kernel": "popcount_mac", "shape": shape, "batch": batch,
+        "fill": fill, "stride_pad": stride_pad,
+        "route": _tile_route(x, planes, route), "max_abs_err": err,
         "ms": graph_ms(lambda: ops.cim_popcount_matmul(x, planes)),
         "call_ms": call_ms(lambda: ops.cim_popcount_matmul(x, planes)),
-        "plain_ms": graph_ms(lambda: ops.cim_popcount_ref(x, planes)),
-        "bound_ms": bound_ms, "bound_by": bound_by,
+        "before_ms": POP_BEFORE_MS.get(("popcount_mac", shape, None))
+        if (fill, stride_pad) == ("random", 0) else None,
+        "plain_ms": _plain_ms(lambda: ops.cim_popcount_ref(x, planes), n_in),
+        **_tile_bounds(card, batch, n_in, n_out, n_bytes),
         "library_ms": _matmul_yardstick(x, bits, n_in),
     }
     print("kernel_check " + json.dumps(row), flush=True)
@@ -384,41 +627,56 @@ def _word_err(out, ref) -> int:
     return int((out.long() - ref.long()).abs().max()) if out.numel() else 0
 
 
-def check_fire(card, rng, batch, n_in, n_out, kernels, pack_output=True):
-    """popcount_fire (one tile's MAC, fire, re-pack) vs its plain version."""
+def check_fire(card, rng, batch, n_in, n_out, kernels, pack_output=True, *,
+               fill="random", stride_pad=0, vth_fill="random", **route):
+    """popcount_fire (one tile's MAC, fire, re-pack) vs its plain version,
+    bit for bit, with the route it took; ``vth_fill`` "min" / "max" puts
+    every threshold at -2^31 / 2^31 - 1."""
     import torch
 
     from repro_torch.core import packing
     from repro_torch.kernels.cim_popcount import ops
 
-    bits = torch.from_numpy(
-        rng.integers(0, 2, size=(n_in, n_out), dtype=np.int8)).cuda()
-    planes = packing.pack_weight_planes(bits)
-    vth = torch.from_numpy(
-        rng.integers(-8, 9, size=(n_out,), dtype=np.int32)).cuda()
-    x = random_words(rng, batch, n_in).cuda()
+    bits, planes, x = _tile_operands(rng, batch, n_in, n_out, fill,
+                                     stride_pad)
+    if vth_fill == "random":
+        vth = rng.integers(-8, 9, size=(n_out,), dtype=np.int32)
+    else:
+        info = np.iinfo(np.int32)
+        vth = np.full((n_out,), info.min if vth_fill == "min" else info.max,
+                      np.int32)
+    vth = torch.from_numpy(vth).cuda()
 
     def run():
         return ops.esam_layer_popcount(x, planes, vth, pack_output=pack_output)
 
+    ops.reset_launch_counts()
     out = run()
+    if ops.launch_counts()["popcount_fire"] != 1:
+        raise AssertionError(f"popcount_fire launches {ops.launch_counts()}")
     ref = ops.esam_layer_popcount_ref(x, planes, vth, pack_output=pack_output)
     torch.cuda.synchronize()
     err = _word_err(out, ref)
     if err or not torch.equal(out, ref):
         raise AssertionError(f"popcount_fire != plain at B={batch} "
-                             f"{n_in}->{n_out} pack={pack_output}: err={err}")
+                             f"{n_in}->{n_out} pack={pack_output} {fill} "
+                             f"stride_pad={stride_pad} vth={vth_fill}: "
+                             f"err={err}")
     words = packing.packed_width(n_in)
     out_bytes = batch * (n_out // 8 if pack_output else n_out)
     n_bytes = 4 * (batch * words + n_out * words + n_out) + out_bytes
-    bound_ms, bound_by = card.bound(n_bytes, batch * n_out * words + batch * words)
+    shape = f"{batch}x{n_in}->{n_out}"
     row = {
-        "kernel": "popcount_fire", "shape": f"{batch}x{n_in}->{n_out}",
-        "pack_output": pack_output, "batch": batch, "max_abs_err": err,
+        "kernel": "popcount_fire", "shape": shape,
+        "pack_output": pack_output, "batch": batch, "fill": fill,
+        "stride_pad": stride_pad, "vth_fill": vth_fill,
+        "route": _tile_route(x, planes, route), "max_abs_err": err,
         "ms": graph_ms(run), "call_ms": call_ms(run),
-        "plain_ms": graph_ms(lambda: ops.esam_layer_popcount_ref(
-            x, planes, vth, pack_output=pack_output)),
-        "bound_ms": bound_ms, "bound_by": bound_by,
+        "before_ms": POP_BEFORE_MS.get(("popcount_fire", shape, pack_output))
+        if (fill, stride_pad, vth_fill) == ("random", 0, "random") else None,
+        "plain_ms": _plain_ms(lambda: ops.esam_layer_popcount_ref(
+            x, planes, vth, pack_output=pack_output), n_in),
+        **_tile_bounds(card, batch, n_in, n_out, n_bytes),
         "library_ms": _matmul_yardstick(x, bits, n_in),
     }
     print("kernel_check " + json.dumps(row), flush=True)
@@ -1770,8 +2028,10 @@ def main() -> int:
           f"popc bound rate {card.popc_per_s:.4g}/s, "
           f"memory bound rate {HBM_BYTES_PER_S:.4g} B/s", flush=True)
 
-    # 2. build: one nvcc per library, all started together
+    # 2. build: one nvcc per library, and one for the rate probe, all
+    # started together
     t0 = time.perf_counter()
+    probe_build = start_probe_build()
     reports = _build.build_all()
     print(f"build: {len(reports)} libraries in "
           f"{time.perf_counter() - t0:.2f} s wall", flush=True)
@@ -1781,7 +2041,14 @@ def main() -> int:
             if "registers" in line or "spill" in line or "Compiling" in line:
                 print("ptxas: " + line.strip(), flush=True)
 
+    # the exact MAC datapaths' issue rates (probes/rate_probe.cu), and the
+    # one B2/B3 uses in the built kernel
+    probe_rates(card, probe_build)
+    tile_sass(next(r.path for r in reports if r.name == "cim_popcount"))
+
     # 3. kernels vs plain, on the card
+    from repro_torch.core import packing
+
     lap = phase_timer()
     rng = np.random.default_rng(2024)
     # B1 at the serving path's and the bench's shapes, then on each of its
@@ -1808,7 +2075,7 @@ def main() -> int:
                             (PAPER_TOPOLOGY, SERVE_REQUESTS),
                             (BENCH_CASCADE, BENCH_B)):
         mega_geometries(rng, topology, batch)
-    check_mac(card, rng, BUCKET, 768, 10, mac_rows)
+    check_mac(card, rng, BUCKET, 768, 10, mac_rows, paired=True)
     check_mac(card, rng, 37, 100, 77, mac_rows)
     fire_rows, packed_rows, event_rows, update_rows = [], [], [], []
     for check, rows in ((check_fire, fire_rows),
@@ -1817,6 +2084,30 @@ def main() -> int:
         check(card, rng, LEARN_TRAIN, 256, 256, rows)
         check(card, rng, 1000, 777, 256, rows)
         check(card, rng, 37, 100, 96, rows, pack_output=False)
+    # B2 and B3 at ragged shapes in every output mode (contiguous operands
+    # load two words at a time exactly when W is even), then at the edges:
+    # all-zero and all-one spikes and planes, thresholds at the int32
+    # extremes, strided spike rows (an odd stride loads one word at a time)
+    for batch, n_in, n_out in POP_RAGGED:
+        paired = packing.packed_width(n_in) % 2 == 0
+        check_mac(card, rng, batch, n_in, n_out, mac_rows, paired=paired)
+        for pack in (False, True) if n_out % 32 == 0 else (False,):
+            check_fire(card, rng, batch, n_in, n_out, fire_rows,
+                       pack_output=pack, paired=paired)
+    for fill in ("zeros", "ones"):
+        check_mac(card, rng, 37, 777, 96, mac_rows, fill=fill)
+        check_fire(card, rng, 37, 777, 96, fire_rows, fill=fill)
+        check_fire(card, rng, 7, 100, 77, fire_rows, pack_output=False,
+                   fill=fill)
+    for vth_fill in ("min", "max"):
+        check_fire(card, rng, 37, 768, 96, fire_rows, vth_fill=vth_fill)
+        check_fire(card, rng, 7, 777, 77, fire_rows, pack_output=False,
+                   vth_fill=vth_fill)
+    for stride_pad in (1, 2):
+        check_mac(card, rng, 4 * EVENT_BATCH, 768, 256, mac_rows,
+                  stride_pad=stride_pad, paired=stride_pad == 2)
+        check_fire(card, rng, 37, 768, 96, fire_rows, stride_pad=stride_pad,
+                   paired=stride_pad == 2)
     for n_out, n_in in ((10, 256), (256, 768)):
         check_column_event(card, rng, n_out, n_in, event_rows)
         check_stdp_update(card, rng, n_out, n_in, update_rows)
@@ -1997,10 +2288,11 @@ def main() -> int:
         line("mega_cascade", pop_src, "cim_popcount/kernel.py:98",
              mega_row, mega_launches),
         line("popcount_fire", pop_src, "cim_popcount/kernel.py:74",
-             pick(fire_rows, prefix_shape),
+             pick(fire_rows, prefix_shape, fill="random", stride_pad=0),
              learn["train"]["popcount_fire"]),
         line("popcount_mac", pop_src, "cim_popcount/kernel.py:54",
-             pick(mac_rows, f"{BUCKET}x768->10"), mac_launches),
+             pick(mac_rows, f"{BUCKET}x768->10", fill="random",
+                  stride_pad=0), mac_launches),
         line("stdp_column_epoch", stdp_src, "stdp/kernel.py:75",
              pick(epoch_rows, f"{LEARN_TRAIN}x256->10", tied=False,
                   offset=True),

@@ -12,14 +12,16 @@
 //
 // What bounds them on an H100: integer work, not bytes.  One paper-topology
 // inference (768:256:256:256:10) is 10,320 AND+popc word pairs against the
-// 10,320 real weight words (~41 KB), plus 96 B of input.  The popc unit
-// issues 16 results per clock per SM on compute capability 9.0 (CUDA C
-// Programming Guide, arithmetic instruction throughput), a quarter of the
-// AND/ADD rate, so popc throughput is the roofline: 0.32 us for a 128-row
-// round on an NVIDIA H100 80GB HBM3 at its 1980 MHz maximum SM clock (700 W
-// limit).  At a serving round's 128 rows the cascade is a chain instead:
-// four tiles, each needing the last one's fired words, so latency sets its
-// time (PERF.md has the measurements).
+// 10,320 real weight words (~41 KB), plus 96 B of input.  On the CUDA cores
+// the popc unit issues 16 results per clock per SM on compute capability
+// 9.0 (CUDA C Programming Guide, arithmetic instruction throughput), a
+// quarter of the AND/ADD rate: 0.32 us for a 128-row round on an NVIDIA
+// H100 80GB HBM3 at its 1980 MHz maximum SM clock (700 W limit).  The b1
+// tensor-core product does 39x the popc unit's pairs a second on that card
+// (probes/rate_probe.cu), so popcount_fire and popcount_mac use it.  At a
+// serving round's 128 rows the cascade is a chain instead: four tiles, each
+// needing the last one's fired words, so latency sets its time (PERF.md
+// has the measurements).
 //
 // mega_cascade: the whole cascade in one launch (the TPU kernel's single
 // pallas_call): MAC -> IF fire -> re-pack -> next tile.  Its design:
@@ -56,25 +58,52 @@
 // (~1,000 cycles), cp.async staging (~3,000 cycles to issue), and each CTA
 // holding every tile with the planes multicast over the cluster by TMA
 // (no faster at the paper topology, slower at 768 wide).
-// popcount_fire is one tile of the same datapath as its own launch (the
-// reference's `prefix` plan runs one per hidden tile): its planes staged
-// transposed by every thread (stage_planes) and the same per-lane MAC, a
-// block per (batch rows, 256 neurons) so a 4096-row batch spreads over the
-// SMs.  popcount_mac is that kernel with an int32 V
-// epilogue: one thread per output, reading both operands from global
-// memory, was slower than cim_matmul_packed.cu's MAC, which the popcount
-// plane must beat (the kernel bench's floor).  Weight staging keeps
-// kStageLoads loads in flight per thread: one load at a time left the
-// kernel waiting on memory for each staged word.
+//
+// popcount_fire and popcount_mac (one kernel, popcount_fire_kernel, with
+// an epilogue per output mode) run one tile on the tensor cores instead:
+// the MAC term sum_j popc(s[b, j] & w[n, j]) is exactly what the b1
+// product mma.sync m16n8k256 .and.popc computes (BMMA in SASS), 16 rows x 8
+// neurons x 256 bits an instruction with an exact int32 sum.  The operands
+// already lie in its fragment layouts: spikes [B, W] with a row's words
+// contiguous are its row-major A, planes [N, W] with a neuron's words
+// contiguous its column-major B, so nothing is staged, transposed or
+// unpacked.  Its design:
+//   * a warp owns 16 rows x 64 neurons (8 mma n-tiles); a block is
+//     kFireWarps (2) warps stacked along the rows, the grid (row blocks,
+//     64-neuron blocks; ops._fire_route), so every block reads only its
+//     own rows and neurons.  1, 2 and 4 warps time the same, 8 slower;
+//   * the K loop takes 8 words (256 bits, one mma a n-tile) a step.  Thread
+//     (g, t) = (lane / 4, lane % 4) loads words 2t and 2t + 1 of the step
+//     straight from device memory into its fragments (one 8-byte load each
+//     when the layout allows: kPaired, 3-5 % faster than two 4-byte loads
+//     at the paths' shapes), for rows g and g + 8 and for neuron
+//     g of every n-tile; the step's K positions t and t + 4 take them, the
+//     same in A and B, so the permutation cancels in the sum.  kInFlight
+//     steps' loads are in flight at once;
+//   * rows past B, neurons past N and words past W load as zero
+//     (predicated), which adds nothing to an AND+popc sum; plane words are
+//     ANDed in full, so nothing relies on their tail bits;
+//   * a row's spike count popc(s) comes from the A words the quad already
+//     holds (two popc a thread a step) and two quad shuffles, once per
+//     warp tile, next to the product;
+//   * the epilogue works on the accumulator fragments: kVmem writes V =
+//     2 acc - popc(s); kFireInt8 one byte a neuron (V >= vth); kFirePacked
+//     sets each thread's two neurons' bits of a row's LSB-first 32-neuron
+//     word, ORs them over the quad (__shfl_xor_sync) and lets each lane of
+//     the quad store one of its four words.
+// On an H100 the b1 product issues 0.66 times a clock per SM, 21,744 bit
+// pairs a clock per SM (probes/rate_probe.cu; PERF.md), so these tiles are
+// bound by latency and launch, not by the MAC.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
+
+#include "mma.cuh"
 
 namespace {
 
 constexpr int kMaxTiles = 16;
 constexpr int kThreads = 256;
-constexpr int kStageLoads = 8;    // weight loads in flight per thread
 constexpr int kMaxCluster = 16;   // CTAs of a cascade cluster (8 portable)
 
 // What popcount_fire_kernel's epilogue writes.
@@ -91,120 +120,233 @@ __device__ __forceinline__ int and_popc(const uint32_t* s, const uint32_t* wt,
   return acc;
 }
 
-// Stage planes rows [n0, n0 + n_rows) (row stride ldw words, `w` words each)
-// transposed into wt[j * ld + n]; rows past n_real are zero.  Each thread
-// issues kStageLoads loads before it stores any, so a block keeps that many
-// reads in flight per thread instead of waiting out each one.
-__device__ __forceinline__ void stage_planes(uint32_t* wt, int ld,
-                                             const uint32_t* __restrict__ planes,
-                                             long long ldw, int n0, int n_rows,
-                                             int n_real, int w) {
-  const int total = n_rows * w;
-  for (int base = threadIdx.x; base < total;
-       base += blockDim.x * kStageLoads) {
-    uint32_t v[kStageLoads];
+// ---- popcount_fire / popcount_mac ----------------------------------- //
+
+constexpr int kTileRows = 16;       // rows of a warp's tile (the mma's m)
+constexpr int kNTiles = 8;          // mma n-tiles (8 neurons) of a warp
+constexpr int kTileNeurons = 8 * kNTiles;
+constexpr int kStepWords = 8;       // input words of a K step (256 bits)
+constexpr int kInFlight = 3;        // K steps whose loads are in flight
+constexpr int kFireWarps = 2;       // warps of a block (ops._FIRE_WARPS)
+
+// One K step's operands in one thread: A (a[0] / a[2]: row g's words 2t /
+// 2t + 1; a[1] / a[3]: row g + 8's) and, per n-tile, B (neuron g's words).
+struct StepFrag {
+  uint32_t a[4];
+  uint32_t b[kNTiles][2];
+};
+
+// Words j and j + 1 of a row, zero past w or for a row that is not real.
+template <bool kPaired>
+__device__ __forceinline__ uint2 load_pair(const uint32_t* row, int j, int w,
+                                           bool real) {
+  uint2 v = make_uint2(0u, 0u);
+  if (kPaired) {   // w even, row 8-byte aligned: j < w covers j + 1
+    if (real && j < w) v = __ldg(reinterpret_cast<const uint2*>(row + j));
+  } else {
+    if (real && j < w) v.x = __ldg(row + j);
+    if (real && j + 1 < w) v.y = __ldg(row + j + 1);
+  }
+  return v;
+}
+
+// Everything one thread reads: its two rows, its neuron of each n-tile.
+struct TileOperands {
+  const uint32_t* s0;   // row g
+  const uint32_t* s1;   // row g + 8
+  bool real0, real1;
+  const uint32_t* w;    // neuron g of n-tile 0; of n-tile q: q wstep on
+  long long wstep;      // 8 * ldw
+  int n_real;           // N - (neuron g of n-tile 0): n-tile q's is real
+                        // while 8 q < n_real
+  int W;
+};
+
+template <bool kPaired>
+__device__ __forceinline__ void load_step(StepFrag& f, const TileOperands& o,
+                                          int step, int t, int nt) {
+  const int j = step * kStepWords + 2 * t;
+  const uint2 x0 = load_pair<kPaired>(o.s0, j, o.W, o.real0);
+  const uint2 x1 = load_pair<kPaired>(o.s1, j, o.W, o.real1);
+  f.a[0] = x0.x;
+  f.a[2] = x0.y;
+  f.a[1] = x1.x;
+  f.a[3] = x1.y;
 #pragma unroll
-    for (int u = 0; u < kStageLoads; ++u) {
-      const int i = base + u * blockDim.x;
-      const int n = i / w, j = i - n * w;
-      v[u] = i < total && n0 + n < n_real
-                 ? __ldg(planes + (long long)(n0 + n) * ldw + j)
-                 : 0u;
-    }
-#pragma unroll
-    for (int u = 0; u < kStageLoads; ++u) {
-      const int i = base + u * blockDim.x;
-      const int n = i / w, j = i - n * w;
-      if (i < total) wt[j * ld + n] = v[u];
+  for (int q = 0; q < kNTiles; ++q) {
+    if (q < nt) {
+      const uint2 y = load_pair<kPaired>(o.w + q * o.wstep, j, o.W,
+                                         8 * q < o.n_real);
+      f.b[q][0] = y.x;
+      f.b[q][1] = y.y;
     }
   }
 }
 
-// One tile's fire (or MAC): grid (ceil(B / rows), ceil(N / (32 * gpb))).  A
-// block stages its gpb * 32 neurons' planes (transposed, as the cascade does)
-// and its rows' spike words in shared memory; each warp task is one (row,
-// 32-neuron group): the cascade's MAC, then by out_mode the IF compare and
-// either the __ballot_sync re-pack (kFirePacked) or one int8 spike per lane
-// (kFireInt8), or the int32 V per lane (kVmem: the popcount_mac kernel).
-// Planes words are ANDed in full, as the reference does, so nothing relies
-// on their tail bits being zero; spike tails are zero by the wire format.
-__global__ void __launch_bounds__(kThreads)
+// Stores a thread's two neighbouring outputs (n, n + 1) of row r of a
+// [B, N] output; `even` (N even) makes them one aligned store.
+template <typename T, typename T2>
+__device__ __forceinline__ void store_two(T* out, long long r, int n, int N,
+                                          bool real, bool even, T v0, T v1) {
+  if (!real || n >= N) return;
+  T* p = out + r * N + n;
+  if (even) {
+    T2 v;
+    v.x = v0;
+    v.y = v1;
+    *reinterpret_cast<T2*>(p) = v;
+  } else {
+    p[0] = v0;
+    if (n + 1 < N) p[1] = v1;
+  }
+}
+
+// One tile's MAC, then by out_mode the IF compare and the packed words
+// (kFirePacked) or one int8 spike a neuron (kFireInt8), or the int32 V
+// (kVmem: popcount_mac).  grid (row blocks, neuron blocks) covering
+// (ceil(B / (16 kFireWarps)), ceil(N / 64)), blockDim kFireWarps * 32.
+template <bool kPaired>
+__global__ void __launch_bounds__(kFireWarps * 32)
 popcount_fire_kernel(const uint32_t* __restrict__ packed, long long lds,
                      const uint32_t* __restrict__ planes, long long ldw,
                      const int32_t* __restrict__ vth, void* __restrict__ out,
-                     int B, int N, int W, int rows, int gpb, int out_mode) {
-  extern __shared__ uint32_t smem[];
-  const int ld = gpb * 32 + 1;
-  uint32_t* wt = smem;                         // [W][gpb * 32 + 1]
-  uint32_t* srow = wt + W * ld;                // [rows][W]
-  int* spc = reinterpret_cast<int*>(srow + rows * W);  // [rows]
-
+                     int B, int N, int W, int out_mode) {
   const int lane = threadIdx.x & 31;
-  const int warp = threadIdx.x >> 5;
-  const int n_warps = blockDim.x >> 5;
-  const long long row0 = (long long)blockIdx.x * rows;
-  const int n_rows = (int)min((long long)rows, (long long)B - row0);
-  const int n0 = blockIdx.y * gpb * 32;
-  const int groups = min(gpb, (N - n0 + 31) >> 5);
+  const int g = lane >> 2, t = lane & 3;
+  const long long row0 =
+      ((long long)blockIdx.x * kFireWarps + (threadIdx.x >> 5)) *
+      kTileRows;
+  if (row0 >= B) return;   // the whole warp: no real row
+  const int n0 = blockIdx.y * kTileNeurons;
+  const int nt = min(kNTiles, (N - n0 + 7) >> 3);   // n-tiles with neurons
+  const long long r0 = row0 + g, r1 = r0 + 8;
+  TileOperands o;
+  o.real0 = r0 < B;
+  o.real1 = r1 < B;
+  o.s0 = packed + r0 * lds;
+  o.s1 = packed + r1 * lds;
+  o.w = planes + (long long)(n0 + g) * ldw;
+  o.wstep = 8 * ldw;
+  o.n_real = N - n0 - g;
+  o.W = W;
+  const int steps = (W + kStepWords - 1) / kStepWords;
 
-  stage_planes(wt, ld, planes, ldw, n0, gpb * 32, N, W);
-  for (int i = threadIdx.x; i < n_rows * W; i += blockDim.x) {
-    const int r = i / W, j = i - r * W;
-    srow[r * W + j] = __ldg(packed + (row0 + r) * lds + j);
+  // the thresholds of the thread's neurons, loaded with the first steps so
+  // that their latency does not follow the K loop
+  int th[kNTiles][2] = {};
+  if (out_mode != kVmem) {
+#pragma unroll
+    for (int q = 0; q < kNTiles; ++q) {
+      const int n = n0 + 8 * q + 2 * t;
+      if (q < nt && n < N) th[q][0] = __ldg(vth + n);
+      if (q < nt && n + 1 < N) th[q][1] = __ldg(vth + n + 1);
+    }
   }
-  __syncthreads();
-  for (int r = threadIdx.x; r < n_rows; r += blockDim.x) {
-    int c = 0;
-    for (int j = 0; j < W; ++j) c += __popc(srow[r * W + j]);
-    spc[r] = c;
+  int acc[kNTiles][4] = {};
+  int pc0 = 0, pc1 = 0;   // popc(s) of rows g and g + 8
+  StepFrag f[kInFlight];
+#pragma unroll
+  for (int i = 0; i < kInFlight; ++i)
+    if (i < steps) load_step<kPaired>(f[i], o, i, t, nt);
+  for (int base = 0; base < steps; base += kInFlight) {
+#pragma unroll
+    for (int i = 0; i < kInFlight; ++i) {
+      const int step = base + i;
+      if (step < steps) {
+        pc0 += __popc(f[i].a[0]) + __popc(f[i].a[2]);
+        pc1 += __popc(f[i].a[1]) + __popc(f[i].a[3]);
+#pragma unroll
+        for (int q = 0; q < kNTiles; ++q)
+          if (q < nt) mma_and_popc(acc[q], f[i].a, f[i].b[q]);
+        if (step + kInFlight < steps)
+          load_step<kPaired>(f[i], o, step + kInFlight, t, nt);
+      }
+    }
   }
-  __syncthreads();
+  pc0 += __shfl_xor_sync(0xffffffffu, pc0, 1);
+  pc0 += __shfl_xor_sync(0xffffffffu, pc0, 2);
+  pc1 += __shfl_xor_sync(0xffffffffu, pc1, 1);
+  pc1 += __shfl_xor_sync(0xffffffffu, pc1, 2);
 
-  for (int task = warp; task < n_rows * groups; task += n_warps) {
-    const int r = task / groups;
-    const int grp = task - r * groups;
-    const int n_local = (grp << 5) + lane;
-    const int n = n0 + n_local;
-    const int v = 2 * and_popc(srow + r * W, wt, ld, n_local, W) - spc[r];
-    const long long row = row0 + r;
-    if (out_mode == kVmem) {
-      if (n < N) static_cast<int32_t*>(out)[row * N + n] = v;
+  // acc[q][i] of n-tile q: row g (i 0, 1) or g + 8 (i 2, 3), neuron
+  // n0 + 8 q + 2 t + (i & 1)
+  const bool even = !(N & 1);
+  if (out_mode == kVmem) {
+    int32_t* o32 = static_cast<int32_t*>(out);
+#pragma unroll
+    for (int q = 0; q < kNTiles; ++q) {
+      if (q >= nt) continue;
+      const int n = n0 + 8 * q + 2 * t;
+      store_two<int32_t, int2>(o32, r0, n, N, o.real0, even,
+                               2 * acc[q][0] - pc0, 2 * acc[q][1] - pc0);
+      store_two<int32_t, int2>(o32, r1, n, N, o.real1, even,
+                               2 * acc[q][2] - pc1, 2 * acc[q][3] - pc1);
+    }
+    return;
+  }
+  uint32_t w00 = 0, w01 = 0, w10 = 0, w11 = 0;   // [row g / g+8][word 0 / 1]
+#pragma unroll
+  for (int q = 0; q < kNTiles; ++q) {
+    if (q >= nt) continue;
+    const int n = n0 + 8 * q + 2 * t;
+    const bool f00 = 2 * acc[q][0] - pc0 >= th[q][0];
+    const bool f01 = 2 * acc[q][1] - pc0 >= th[q][1];
+    const bool f10 = 2 * acc[q][2] - pc1 >= th[q][0];
+    const bool f11 = 2 * acc[q][3] - pc1 >= th[q][1];
+    if (out_mode == kFireInt8) {
+      int8_t* o8 = static_cast<int8_t*>(out);
+      store_two<int8_t, char2>(o8, r0, n, N, o.real0, even, f00, f01);
+      store_two<int8_t, char2>(o8, r1, n, N, o.real1, even, f10, f11);
       continue;
     }
-    const bool fire = n < N && v >= __ldg(vth + n);
-    if (out_mode == kFirePacked) {
-      const uint32_t word = __ballot_sync(0xffffffffu, fire);
-      if (lane == 0)
-        static_cast<uint32_t*>(out)[row * (N >> 5) + (n >> 5)] = word;
-    } else if (n < N) {
-      static_cast<int8_t*>(out)[row * N + n] = fire ? 1 : 0;
+    const int sh = 8 * (q & 3) + 2 * t;   // LSB-first within the word
+    const uint32_t b0 = (uint32_t)f00 << sh | (uint32_t)f01 << (sh + 1);
+    const uint32_t b1 = (uint32_t)f10 << sh | (uint32_t)f11 << (sh + 1);
+    if (q < 4) {
+      w00 |= b0;
+      w10 |= b1;
+    } else {
+      w01 |= b0;
+      w11 |= b1;
     }
   }
+  if (out_mode != kFirePacked) return;
+#pragma unroll
+  for (int m = 1; m <= 2; m <<= 1) {
+    w00 |= __shfl_xor_sync(0xffffffffu, w00, m);
+    w01 |= __shfl_xor_sync(0xffffffffu, w01, m);
+    w10 |= __shfl_xor_sync(0xffffffffu, w10, m);
+    w11 |= __shfl_xor_sync(0xffffffffu, w11, m);
+  }
+  // lane t of the quad stores word t & 1 of row g (t < 2) or g + 8
+  const uint32_t word = t == 0 ? w00 : t == 1 ? w01 : t == 2 ? w10 : w11;
+  const int wi = (n0 >> 5) + (t & 1);
+  if ((t < 2 ? o.real0 : o.real1) && wi < (N >> 5))
+    static_cast<uint32_t*>(out)[(t < 2 ? r0 : r1) * (N >> 5) + wi] = word;
 }
 
-size_t fire_smem_bytes(int W, int rows, int gpb) {
-  return sizeof(uint32_t) *
-         ((size_t)W * (gpb * 32 + 1) + (size_t)rows * W + rows);
-}
-
-// One launch of popcount_fire_kernel; returns cudaGetLastError().
+// One launch of popcount_fire_kernel on a grid of (row_blocks,
+// neuron_blocks) blocks, which must cover B rows and N neurons; returns
+// cudaGetLastError().
 int launch_tile(const void* packed, long long lds, const void* planes,
                 long long ldw, const void* vth, void* out, int B, int N, int W,
-                int rows, int gpb, int out_mode, void* stream) {
-  if (B < 1 || N < 1 || W < 1 || rows < 1 || gpb < 1 ||
+                int row_blocks, int neuron_blocks, int paired, int out_mode,
+                void* stream) {
+  if (B < 1 || N < 1 || W < 1 || lds < 0 || ldw < 0 ||
+      (long long)row_blocks * kFireWarps * kTileRows < B ||
+      (long long)neuron_blocks * kTileNeurons < N ||
       (out_mode == kFirePacked && N % 32))
     return (int)cudaErrorInvalidValue;
-  const size_t smem = fire_smem_bytes(W, rows, gpb);
-  if (smem > 48 * 1024) {
-    const cudaError_t err = cudaFuncSetAttribute(
-        popcount_fire_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-        (int)smem);
-    if (err != cudaSuccess) return (int)err;
-  }
-  const dim3 grid((B + rows - 1) / rows, (N + 32 * gpb - 1) / (32 * gpb));
-  popcount_fire_kernel<<<grid, kThreads, smem, (cudaStream_t)stream>>>(
+  if (paired && (((lds | ldw | W) & 1) ||
+                 ((reinterpret_cast<uintptr_t>(packed) |
+                   reinterpret_cast<uintptr_t>(planes)) & 7)))
+    return (int)cudaErrorInvalidValue;
+  const auto kernel = paired ? popcount_fire_kernel<true>
+                             : popcount_fire_kernel<false>;
+  kernel<<<dim3((unsigned)row_blocks, (unsigned)neuron_blocks),
+           kFireWarps * 32, 0, (cudaStream_t)stream>>>(
       (const uint32_t*)packed, lds, (const uint32_t*)planes, ldw,
-      (const int32_t*)vth, out, B, N, W, rows, gpb, out_mode);
+      (const int32_t*)vth, out, B, N, W, out_mode);
   return (int)cudaGetLastError();
 }
 
@@ -561,30 +703,30 @@ cudaError_t cascade_config(cudaLaunchConfig_t& cfg, cudaLaunchAttribute& attr,
 
 extern "C" {
 
-// Dynamic shared memory one block of popcount_fire needs.
-long long cim_popcount_fire_smem_bytes(int W, int rows, int gpb) {
-  return (long long)fire_smem_bytes(W, rows, gpb);
-}
-
 // Fired spikes of one tile: uint32[B, N/32] words when pack_out (N % 32 == 0)
 // else int8[B, N], from packed uint32[B, W] (row stride lds words), planes
-// uint32[N, W] (row stride ldw words) and vth int32[N].  `rows` batch rows and
-// `gpb` 32-neuron groups per block.  Returns cudaGetLastError().
+// uint32[N, W] (row stride ldw words) and vth int32[N], on a grid of
+// (row_blocks, neuron_blocks) blocks of 16 kFireWarps rows x 64 neurons
+// (ops._fire_route); `paired` for 8-byte operand loads (W, lds and ldw
+// even, both operands 8-byte aligned).  Returns cudaGetLastError().
 int cim_popcount_fire(const void* packed, long long lds, const void* planes,
                       long long ldw, const void* vth, void* out, int B, int N,
-                      int W, int rows, int gpb, int pack_out, void* stream) {
-  return launch_tile(packed, lds, planes, ldw, vth, out, B, N, W, rows, gpb,
+                      int W, int row_blocks, int neuron_blocks, int paired,
+                      int pack_out, void* stream) {
+  return launch_tile(packed, lds, planes, ldw, vth, out, B, N, W, row_blocks,
+                     neuron_blocks, paired,
                      pack_out ? kFirePacked : kFireInt8, stream);
 }
 
 // V int32[B, N] from packed uint32[B, W] (row stride lds words) and planes
 // uint32[N, W] (row stride ldw words): popcount_fire's kernel with the V
-// epilogue, `rows` and `gpb` as there.  Returns cudaGetLastError().
+// epilogue, the grid and `paired` as there.  Returns cudaGetLastError().
 int cim_popcount_mac(const void* packed, long long lds, const void* planes,
-                     long long ldw, void* out, int B, int N, int W, int rows,
-                     int gpb, void* stream) {
-  return launch_tile(packed, lds, planes, ldw, nullptr, out, B, N, W, rows,
-                     gpb, kVmem, stream);
+                     long long ldw, void* out, int B, int N, int W,
+                     int row_blocks, int neuron_blocks, int paired,
+                     void* stream) {
+  return launch_tile(packed, lds, planes, ldw, nullptr, out, B, N, W,
+                     row_blocks, neuron_blocks, paired, kVmem, stream);
 }
 
 // Dynamic shared memory one CTA of the mega cascade needs in clusters of

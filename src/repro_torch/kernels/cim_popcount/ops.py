@@ -37,7 +37,6 @@ from repro_torch.kernels.common import (
     on_cpu,
     pad_dim_to,
     round_up,
-    sm_count,
     stream_ptr,
 )
 from repro_torch.kernels.cim_popcount.ref import (  # noqa: F401  (re-export)
@@ -79,10 +78,13 @@ _CLUSTER = 2
 #: of a geometry sweep on an NVIDIA H100 80GB HBM3: PERF.md, PR 21)
 _ROW_BATCH, _MAX_ROWS = 64, 8
 
-#: most batch rows one block of ``popcount_fire`` carries
-FIRE_MAX_ROWS = 32
-#: most 32-neuron groups one block of ``popcount_fire`` stages
-FIRE_MAX_GROUPS = 8
+#: rows and neurons of one warp's tile in ``popcount_fire``'s tensor-core
+#: kernel (one b1 mma's m, and 8 mma n-tiles)
+_FIRE_TILE_ROWS, _FIRE_TILE_NEURONS = 16, 64
+#: warps a block of ``popcount_fire`` (``kFireWarps`` in the kernel): 1, 2
+#: and 4 came out within the spread of each other at every path's shape on
+#: an NVIDIA H100 80GB HBM3, 8 slower (PERF.md)
+_FIRE_WARPS = 2
 
 #: kernel launches since the last reset, per kernel
 _LAUNCHES = {"mega_cascade": 0, "popcount_fire": 0, "popcount_mac": 0}
@@ -118,12 +120,10 @@ def _declare(lib: ctypes.CDLL) -> None:
     lib.cim_mega_cascade_fixed_words.argtypes = [i32]
     lib.cim_mega_cascade_fixed_words.restype = i32
     lib.cim_popcount_fire.argtypes = [
-        vp, i64, vp, i64, vp, vp, i32, i32, i32, i32, i32, i32, vp]
+        vp, i64, vp, i64, vp, vp, i32, i32, i32, i32, i32, i32, i32, vp]
     lib.cim_popcount_fire.restype = i32
-    lib.cim_popcount_fire_smem_bytes.argtypes = [i32, i32, i32]
-    lib.cim_popcount_fire_smem_bytes.restype = i64
     lib.cim_popcount_mac.argtypes = [vp, i64, vp, i64, vp, i32, i32, i32,
-                                     i32, i32, vp]
+                                     i32, i32, i32, vp]
     lib.cim_popcount_mac.restype = i32
     lib.cim_max_shared_optin.argtypes = [i32]
     lib.cim_max_shared_optin.restype = i64
@@ -209,13 +209,50 @@ def _cascade_route(topology: tuple[int, ...], batch: int,
                           for w in g["w_words"]))
 
 
-def cim_popcount_matmul(packed: torch.Tensor,
-                        planes: torch.Tensor) -> torch.Tensor:
-    """V_mem int32[B, N] = 2*popcount(s & w) - popcount(s); nothing unpacks.
+class FireRoute(NamedTuple):
+    """How ``popcount_fire`` and ``popcount_mac`` (one tensor-core kernel,
+    two epilogues) run one tile's shape: the launch grid."""
 
-    packed: int32 words [B, W] (rows may be strided, words contiguous);
-    planes: int32 words [N, W], likewise.
-    """
+    #: the grid: blocks along the rows (``_FIRE_WARPS`` warps of 16 rows
+    #: each), blocks along the neurons (64 each); rows and neurons past B
+    #: and N load as zero and are not stored
+    grid: tuple
+    #: operands loaded two words (8 bytes) at a time
+    paired: bool
+
+
+def _fire_route(B: int, N: int, paired: bool) -> FireRoute:
+    """The tile kernel's grid for B rows and N neurons: one warp a 16 x 64
+    tile, ``_FIRE_WARPS`` warps a block.  Pure: no library call, so it can
+    be checked anywhere."""
+    if min(B, N) < 1:
+        raise ValueError(f"no route for B={B} N={N}")
+    return FireRoute(
+        grid=(cdiv(B, _FIRE_WARPS * _FIRE_TILE_ROWS),
+              cdiv(N, _FIRE_TILE_NEURONS)),
+        paired=paired)
+
+
+def _paired(packed: torch.Tensor, planes: torch.Tensor) -> bool:
+    """Whether the kernel may load both operands two words at a time: an
+    even word count and row strides, both operands 8-byte aligned (3-5 %
+    faster than one word a load at the paths' shapes on an NVIDIA H100
+    80GB HBM3; PERF.md)."""
+    return (packed.shape[1] % 2 == 0 and packed.stride(0) % 2 == 0
+            and planes.stride(0) % 2 == 0 and packed.data_ptr() % 8 == 0
+            and planes.data_ptr() % 8 == 0)
+
+
+def _route_for(packed: torch.Tensor, planes: torch.Tensor) -> FireRoute:
+    """The route ``popcount_fire`` / ``popcount_mac`` take for these CUDA
+    operands (``_fire_route`` on their shape and layout)."""
+    return _fire_route(packed.shape[0], planes.shape[0],
+                       _paired(packed, planes))
+
+
+def _check_tile_operands(packed: torch.Tensor,
+                         planes: torch.Tensor) -> tuple[int, int, int]:
+    """(B, N, W) of one tile's int32 words, or raises."""
     _check_words(packed, "packed")
     _check_words(planes, "planes")
     B, W = packed.shape
@@ -223,6 +260,17 @@ def cim_popcount_matmul(packed: torch.Tensor,
     if W != W2:
         raise ValueError(f"word counts differ: {tuple(packed.shape)} vs "
                          f"{tuple(planes.shape)}")
+    return B, N, W
+
+
+def cim_popcount_matmul(packed: torch.Tensor,
+                        planes: torch.Tensor) -> torch.Tensor:
+    """V_mem int32[B, N] = 2*popcount(s & w) - popcount(s); nothing unpacks.
+
+    packed: int32 words [B, W] (rows may be strided, words contiguous);
+    planes: int32 words [N, W], likewise.
+    """
+    B, N, W = _check_tile_operands(packed, planes)
     if on_cpu(packed, planes):
         return cim_popcount_ref(packed, planes)
     dev = check_cuda_operands({"packed": packed, "planes": planes})
@@ -232,34 +280,15 @@ def cim_popcount_matmul(packed: torch.Tensor,
     if B == 0:
         return out
     kl = _library()
-    rows, gpb = _fire_geometry(B, N, W, dev.index)
+    route = _route_for(packed, planes)
     with torch.cuda.device(dev):
         err = kl.lib.cim_popcount_mac(
             packed.data_ptr(), packed.stride(0), planes.data_ptr(),
-            planes.stride(0), out.data_ptr(), B, N, W, rows, gpb,
-            stream_ptr(dev))
+            planes.stride(0), out.data_ptr(), B, N, W, *route.grid,
+            int(route.paired), stream_ptr(dev))
     _build.check(kl, err, "popcount_mac launch")
     _LAUNCHES["popcount_mac"] += 1
     return out
-
-
-@functools.lru_cache(maxsize=None)
-def _fire_geometry(B: int, N: int, W: int, device_index: int):
-    """(rows, groups) per block of ``popcount_fire`` and ``popcount_mac``
-    (one kernel, two epilogues): the rows spread the batch over the card's
-    SMs, up to ``FIRE_MAX_ROWS``; the groups halve until a block's staged
-    planes fit shared memory."""
-    lib = _library().lib
-    rows = max(1, min(FIRE_MAX_ROWS, cdiv(B, sm_count(device_index))))
-    gpb = min(FIRE_MAX_GROUPS, cdiv(N, LANE_BITS))
-    limit = lib.cim_max_shared_optin(device_index)
-    while gpb > 1 and lib.cim_popcount_fire_smem_bytes(W, rows, gpb) > limit:
-        gpb //= 2
-    smem = lib.cim_popcount_fire_smem_bytes(W, rows, gpb)
-    if limit < 0 or smem > limit:
-        raise ValueError(f"{W} input words need {smem} B of shared memory per "
-                         f"block; the card allows {limit} B")
-    return rows, gpb
 
 
 def esam_layer_popcount(
@@ -275,13 +304,7 @@ def esam_layer_popcount(
     Returns int32 words [B, N/32] when ``pack_output`` (N must be a multiple
     of 32), else int8 {0,1}[B, N]; V_mem never leaves the kernel.
     """
-    _check_words(packed, "packed")
-    _check_words(planes, "planes")
-    B, W = packed.shape
-    N, W2 = planes.shape
-    if W != W2:
-        raise ValueError(f"word counts differ: {tuple(packed.shape)} vs "
-                         f"{tuple(planes.shape)}")
+    B, N, W = _check_tile_operands(packed, planes)
     if tuple(vth.shape) != (N,):
         raise ValueError(f"vth {tuple(vth.shape)} for {N} neurons")
     if pack_output and N % LANE_BITS:
@@ -298,12 +321,13 @@ def esam_layer_popcount(
     if B == 0:
         return out
     kl = _library()
-    rows, gpb = _fire_geometry(B, N, W, dev.index)
+    route = _route_for(packed, planes)
     with torch.cuda.device(dev):
         err = kl.lib.cim_popcount_fire(
             packed.data_ptr(), packed.stride(0), planes.data_ptr(),
-            planes.stride(0), vth.data_ptr(), out.data_ptr(), B, N, W, rows,
-            gpb, int(pack_output), stream_ptr(dev))
+            planes.stride(0), vth.data_ptr(), out.data_ptr(), B, N, W,
+            *route.grid, int(route.paired), int(pack_output),
+            stream_ptr(dev))
     _build.check(kl, err, "popcount_fire launch")
     _LAUNCHES["popcount_fire"] += 1
     return out

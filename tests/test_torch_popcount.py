@@ -294,16 +294,6 @@ def test_no_plain_fallback_off_the_cpu():
                                    "popcount_mac": 0}
 
 
-# ----------------------------------------------------------------------- #
-# the CUDA kernels against the plain versions, on the card
-# ----------------------------------------------------------------------- #
-@pytest.fixture
-def cuda():
-    if not torch.cuda.is_available():
-        pytest.skip("needs an NVIDIA GPU (CUDA kernels have no CPU mode)")
-    return torch.device("cuda")
-
-
 #: (topology, batch, the launcher's route there): its cluster size, whether
 #: every tile's word count is fixed at compile time, the last slice of rows
 #: partly empty, fewer clusters than slices (None: not asserted)
@@ -369,30 +359,166 @@ def test_cuda_cascade_needs_its_tiles(cuda):
                                       topology=topo, tiles=bad)
 
 
+#: ragged tile shapes: B 1, 7, 37; N 10, 77, 96; K 100, 777, 40000 (W 4,
+#: 25, 1250)
+RAGGED_TILES = [(1, 100, 10), (7, 777, 77), (37, 40000, 96), (1, 777, 96),
+                (7, 100, 77), (37, 40000, 10)]
+
+
+def _tile_operands(seed, B, K, N, fill="random", stride_pad=0,
+                   device="cpu"):
+    """Spike words [B, W] (on ``device``, a view whose rows lie W +
+    stride_pad words apart, the skipped words all ones) and planes [N, W],
+    as int32 tensors: random, or all-zero / all-one spikes and planes."""
+    rng = np.random.default_rng(seed)
+    if fill == "random":
+        s = rng.random((B, K)) < 0.5
+        w = rng.integers(0, 2, size=(K, N), dtype=np.int8)
+    else:
+        s = np.full((B, K), fill == "ones")
+        w = np.full((K, N), fill == "ones", np.int8)
+    words = packing.packed_width(K)
+    x = np.full((B, words + stride_pad), 0xFFFFFFFF, np.uint32)
+    x[:, :words] = packing.pack_spikes_np(s)
+    return (_t(x).to(device)[:, :words],
+            _t(packing.pack_weight_planes_np(w)).to(device))
+
+
+# ----------------------------------------------------------------------- #
+# the tile kernel's route (B2 popcount_fire and B3 popcount_mac)
+# ----------------------------------------------------------------------- #
+ROUTE_SHAPES = [  # (B, N)
+    (4096, 256), (1000, 256), (1024, 768), (128, 10), (256, 256),
+    (512, 256), (1024, 256), (64, 256), (64, 10), (1, 10), (7, 77),
+    (37, 96), (1, 1), (17, 65), (100_000, 4096), (16, 64), (32, 64),
+    (33, 63)]
+
+
+@pytest.mark.parametrize("B,N", ROUTE_SHAPES)
+@pytest.mark.parametrize("paired", [True, False])
+def test_fire_route_covers_the_shape(B, N, paired):
+    """Every shape maps to a grid whose blocks cover B rows and N neurons
+    exactly: less than one block's rows and one 64-neuron block past
+    them."""
+    r = ops._fire_route(B, N, paired)
+    rows_a_block = 16 * ops._FIRE_WARPS
+    assert r.paired is paired
+    assert 0 <= r.grid[0] * rows_a_block - B < rows_a_block
+    assert 0 <= r.grid[1] * 64 - N < 64
+
+
+@pytest.mark.parametrize("B,K,N", [(4096, 768, 256), (1024, 768, 768),
+                                   (4096, 256, 256)])
+def test_fire_route_fills_the_card(B, K, N):
+    """At B2's and the bench's shapes the grid gives each of an H100's 132
+    SMs at least one block."""
+    r = ops._fire_route(B, N, packing.packed_width(K) % 2 == 0)
+    assert r.grid[0] * r.grid[1] >= 132
+
+
+def test_fire_route_is_pure(monkeypatch):
+    """The route needs no library and no card: it is computed from the
+    shape alone, and refuses an empty one."""
+    def no_library():
+        raise AssertionError("the route must not load the kernel library")
+
+    monkeypatch.setattr(ops, "_library", no_library)
+    assert ops._fire_route(37, 77, False) == ops._fire_route(37, 77, False)
+    for bad in ((0, 10), (1, 0)):
+        with pytest.raises(ValueError):
+            ops._fire_route(*bad, True)
+
+
+@pytest.mark.parametrize("K,stride_pad,offset,want", [
+    (768, 0, 0, True), (64, 2, 0, True), (100, 0, 0, True),
+    (777, 0, 0, False), (768, 1, 0, False), (768, 0, 1, False),
+    (768, 1, 1, False)])
+def test_paired_loads_need_even_aligned_rows(K, stride_pad, offset, want):
+    """Two words a load only where every row starts 8-byte aligned: an even
+    word count and row strides, both operands on an 8-byte boundary."""
+    words = packing.packed_width(K)
+    full = torch.zeros((5, words + stride_pad + offset), dtype=torch.int32)
+    x = full[:, offset: offset + words]
+    planes = torch.zeros((32, words), dtype=torch.int32)
+    assert ops._paired(x, planes) is want
+
+
+# ----------------------------------------------------------------------- #
+# the CUDA kernels against the plain versions, on the card
+# ----------------------------------------------------------------------- #
+@pytest.fixture
+def cuda():
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU (CUDA kernels have no CPU mode)")
+    return torch.device("cuda")
+#: (B, K, N, fill, stride_pad) of the MAC on the card: the CPU shapes, the
+#: ragged ones, all-zero and all-one operands, strided spike rows
+CUDA_MAC_CASES = (
+    [(B, K, N, "random", 0) for B, K, N in MAC_SHAPES + RAGGED_TILES]
+    + [(37, 777, 96, fill, 0) for fill in ("zeros", "ones")]
+    + [(256, 768, 256, "random", pad) for pad in (1, 2)]
+    + [(1024, 768, 768, "random", 0), (4096, 768, 256, "random", 0)])
+
+
+def _assert_route(x, planes, B, N, stride_pad):
+    """The route the wrapper took: paired loads exactly where the words and
+    strides are even, a grid covering the shape."""
+    took = ops._route_for(x, planes)
+    W = x.shape[1]
+    assert took.paired == (W % 2 == 0 and stride_pad % 2 == 0)
+    assert took == ops._fire_route(B, N, took.paired)
+
+
 @pytest.mark.cuda
-@pytest.mark.parametrize("B,K,N", MAC_SHAPES)
-def test_cuda_mac_matches_plain(cuda, B, K, N):
-    p, planes = _mac_operands(B + K + N, B, K, N)
+@pytest.mark.parametrize("B,K,N,fill,stride_pad", CUDA_MAC_CASES)
+def test_cuda_mac_matches_plain(cuda, B, K, N, fill, stride_pad):
+    x, planes = _tile_operands(B + K + N, B, K, N, fill, stride_pad, cuda)
     ops.reset_launch_counts()
-    got = ops.cim_popcount_matmul(_t(p).to(cuda), _t(planes).to(cuda))
+    got = ops.cim_popcount_matmul(x, planes)
     assert ops.launch_counts()["popcount_mac"] == 1
-    want = ops.cim_popcount_ref(_t(p).to(cuda), _t(planes).to(cuda))
+    _assert_route(x, planes, B, N, stride_pad)
+    want = ops.cim_popcount_ref(x, planes)
     assert torch.equal(got, want)
 
 
+_I32 = np.iinfo(np.int32)
+#: (B, K, N, pack_output, fill, vth, stride_pad) of the fire on the card:
+#: the CPU shapes and B2's in both output forms, the ragged ones in every
+#: form their width takes, all-zero and all-one operands, thresholds at
+#: the int32 extremes, strided spike rows
+CUDA_FIRE_CASES = (
+    [(B, K, N, pack, "random", "random", 0)
+     for B, K, N in FIRE_SHAPES + [(4096, 768, 256), (1000, 777, 256),
+                                   (5, 40000, 64)]
+     for pack in (True, False)]
+    + [(B, K, N, pack, "random", "random", 0) for B, K, N in RAGGED_TILES
+       for pack in ((True, False) if N % 32 == 0 else (False,))]
+    + [(37, 777, 96, pack, fill, "random", 0) for fill in ("zeros", "ones")
+       for pack in (True, False)]
+    + [(7, 100, 77, False, fill, "random", 0) for fill in ("zeros", "ones")]
+    + [(37, 768, 96, pack, "random", vth, 0) for vth in ("min", "max")
+       for pack in (True, False)]
+    + [(7, 777, 77, False, "random", vth, 0) for vth in ("min", "max")]
+    + [(37, 768, 96, True, "random", "random", pad) for pad in (1, 2)])
+
+
 @pytest.mark.cuda
-@pytest.mark.parametrize("B,K,N", FIRE_SHAPES + [(4096, 768, 256),
-                                                 (1000, 777, 256),
-                                                 (5, 40000, 64)])
-@pytest.mark.parametrize("pack_output", [True, False])
-def test_cuda_fire_matches_plain(cuda, B, K, N, pack_output):
-    p, planes = _mac_operands(B + K, B, K, N, p=0.5)
-    vth = torch.from_numpy(np.random.default_rng(N).integers(
-        -9, 9, size=(N,), dtype=np.int32)).to(cuda)
+@pytest.mark.parametrize("B,K,N,pack_output,fill,vth_fill,stride_pad",
+                         CUDA_FIRE_CASES)
+def test_cuda_fire_matches_plain(cuda, B, K, N, pack_output, fill, vth_fill,
+                                 stride_pad):
+    x, planes = _tile_operands(B + K, B, K, N, fill, stride_pad, cuda)
+    if vth_fill == "random":
+        vth = np.random.default_rng(N).integers(-9, 9, size=(N,),
+                                                dtype=np.int32)
+    else:
+        vth = np.full((N,), _I32.min if vth_fill == "min" else _I32.max,
+                      np.int32)
+    vth = torch.from_numpy(vth).to(cuda)
     ops.reset_launch_counts()
-    got = ops.esam_layer_popcount(_t(p).to(cuda), _t(planes).to(cuda), vth,
-                                  pack_output=pack_output)
+    got = ops.esam_layer_popcount(x, planes, vth, pack_output=pack_output)
     assert ops.launch_counts()["popcount_fire"] == 1
-    want = ops.esam_layer_popcount_ref(_t(p).to(cuda), _t(planes).to(cuda),
-                                       vth, pack_output=pack_output)
+    _assert_route(x, planes, B, N, stride_pad)
+    want = ops.esam_layer_popcount_ref(x, planes, vth,
+                                       pack_output=pack_output)
     assert torch.equal(got, want)
