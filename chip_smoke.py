@@ -26,8 +26,11 @@ Phases; any failure raises, so the exit code is non-zero:
    and under two geometries its launcher does not pick (``mega_geometry``
    lines);
    the single column event at rows inside and
-   outside [0, n_out); the epoch kernel at 4096 x 256 -> 10 and ragged
-   and wide readouts, with ties, offsets and an out-of-range label; the
+   outside [0, n_out); the epoch's two kernels (``stdp_epoch_masks``, which
+   draws the uniforms itself, and the chain) at 4096 x 256 -> 10 and ragged
+   and wide readouts, with ties, offsets, an out-of-range label and a key
+   past 2^31, on every route of the chain (``epoch_sass``: its ptxas
+   registers and spills and its REDUX and POPC a route); the
    event round's ``temporal_scan`` at the event path's T 4, 8 and 16 and
    B 64, at B 1 and 7, with 0 and 1 hidden tiles, per reset mode with
    refractory 2, and on each of its three routes: planes and state in
@@ -45,11 +48,13 @@ Phases; any failure raises, so the exit code is non-zero:
 6. the learning path: ``repro_torch.train.online.train_online`` on the paper
    topology (4096 training and 1024 eval digits, 6 shuffled epochs,
    checkpoints), counted the same way (``popcount_fire`` per hidden tile and
-   split, ``stdp_column_epoch`` once per epoch) and held bit for bit
+   split, ``stdp_epoch_masks`` and ``stdp_column_epoch`` once per epoch;
+   the torch draw ``column_event_uniforms`` forbidden) and held bit for bit
    against the same call on the CPU (the plain versions); each epoch's
-   up-front draw and epoch kernel timed apart on the same inputs; then
+   shuffle, two kernels and readout timed apart on the same inputs; then
    ``learning.online_learning_epoch`` through the packed prefix
-   (``fused_fire_packed``, one ``stdp_column_epoch``) and
+   (``fused_fire_packed``, one ``stdp_epoch_masks`` and one
+   ``stdp_column_epoch``) and
    ``online_learning_epoch_scan`` with the matrix RNG (``stdp_update``),
    each against its CPU twin;
 7. the cycle plane: the quickstart twin (``repro_torch.launch.quickstart``:
@@ -79,8 +84,8 @@ Phases; any failure raises, so the exit code is non-zero:
    launch counter is set to 0 just before and held to the calls the bench
    reports just after (the bench times the plain versions by name, so none
    is forbidden here; every other phase forbids them all);
-10. one JSON line of the kernels (15: the 13 Pallas kernels' ports, the
-    epoch kernel and the event round's scan), then the result line.
+10. one JSON line of the kernels (16: the 13 Pallas kernels' ports, the
+    epoch's two kernels and the event round's scan), then the result line.
 
 It needs a CUDA device and exits non-zero without one.
 """
@@ -105,6 +110,7 @@ from repro_torch.core.h100 import (  # noqa: E402
     F32_OPS_PER_S,
     HBM_BYTES_PER_S,
     INT8_OPS_PER_S,
+    int32_ops_per_s,
     popc_ops_per_s,
 )
 from repro_torch.obs.profile import call_ms, graph_ms  # noqa: E402
@@ -161,6 +167,7 @@ class Card:
         self.sms = props.multi_processor_count
         self.max_sm_mhz = float(nvidia_smi("clocks.max.sm", units=False))
         self.popc_per_s = popc_ops_per_s(self.sms, self.max_sm_mhz)
+        self.int32_per_s = int32_ops_per_s(self.sms, self.max_sm_mhz)
         #: the b1 tensor-core product's AND+popc operations a second (two
         #: a bit pair), set by ``probe_rates`` from this run's reading
         self.b1_ops_per_s = None
@@ -790,17 +797,32 @@ def check_column_event(card, rng, n_out, n_in, kernels):
     kernels.append(row)
 
 
-def check_column_epoch(card, rng, n_out, n_in, n, kernels, *, tied=False,
-                       offset=False):
-    """stdp_column_epoch (the whole epoch in one block, the readout in
-    shared memory) vs its plain version, bits and wrong count, on the
-    column-event draws of ``PRNGKey(n)``; sample 3's label is -1 (out of
-    range: always wrong, its teacher row wrapped).  ``tied``: every readout
-    row the same, so every V_mem ties."""
+#: int32 operations of one column-event draw in the epoch's masks kernel:
+#: threefry2x32's 2 key adds, 20 rounds of add / rotate / xor, 5 key
+#: injections of 2 adds (the round constant folded into a three-input add),
+#: the output xor; then the shift and the compare with the threshold
+DRAW_INT32_OPS = 2 + 20 * 3 + 5 * 2 + 1 + 2
+#: B6 epoch's device time in a CUDA graph before its redesign (PR 20's run,
+#: NVIDIA H100 80GB HBM3, 700 W), printed beside the new time
+EPOCH_BEFORE_MS = {(10, 256, LEARN_TRAIN): 2.792}
+
+
+def check_column_epoch(card, rng, n_out, n_in, n, masks_rows, chain_rows, *,
+                       route, tied=False, offset=False, special=False,
+                       key_words=None):
+    """The epoch's two kernels against their plain versions on the card:
+    ``stdp_epoch_masks`` slot for slot against ``stdp_epoch_masks_ref`` and
+    the whole ``stdp_column_epoch`` (bits and wrong count) against
+    ``stdp_column_epoch_ref`` on the same draws, under ``PRNGKey(n)`` or
+    the key of ``key_words``; sample 3's label is -1 (out of range: always
+    wrong, its teacher row wrapped).  ``tied``: every readout row the same,
+    so every V_mem ties; ``special``: offsets of +inf, -inf and NaN.  Rows:
+    the masks kernel, and the chain kernel with the pair (``epoch_ms``),
+    the clock64 count of a chain step and the route asserted against
+    ``ops._epoch_route``."""
     import torch
 
     from repro_torch.core import prng
-    from repro_torch.core.esam import learning
     from repro_torch.kernels.stdp import ops
 
     bits_t = rng.integers(0, 2, size=(n_out, n_in), dtype=np.int8)
@@ -812,11 +834,20 @@ def check_column_epoch(card, rng, n_out, n_in, n, kernels, *, tied=False,
     labels[3] = -1
     off = (torch.from_numpy(rng.normal(size=n_out).astype(np.float32)).cuda()
            if offset else None)
-    u = learning.column_event_uniforms(prng.PRNGKey(n).cuda(),
-                                       torch.arange(n, device="cuda"), n_in)
+    if special:
+        off[1], off[4], off[7] = float("inf"), float("-inf"), float("nan")
+    key = (prng.PRNGKey(n) if key_words is None else
+           torch.tensor(np.array(key_words, dtype=np.int64))).cuda()
+    p = dict(p_pot=LEARN_P_POT, p_dep=LEARN_P_DEP)
+    slots = ops.stdp_epoch_masks(pre, labels, key, n_out, **p)
+    want_slots = ops.stdp_epoch_masks_ref(pre, labels, key, n_out,
+                                          LEARN_P_POT, LEARN_P_DEP)
+    if not torch.equal(slots, want_slots):
+        raise AssertionError(f"stdp_epoch_masks != plain at {n}x{n_in} "
+                             f"key={key.tolist()}")
+    u = ops.column_event_uniforms(key, torch.arange(n, device="cuda"), n_in)
     got = bits_t.clone()
-    wrong = ops.stdp_column_epoch(got, pre, labels, *u, off,
-                                  p_pot=LEARN_P_POT, p_dep=LEARN_P_DEP)
+    wrong = ops.stdp_column_epoch(got, pre, labels, key, off, **p)
     want, want_wrong = ops.stdp_column_epoch_ref(
         bits_t, pre, labels, *u, off, LEARN_P_POT, LEARN_P_DEP)
     err = _word_err(got, want)
@@ -825,34 +856,124 @@ def check_column_epoch(card, rng, n_out, n_in, n, kernels, *, tied=False,
             f"stdp_column_epoch != plain at [{n_out}, {n_in}] x {n} "
             f"tied={tied} offset={offset}: {int(wrong)} vs "
             f"{int(want_wrong)} wrong")
+    n_wrong = int(want_wrong)
+    shape = f"{n}x{n_in}->{n_out}"
+    if ops._epoch_route(n_out, n_in) != route:
+        raise AssertionError(f"epoch route {ops._epoch_route(n_out, n_in)} "
+                             f"at [{n_out}, {n_in}], want {route}")
+
+    # the masks kernel: traces, labels and the key read, the slots written;
+    # every sample's draws (4 key derivations, one draw an input and one
+    # more where the trace is 1) at the int32 rate
+    draws = 4 * n + n * n_in + int(pre.sum())
+    m_bytes = (n * n_in + n * labels.element_size() + 16
+               + slots.numel() * 4)
+    m_bound, m_by = card.bound(m_bytes, draws * DRAW_INT32_OPS,
+                               card.int32_per_s)
+    m_row = {
+        "kernel": "stdp_epoch_masks", "shape": shape, "max_abs_err":
+        int((slots != want_slots).sum()),
+        "ms": graph_ms(lambda: ops.stdp_epoch_masks(pre, labels, key, n_out,
+                                                    **p)),
+        "call_ms": call_ms(lambda: ops.stdp_epoch_masks(pre, labels, key,
+                                                        n_out, **p)),
+        "plain_ms": graph_ms(lambda: ops.stdp_epoch_masks_ref(
+            pre, labels, key, n_out, LEARN_P_POT, LEARN_P_DEP),
+            calls=3, replays=3),
+        "bound_ms": m_bound, "bound_by": m_by, "draws": draws,
+        "library_ms": None,
+    }
+    print("kernel_check " + json.dumps(m_row), flush=True)
+    masks_rows.append(m_row)
+
+    # the chain: slots read, the readout read and written, the offset, the
+    # count; an AND+popc pair a readout bit a sample at the b1 rate.  Its
+    # time is the samples' chain of latencies, not this bound
     work = bits_t.clone()
-
-    def run():
-        return ops.stdp_column_epoch(work, pre, labels, *u, off,
-                                     p_pot=LEARN_P_POT, p_dep=LEARN_P_DEP)
-
-    # every trace byte, draw and label read once, the readout read and
-    # written, the offset, the count; operations: per sample an AND+popc
-    # per readout word and a popc per trace word (popc rate), and three
-    # float32 compares per input
-    n_bytes = (n * n_in * (1 + 3 * 4) + n * labels.element_size()
-               + 2 * n_out * n_in + 4 * n_out * offset + 4)
-    bound_ms, bound_by = card.bound(n_bytes, n * (n_out + 1) * -(-n_in // 32))
-    compare_ms = 3 * n * n_in / F32_OPS_PER_S * 1e3
-    if compare_ms > bound_ms:
-        bound_ms, bound_by = compare_ms, "operations"
-    ms = graph_ms(run, calls=3, replays=5)
-    row = {
-        "kernel": "stdp_column_epoch", "shape": f"{n}x{n_in}->{n_out}",
-        "tied": tied, "offset": offset, "max_abs_err": err, "ms": ms,
-        "us_per_sample": ms * 1e3 / n, "call_ms": call_ms(run, calls=5),
+    stamps = torch.zeros(4, dtype=torch.int64, device="cuda")
+    ops._epoch_chain(bits_t.clone(), slots, off, stamps)
+    s = stamps.tolist()
+    c_bytes = (slots.numel() * 4 + 2 * n_out * n_in + 4 * n_out * offset + 4)
+    c_bound, c_by = card.bound(c_bytes, 2 * n * n_out * n_in,
+                               card.b1_ops_per_s)
+    # the pair as one function: trace, labels, key, the slots written and
+    # read, the readout, the offset, the count; the draws of the wrong
+    # samples only (a right sample learns nothing)
+    e_bytes = m_bytes + c_bytes
+    e_bound, e_by = card.bound(
+        e_bytes, n_wrong / max(n, 1) * draws * DRAW_INT32_OPS,
+        card.int32_per_s)
+    epoch_ms = graph_ms(lambda: ops.stdp_column_epoch(work, pre, labels, key,
+                                                      off, **p),
+                        calls=3, replays=5)
+    c_row = {
+        "kernel": "stdp_column_epoch", "shape": shape, "tied": tied,
+        "offset": offset, "special": special, "route": route,
+        "key": key.tolist(),
+        "max_abs_err": err,
+        "ms": graph_ms(lambda: ops._epoch_chain(work, slots, off),
+                       calls=3, replays=5),
+        "epoch_ms": epoch_ms,
+        "epoch_call_ms": call_ms(lambda: ops.stdp_column_epoch(
+            work, pre, labels, key, off, **p), calls=5),
+        "before_ms": EPOCH_BEFORE_MS.get((n_out, n_in, n)),
+        "us_per_sample": epoch_ms * 1e3 / n,
+        "clocks_per_step": (s[2] - s[1]) / max(n, 1),
+        "setup_clocks": s[1] - s[0], "writeback_clocks": s[3] - s[2],
+        "wrong": n_wrong,
         "plain_ms": graph_ms(lambda: ops.stdp_column_epoch_ref(
             bits_t, pre, labels, *u, off, LEARN_P_POT, LEARN_P_DEP),
             calls=1, replays=3),
-        "bound_ms": bound_ms, "bound_by": bound_by, "library_ms": None,
+        "bound_ms": c_bound, "bound_by": c_by,
+        "epoch_bound_ms": e_bound, "epoch_bound_by": e_by,
+        "library_ms": None,
     }
-    print("kernel_check " + json.dumps(row), flush=True)
-    kernels.append(row)
+    print("kernel_check " + json.dumps(c_row), flush=True)
+    chain_rows.append(c_row)
+
+
+def epoch_sass(report) -> dict:
+    """Per instantiation of the chain kernel (``column_epoch_kernel<WMAX,
+    R>``): ``ptxas`` registers and spill bytes, and the SASS count of REDUX
+    and POPC (``cuobjdump``).  Raises unless each register route holds
+    exactly one REDUX (the argmax's max) and none spills."""
+    import re
+
+    from repro_torch.kernels import _build
+
+    regs, name = {}, None
+    for line in report.ptxas.splitlines():
+        if "Compiling entry function" in line:
+            name = line.split("'")[1]
+        elif name and "column_epoch_kernel" in name:
+            if "registers" in line:
+                regs.setdefault(name, {})["registers"] = int(
+                    re.search(r"Used (\d+) registers", line).group(1))
+            if "spill" in line:
+                regs.setdefault(name, {})["spill_bytes"] = sum(
+                    int(x) for x in re.findall(r"(\d+) bytes spill", line))
+    cuobjdump = Path(_build._nvcc()).with_name("cuobjdump")
+    sass = subprocess.run([str(cuobjdump), "-sass", str(report.path)],
+                          capture_output=True, text=True, check=True,
+                          timeout=120).stdout
+    found = {}
+    for section in sass.split("Function : ")[1:]:
+        fn = section.split(maxsplit=1)[0]
+        if "column_epoch_kernel" not in fn:
+            continue
+        m = re.search(r"column_epoch_kernelILi(\d+)ELi(\d+)E", fn)
+        wmax, rows = int(m.group(1)), int(m.group(2))
+        ops_ = re.findall(r"\b((?:REDUX|POPC)[.A-Z0-9_]*)", section)
+        row = {op: ops_.count(op) for op in sorted(set(ops_))}
+        row.update(regs.get(fn, {}))
+        found[f"{wmax}x{rows}"] = row
+        redux = sum(v for k, v in row.items() if k.startswith("REDUX"))
+        if wmax and (redux != 1 or row.get("spill_bytes")):
+            raise AssertionError(f"column_epoch_kernel<{wmax},{rows}>: {row}")
+    if len(found) != 6:
+        raise AssertionError(f"column_epoch_kernel instantiations: {found}")
+    print("epoch_sass " + json.dumps(found), flush=True)
+    return found
 
 
 def check_stdp_update(card, rng, n_out, n_in, kernels):
@@ -1311,7 +1432,8 @@ class PlainForbidden:
          ("cim_matmul_ref", "esam_layer_ref")),
         ("repro_torch.kernels.if_neuron.ops", ("if_neuron_ref",)),
         ("repro_torch.kernels.stdp.ops",
-         ("stdp_column_epoch_ref", "stdp_column_event_ref",
+         ("stdp_column_epoch_ref", "stdp_epoch_masks_ref",
+          "column_event_uniforms", "stdp_column_event_ref",
           "stdp_update_ref")),
         ("repro_torch.kernels.arbiter.ops",
          ("port_schedule_ref", "arbiter_ref")),
@@ -1439,16 +1561,17 @@ def train_twice(x, y, xe, ye):
                              f"{cpu.accuracy} {cpu.n_updates}")
     hidden = len(PAPER_TOPOLOGY) - 2
     guard.expect("learning path", {
-        "popcount_fire": 2 * hidden, "stdp_column_epoch": LEARN_EPOCHS})
+        "popcount_fire": 2 * hidden, "stdp_epoch_masks": LEARN_EPOCHS,
+        "stdp_column_epoch": LEARN_EPOCHS})
     return gpu, cpu, guard.counts
 
 
 def time_epochs(x, y, xe, ye, learned) -> list[dict]:
     """``train_online``'s epochs replayed on the card with their parts timed
-    apart: host clock (synchronised) around the shuffle, the up-front
-    uniform draw and the accuracy readout, CUDA events around the
-    ``stdp_column_epoch`` launch.  Raises unless the replay ends on
-    ``learned`` (``[n_in, n_out]``).  Returns one dict of seconds an
+    apart: host clock (synchronised) around the shuffle and the accuracy
+    readout, CUDA events around the epoch's two launches (the masks kernel,
+    which draws the uniforms, and the chain).  Raises unless the replay
+    ends on ``learned`` (``[n_in, n_out]``).  Returns one dict of seconds an
     epoch."""
     import torch
 
@@ -1464,7 +1587,7 @@ def time_epochs(x, y, xe, ye, learned) -> list[dict]:
     eval_labels = torch.as_tensor(ye).to(dev)
     key = prng.PRNGKey(10).to(dev)
     bits_t = net.weight_bits[-1].T.contiguous()
-    n, n_in = pre.shape
+    n_out, n = bits_t.shape[0], pre.shape[0]
     times = []
     for epoch in range(LEARN_EPOCHS):
         torch.cuda.synchronize()
@@ -1474,23 +1597,22 @@ def time_epochs(x, y, xe, ye, learned) -> list[dict]:
         pre_e, y_e = pre[perm], labels[perm]
         torch.cuda.synchronize()
         t1 = time.perf_counter()
-        u = learning.column_event_uniforms(
-            ep_key, torch.arange(n, device=dev), n_in)
-        torch.cuda.synchronize()
+        ev = [torch.cuda.Event(enable_timing=True) for _ in range(3)]
+        ev[0].record()
+        slots = ops.stdp_epoch_masks(pre_e, y_e, ep_key, n_out,
+                                     p_pot=LEARN_P_POT, p_dep=LEARN_P_DEP)
+        ev[1].record()
+        ops._epoch_chain(bits_t, slots, net.out_offset)
+        ev[2].record()
+        ev[2].synchronize()
         t2 = time.perf_counter()
-        start = torch.cuda.Event(enable_timing=True)
-        end = torch.cuda.Event(enable_timing=True)
-        start.record()
-        ops.stdp_column_epoch(bits_t, pre_e, y_e, *u, net.out_offset,
-                              p_pot=LEARN_P_POT, p_dep=LEARN_P_DEP)
-        end.record()
-        end.synchronize()
-        t3 = time.perf_counter()
         logits = learning.readout_vmem(bits_t, eval_pre).float()
         int(((logits + net.out_offset).argmax(-1) == eval_labels).sum())
-        times.append({"shuffle_s": t1 - t0, "draw_s": t2 - t1,
-                      "kernel_s": start.elapsed_time(end) / 1e3,
-                      "readout_s": time.perf_counter() - t3})
+        times.append({"shuffle_s": t1 - t0,
+                      "kernel_s": ev[0].elapsed_time(ev[2]) / 1e3,
+                      "masks_s": ev[0].elapsed_time(ev[1]) / 1e3,
+                      "chain_s": ev[1].elapsed_time(ev[2]) / 1e3,
+                      "readout_s": time.perf_counter() - t2})
     if not torch.equal(bits_t.T, learned):
         raise AssertionError("replayed epochs end on another readout")
     return times
@@ -1581,7 +1703,8 @@ def learning_phase() -> dict:
     hidden = len(PAPER_TOPOLOGY) - 2
     guard = out["cuda"][3]
     guard.expect("online_learning_epoch", {
-        "fused_fire_packed": hidden, "stdp_column_epoch": 1})
+        "fused_fire_packed": hidden, "stdp_epoch_masks": 1,
+        "stdp_column_epoch": 1})
     counts_epoch = guard.counts
     print(f"online_learning_epoch: {LEARN_TRAIN} samples, "
           f"{out['cuda'][1]} column updates, wall {out['cuda'][2]:.3f} s "
@@ -2045,6 +2168,7 @@ def main() -> int:
     # one B2/B3 uses in the built kernel
     probe_rates(card, probe_build)
     tile_sass(next(r.path for r in reports if r.name == "cim_popcount"))
+    epoch_sass(next(r for r in reports if r.name == "stdp"))
 
     # 3. kernels vs plain, on the card
     from repro_torch.core import packing
@@ -2111,13 +2235,29 @@ def main() -> int:
     for n_out, n_in in ((10, 256), (256, 768)):
         check_column_event(card, rng, n_out, n_in, event_rows)
         check_stdp_update(card, rng, n_out, n_in, update_rows)
-    epoch_rows = []
-    for n_out, n_in, n in ((10, 256, LEARN_TRAIN), (33, 257, 300),
-                           (64, 768, 200)):
+    # the epoch's two kernels: the learning path's shape and ragged and
+    # wide readouts, tied and offset, then a key past 2^31 and every other
+    # route of the chain ((words a row, rows a lane) in registers; (0, 0):
+    # planes in shared memory)
+    masks_rows, epoch_rows = [], []
+    for n_out, n_in, n, route in ((10, 256, LEARN_TRAIN, (8, 1)),
+                                  (33, 257, 300, (16, 2)),
+                                  (64, 768, 200, (0, 0)),
+                                  (256, 768, 300, (0, 0))):
         for tied in (False, True):
             for offset in (False, True):
-                check_column_epoch(card, rng, n_out, n_in, n, epoch_rows,
-                                   tied=tied, offset=offset)
+                check_column_epoch(card, rng, n_out, n_in, n, masks_rows,
+                                   epoch_rows, route=route, tied=tied,
+                                   offset=offset)
+    check_column_epoch(card, rng, 10, 256, LEARN_TRAIN, masks_rows,
+                       epoch_rows, route=(8, 1), offset=True,
+                       key_words=(0xDEADBEEF, 0x9E3779B9))
+    check_column_epoch(card, rng, 10, 256, 300, masks_rows, epoch_rows,
+                       route=(8, 1), offset=True, special=True)
+    for n_out, n_in, route in ((10, 300, (16, 1)), (10, 768, (32, 1)),
+                               (40, 256, (8, 2)), (65, 100, (0, 0))):
+        check_column_epoch(card, rng, n_out, n_in, 300, masks_rows,
+                           epoch_rows, route=route, offset=True)
     arbiter_rows = []
     for name in ("port_schedule", "arbiter"):
         for n in (SWEEP_DIGITS * 6, 8192):
@@ -2293,9 +2433,12 @@ def main() -> int:
         line("popcount_mac", pop_src, "cim_popcount/kernel.py:54",
              pick(mac_rows, f"{BUCKET}x768->10", fill="random",
                   stride_pad=0), mac_launches),
+        line("stdp_epoch_masks", stdp_src, "stdp/kernel.py:75",
+             pick(masks_rows, f"{LEARN_TRAIN}x256->10"),
+             learn["train"]["stdp_epoch_masks"]),
         line("stdp_column_epoch", stdp_src, "stdp/kernel.py:75",
              pick(epoch_rows, f"{LEARN_TRAIN}x256->10", tied=False,
-                  offset=True),
+                  offset=True, special=False, key=[0, LEARN_TRAIN]),
              learn["train"]["stdp_column_epoch"]),
         line("stdp_column_event", stdp_src, "stdp/kernel.py:75",
              pick(event_rows, "10x256"), bench["stdp_column_event"]),

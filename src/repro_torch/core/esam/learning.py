@@ -8,15 +8,19 @@ active pre-neurons potentiate (bit -> 1) with probability ``p_pot`` and
 synapses from silent ones depress (bit -> 0) with probability ``p_dep``.
 
 Weights live transposed-resident, ``{0,1}[n_out, n_in]``, so one learning
-neuron's synapses are one contiguous row.  Every uniform comes from
-``core/prng.py``, which reproduces ``jax.random`` bit for bit, so under the
-same key this module gives the reference's weights and update counts.
+neuron's synapses are one contiguous row.  Every uniform is a draw of
+``core/prng.py``, which reproduces ``jax.random`` bit for bit (the epoch's
+kernels compute the same threefry bits on the card), so under the same key
+this module gives the reference's weights and update counts.
 
-The reference's epoch is one jitted ``lax.scan``; here it is one
-``kernels/stdp.stdp_column_epoch`` call: on the card one launch of one
-block that keeps the readout in shared memory and runs every sample's
-readout, argmax and column writes; on the CPU its plain version, a loop
-over samples.
+The reference's epoch is one jitted ``lax.scan`` that draws each sample's
+uniforms in its body; here it is one ``kernels/stdp.stdp_column_epoch``
+call that takes the key.  On the card it is two launches an epoch:
+``stdp_epoch_masks`` draws the uniforms inside the kernel (the reference's
+threefry bits) and packs the rule's masks, then one warp runs every
+sample's readout, argmax and column writes with the readout in its
+registers.  On the CPU it is the draw through ``core/prng.py`` and the
+plain version, a loop over samples.
 """
 
 from __future__ import annotations
@@ -30,7 +34,12 @@ from repro_torch.core.esam import cost_model as cm
 from repro_torch.core.esam import plan as plan_mod
 from repro_torch.core.esam import tile as tile_mod
 from repro_torch.kernels.stdp import ops as stdp_ops
-from repro_torch.kernels.stdp.ref import f32
+# the column-event draw (<= 3 * n_in uniforms a sample, counter-based keys)
+# lives beside the epoch's kernels, which draw it themselves on the card
+from repro_torch.kernels.stdp.ref import (  # noqa: F401  (re-export)
+    column_event_uniforms,
+    f32,
+)
 
 RNG_SCHEMES = ("matrix", "column")
 
@@ -80,25 +89,6 @@ def stdp_update(
         weight_bits.T, pre_spikes, post_events, u_pot.T, u_dep.T,
         p_pot=p_pot, p_dep=p_dep)
     return new_t.T
-
-
-# --------------------------------------------------------------------- #
-# Column-event RNG: counter-based keys, <= 3 * n_in draws per sample
-# --------------------------------------------------------------------- #
-def column_event_uniforms(
-    key: torch.Tensor, sample_index, n_in: int
-) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
-    """Per-sample uniforms for the <= 2 event columns of supervised STDP.
-
-    ``fold_in(key, i)`` per sample, then phase 0 potentiates / phase 1
-    depresses the teacher column, phase 2 depresses the wrong-winner column.
-    ``sample_index`` is an int or an integer tensor of indices; each output
-    is float32 ``[*sample_index.shape, n_in]``, all drawn in one call."""
-    idx = torch.as_tensor(sample_index, device=key.device)
-    ks = prng.fold_in(key, idx)
-    phase = torch.arange(3, dtype=torch.int64, device=key.device)
-    u = prng.uniform(prng.fold_in(ks[..., None, :], phase), (n_in,))
-    return u[..., 0, :], u[..., 1, :], u[..., 2, :]
 
 
 # --------------------------------------------------------------------- #
@@ -196,28 +186,23 @@ def column_event_epoch(
 
     Per sample: the readout matvec, the argmax, the teacher / wrong-winner
     events and two gated column writes, all in one ``stdp_column_epoch``
-    call.  The epoch's uniforms (``[batch, 3, n_in]``, a function of
-    ``(key, i)`` only) are drawn up front in one call.  ``bits_t`` is
-    updated in place (the counterpart of the reference's donated buffer)
-    and returned.
+    call that takes ``key``: sample i's uniforms are
+    ``column_event_uniforms(key, i)``, drawn inside the kernels on the card
+    (two launches an epoch, no host sync).  ``bits_t`` is updated in place
+    (the counterpart of the reference's donated buffer) and returned.
 
     ``out_offset`` shifts the argmax that names the wrong winner, so learning
     targets the deployed readout; ``None`` is the offset-free argmax.
     Returns (bits_t, number of column updates as an int32 device scalar).
     """
     dev = bits_t.device
-    n_in = bits_t.shape[1]
     pre = torch.as_tensor(pre).to(dev) != 0
     labels = torch.as_tensor(labels).to(dev)
     if labels.dtype not in (torch.int32, torch.int64):
         labels = labels.long()
-    n = pre.shape[0]
-    u_pot, u_dep_t, u_dep_w = column_event_uniforms(
-        key.to(dev), torch.arange(n, device=dev), n_in)
     off = None if out_offset is None else out_offset.to(dev, torch.float32)
     wrong = stdp_ops.stdp_column_epoch(
-        bits_t, pre, labels, u_pot, u_dep_t, u_dep_w, off,
-        p_pot=p_pot, p_dep=p_dep)
+        bits_t, pre, labels, key.to(dev), off, p_pot=p_pot, p_dep=p_dep)
     return bits_t, 2 * wrong
 
 

@@ -26,20 +26,29 @@
 // row: elementwise, one thread per synapse, bound by its ~10 bytes per
 // synapse of traffic.
 //
-// stdp_column_epoch runs a whole epoch in one launch of ONE block.  The
-// epoch is a strict chain (sample i+1 reads the bits sample i wrote), so
-// its time is samples x the latency of one step, not bytes or operations:
-// the design shortens that step.  The readout stays resident in shared
-// memory as bit planes (uint32 words, row stride odd so that 32 rows are 32
-// banks), warp 0 runs the chain alone (no block barrier per sample), and
-// the other warps pack the samples ahead into a ring of shared slots: per
-// 32 inputs one ballot each of the pre trace and of the four rule compares,
-// so the chain reads ready-made masks.  One step of warp 0: a popcount
-// matvec (lane o owns output o), one rounded offset add, a five-shuffle
-// first-index argmax, and two masked row writes, (old & ~dep) | pot.  A
-// label outside [0, N_out) is wrapped once if negative and clamped for the
-// teacher row, as the reference's interpret-mode block index is, and
-// always counts as wrong.  The bits and the count go back once at the end.
+// The epoch is two launches.  stdp_epoch_masks draws and packs, over the
+// whole card, one warp a sample: the reference's column-event draws
+// (threefry2x32 of fold_in(fold_in(key, i), phase) at each input, bit for
+// bit core/prng.py and jax.random), only those the rule reads, compared and
+// ballotted into one slot a sample in device memory.  Its bound is the
+// int32 threefry work (~2 draws an input) or the trace bytes.
+// stdp_column_epoch then runs the strict chain (sample i+1 reads the bits
+// sample i wrote) on ONE warp: its time is samples x the latency of one
+// step, not bytes or operations, and the design shortens that step.  The
+// readout lives in the warp's registers (lane o holds row o's words, and
+// row o + 32 when n_out > 32); readouts past the register budget (more
+// than 64 rows, 1024 inputs, or 512 inputs at 33-64 rows) keep bit planes
+// in shared memory (row stride odd: 32 rows are 32 banks), a template
+// parameter of the same kernel.  The warp fetches its own slots, kBatch at
+// a time by TMA bulk copies on mbarriers, and loads the next sample's trace
+// while this sample's readout runs.  One step: popc of trace & row words,
+// one rounded offset add (__fadd_rn), the argmax as one __reduce_max_sync
+// over an order-preserving key and __ballot_sync / __ffs for the lowest
+// row holding it, and, when wrong, the owners of the teacher and the
+// winner rows apply (old & ~dep) | pot in registers.  A label outside
+// [0, N_out) is wrapped once if negative and clamped for the teacher row,
+// as the reference's interpret-mode block index is, and always counts as
+// wrong.  The bits and the count go back once at the end.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -96,168 +105,441 @@ stdp_update_kernel(const int8_t* __restrict__ bits, int8_t* __restrict__ out,
                      : old;
 }
 
-// ---- stdp_column_epoch ------------------------------------------------ //
+// ---- the epoch: stdp_epoch_masks, then stdp_column_epoch --------------- //
 
-constexpr int kEpochThreads = 512;   // warp 0: the chain; warps 1..15: packing
+constexpr int kMaskWarps = 8;        // samples a block of stdp_epoch_masks
+constexpr int kEpochThreads = 256;   // stage and write back; warp 0: the chain
 constexpr int kEpochWarps = kEpochThreads / 32;
-constexpr int kPackers = kEpochWarps - 1;
-constexpr int kRing = 32;            // packed samples the ring holds
-constexpr int kChunk = 8;            // input words a packing lane loads at once
-// Spins a wait may take before the kernel traps: a broken handoff faults
-// (an error at the caller's next synchronisation) instead of hanging the
-// card.
-constexpr long long kSpinLimit = 1ll << 32;   // tens of seconds
+constexpr int kBatch = 16;           // slots one bulk copy fetches
+constexpr int kBufs = 4;             // batches the chain's ring holds
 
-// One ring slot, in words: the pre trace, the teacher's potentiate and
-// depress masks, the wrong winner's, then the trace's popcount, the teacher
-// row and the label as the argmax compares it (~0u when out of range).
+// One slot, in words: a header (the trace's popcount, the teacher row as
+// clamped, the label as the argmax compares it: ~0u when out of range, 0),
+// then four fields of F words (zero past W): the trace, the teacher's
+// potentiate and depress masks, the winner's depress mask.  The winner
+// never potentiates (p_pot 0), so it has no potentiate mask.  F is the
+// register chain's words a row (8, 16 or 32) up to 32 words, so its loads
+// need no bound; W rounded up to 4 past that.
 __host__ __device__ inline int epoch_words(int n_in) { return (n_in + 31) / 32; }
-__host__ __device__ inline int slot_words(int W) { return 5 * W + 3; }
+__host__ __device__ inline int field_words(int W) {
+  return W <= 8 ? 8 : W <= 16 ? 16 : W <= 32 ? 32 : (W + 3) & ~3;
+}
+__host__ __device__ inline int slot_words(int W) { return 4 + 4 * field_words(W); }
 
+// The chain block's shared memory: the ring of slots, one mbarrier a batch,
+// the readout's planes [n_out][W | 1], the offsets.
+__host__ __device__ inline size_t ring_words(int W) {
+  return (size_t)kBufs * kBatch * slot_words(W);
+}
 size_t epoch_smem_bytes(int n_out, int n_in) {
   const int W = epoch_words(n_in);
-  const size_t words = (size_t)n_out * (W | 1) + (size_t)kRing * slot_words(W)
-                       + kRing + 1 + n_out;
-  return 4 * words;
+  return 4 * (ring_words(W) + 2 * kBufs + (size_t)n_out * (W | 1) + n_out);
 }
 
-// Does (b, ib) come first in argmax order: the larger value, NaN above
-// every number, ties to the lower index (jnp.argmax and torch.argmax).
-__device__ __forceinline__ bool beats(float b, int ib, float a, int ia) {
-  const bool bn = b != b, an = a != a;
-  if (bn || an) return bn && (!an || ib < ia);
-  return b > a || (b == a && ib < ia);
+__device__ __forceinline__ void mix(uint32_t& x0, uint32_t& x1, int r) {
+  x0 += x1;
+  x1 = __funnelshift_l(x1, x1, r) ^ x0;   // rotate left by r
 }
 
+// Threefry-2x32, 20 rounds, under key (k0, k1): core/prng.py's threefry2x32
+// (rotations 13, 15, 26, 6 / 17, 29, 16, 24, a key injection every 4).
+__device__ __forceinline__ uint2 threefry2x32(uint32_t k0, uint32_t k1,
+                                              uint32_t x0, uint32_t x1) {
+  const uint32_t k2 = k0 ^ k1 ^ 0x1BD11BDAu;
+  x0 += k0; x1 += k1;
+  mix(x0, x1, 13); mix(x0, x1, 15); mix(x0, x1, 26); mix(x0, x1, 6);
+  x0 += k1; x1 += k2 + 1u;
+  mix(x0, x1, 17); mix(x0, x1, 29); mix(x0, x1, 16); mix(x0, x1, 24);
+  x0 += k2; x1 += k0 + 2u;
+  mix(x0, x1, 13); mix(x0, x1, 15); mix(x0, x1, 26); mix(x0, x1, 6);
+  x0 += k0; x1 += k1 + 3u;
+  mix(x0, x1, 17); mix(x0, x1, 29); mix(x0, x1, 16); mix(x0, x1, 24);
+  x0 += k1; x1 += k2 + 4u;
+  mix(x0, x1, 13); mix(x0, x1, 15); mix(x0, x1, 26); mix(x0, x1, 6);
+  x0 += k2; x1 += k0 + 5u;
+  return make_uint2(x0, x1);
+}
+
+// The 23 bits of input j's uniform under phase key (kx, ky): the uniform is
+// exactly (bits >> 9) * 2^-23 (core/prng.py's uniform), so u < p is
+// (bits >> 9) < t with t = ceil(p * 2^23) clamped to [0, 2^23], which the
+// wrapper computes (ref.uniform_threshold).
+__device__ __forceinline__ uint32_t draw23(uint32_t kx, uint32_t ky, int j) {
+  const uint2 b = threefry2x32(kx, ky, 0u, (uint32_t)j);
+  return (b.x ^ b.y) >> 9;
+}
+
+constexpr int kMaskChunk = 4;   // words a lane draws at once (independent)
+
+// One warp a sample i (its position in the epoch): k_i = fold_in(key, i),
+// phase keys fold_in(k_i, 0 | 1 | 2); where the trace is 1 the teacher reads
+// phase 0 (potentiate) and the winner phase 2 (depress); where it is 0 the
+// teacher reads phase 1 (depress) and the winner nothing.
+__global__ void __launch_bounds__(kMaskWarps * 32)
+epoch_masks_kernel(uint32_t* __restrict__ slots,
+                   const uint8_t* __restrict__ pre, long long ldp, int n, int n_in, int n_out,
+                   const void* labels, int label_bytes,
+                   const long long* __restrict__ key, uint32_t t_pot,
+                   uint32_t t_dep) {
+  const int lane = threadIdx.x & 31;
+  const int i = blockIdx.x * kMaskWarps + (threadIdx.x >> 5);
+  if (i >= n) return;   // the whole warp
+  const int W = epoch_words(n_in), F = field_words(W);
+  uint32_t* sl = slots + (size_t)i * slot_words(W);
+  const uint8_t* row = pre + (long long)i * ldp;
+  const uint2 ki = threefry2x32((uint32_t)key[0], (uint32_t)key[1], 0u,
+                                (uint32_t)i);
+  const uint2 kp = threefry2x32(ki.x, ki.y, 0u, (uint32_t)(lane & 3));
+  const uint32_t p0x = __shfl_sync(~0u, kp.x, 0);
+  const uint32_t p0y = __shfl_sync(~0u, kp.y, 0);
+  const uint32_t p1x = __shfl_sync(~0u, kp.x, 1);
+  const uint32_t p1y = __shfl_sync(~0u, kp.y, 1);
+  const uint32_t p2x = __shfl_sync(~0u, kp.x, 2);
+  const uint32_t p2y = __shfl_sync(~0u, kp.y, 2);
+  int npre = 0;
+  for (int w0 = 0; w0 < F; w0 += kMaskChunk) {   // F is a multiple of 4
+    bool t[kMaskChunk], c[kMaskChunk], cw[kMaskChunk];
+#pragma unroll
+    for (int k = 0; k < kMaskChunk; ++k) {
+      const int j = 32 * (w0 + k) + lane;
+      t[k] = j < n_in && row[j] != 0;
+    }
+#pragma unroll
+    for (int k = 0; k < kMaskChunk; ++k) {
+      const int j = 32 * (w0 + k) + lane;
+      const uint32_t f = draw23(t[k] ? p0x : p1x, t[k] ? p0y : p1y, j);
+      c[k] = j < n_in && f < (t[k] ? t_pot : t_dep);
+    }
+#pragma unroll
+    for (int k = 0; k < kMaskChunk; ++k) {
+      cw[k] = false;
+      if (t[k]) cw[k] = draw23(p2x, p2y, 32 * (w0 + k) + lane) < t_dep;
+    }
+#pragma unroll
+    for (int k = 0; k < kMaskChunk; ++k) {
+      const uint32_t tr = __ballot_sync(~0u, t[k]);
+      const uint32_t cm = __ballot_sync(~0u, c[k]);
+      const uint32_t wd = __ballot_sync(~0u, cw[k]);
+      npre += __popc(tr);
+      if (lane < 4)   // lanes 0-3: the trace, the teacher's masks, the winner's
+        sl[4 + lane * F + w0 + k] = lane == 0   ? tr
+                                    : lane == 1 ? (tr & cm)
+                                    : lane == 2 ? (~tr & cm)
+                                                : wd;
+    }
+  }
+  if (lane == 0) {
+    const long long y = label_bytes == 8
+                            ? static_cast<const long long*>(labels)[i]
+                            : static_cast<const int32_t*>(labels)[i];
+    long long r = y < 0 ? y + n_out : y;
+    r = r < 0 ? 0 : (r >= n_out ? n_out - 1 : r);
+    *reinterpret_cast<uint4*>(sl) = make_uint4(
+        (uint32_t)npre, (uint32_t)r,
+        (y >= 0 && y < n_out) ? (uint32_t)y : ~0u, 0u);
+  }
+}
+
+// ---- the chain's fetch: a ring of kBufs batches of kBatch slots -------- //
+
+__device__ __forceinline__ unsigned smem_addr(const void* p) {
+  return (unsigned)__cvta_generic_to_shared(p);
+}
+
+__device__ __forceinline__ void mbar_init(uint64_t* bar, unsigned count) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(
+                   smem_addr(bar)),
+               "r"(count)
+               : "memory");
+}
+
+// This thread's arrival on `bar`, expecting `bytes` more of transactions.
+__device__ __forceinline__ void mbar_expect(uint64_t* bar, unsigned bytes) {
+  asm volatile(
+      "mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::"r"(
+          smem_addr(bar)),
+      "r"(bytes)
+      : "memory");
+}
+
+__device__ __forceinline__ void mbar_wait(uint64_t* bar, unsigned parity) {
+  unsigned done = 0;
+  do {
+    asm volatile(
+        "{\n .reg .pred p;\n"
+        " mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
+        " selp.u32 %0, 1, 0, p;\n}\n"
+        : "=r"(done)
+        : "r"(smem_addr(bar)), "r"(parity)
+        : "memory");
+  } while (!done);
+}
+
+// TMA bulk copy of `bytes` (a multiple of 16, both ends 16-byte aligned)
+// from device memory into this CTA's shared memory, completing on `bar`.
+__device__ __forceinline__ void bulk_load(void* dst, const void* src,
+                                          unsigned bytes, uint64_t* bar) {
+  asm volatile(
+      "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes "
+      "[%0], [%1], %2, [%3];\n" ::"r"(smem_addr(dst)),
+      "l"(src), "r"(bytes), "r"(smem_addr(bar))
+      : "memory");
+}
+
+// The slots of the epoch, fetched by the chain warp itself: batch b
+// (samples kBatch b, ...) goes to buffer b % kBufs as one bulk copy issued
+// by lane 0 and completing on that buffer's mbarrier; a buffer is refilled
+// once the warp has read its batch.  One wait and one copy every kBatch
+// samples: a cp.async a sample cost ~170 clocks a step on the card.
+struct Ring {
+  uint32_t* buf;         // [kBufs * kBatch][SW]
+  uint64_t* bars;        // [kBufs]
+  const uint32_t* src;   // the slots in device memory
+  int SW, n;
+
+  __device__ const uint32_t* slot(int i) const {
+    return buf + (size_t)(i % (kBufs * kBatch)) * SW;
+  }
+  __device__ void issue(int b) const {   // one lane
+    const int s0 = b * kBatch;
+    if (s0 >= n) return;
+    const unsigned bytes = 4u * (unsigned)(min(kBatch, n - s0) * SW);
+    uint64_t* bar = bars + b % kBufs;
+    mbar_expect(bar, bytes);
+    bulk_load(buf + (size_t)(b % kBufs) * kBatch * SW, src + (size_t)s0 * SW,
+              bytes, bar);
+  }
+  __device__ void start() const {   // one lane: the first kBufs batches
+    for (int b = 0; b < kBufs; ++b) mbar_init(bars + b, 1);
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+    for (int b = 0; b < kBufs; ++b) issue(b);
+  }
+  __device__ void wait(int b) const {
+    mbar_wait(bars + b % kBufs, (unsigned)(b / kBufs) & 1u);
+  }
+  // After sample i is read: when it ends a batch, refill that buffer (the
+  // warp's reads ordered before the copy's writes).
+  __device__ void release(int i, int lane) const {
+    if ((i + 1) % kBatch) return;
+    __syncwarp();
+    if (lane == 0) {
+      asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+      issue((i + 1) / kBatch - 1 + kBufs);
+    }
+  }
+};
+
+// argmax order as one uint32 (larger value, larger key; ties go to the
+// lower row), with NaN above every number, as in jnp.argmax and
+// torch.argmax.  v is an integer plus an offset, so it is never -0.0.
+__device__ __forceinline__ uint32_t order_key(float v) {
+  const uint32_t b = __float_as_uint(v);
+  return v != v ? ~0u : b ^ ((uint32_t)((int32_t)b >> 31) | 0x80000000u);
+}
+
+// A field of WMAX words (its whole width on the register routes) into
+// registers.
+template <int WMAX>
+__device__ __forceinline__ void load_field(const uint32_t* p,
+                                           uint32_t (&out)[WMAX]) {
+#pragma unroll
+  for (int q = 0; q < WMAX / 4; ++q) {
+    const uint4 v = reinterpret_cast<const uint4*>(p)[q];
+    out[4 * q] = v.x; out[4 * q + 1] = v.y;
+    out[4 * q + 2] = v.z; out[4 * q + 3] = v.w;
+  }
+}
+
+// The chain with the readout in registers: lane o holds rows o + 32 k,
+// k < R, words [0, WMAX) each (zero past W); a row past n_out has offset
+// -inf, below every real row.  Per step: the next sample's header and
+// trace, loaded off the chain; popc of trace & row words, the offset add,
+// the key, one __reduce_max_sync of the keys, the sample's masks (every
+// lane, broadcast) while it is in flight, __ballot_sync / __ffs for the
+// lowest row holding the max, and the owners' writes (old & ~dep) | pot.
+// Clocks a step on an H100 at 256 -> 10 (probes/epoch_chain_probe.py,
+// one-warp copies of this loop): 536 with a cp.async a sample, 417 with
+// batched bulk copies, 362 with the 2-op key; this kernel 381.  Slower:
+// the b1 tensor-core product in the popc's place (487), two lanes a row
+// (563).  Where the loads sit moves a step by +-40 clocks between builds.
+template <int WMAX, int R>
+__device__ int chain_registers(const Ring& ring, uint32_t* planes,
+                               const float* off, int n_out, int W, int n) {
+  const int lane = threadIdx.x & 31, S = W | 1;
+  constexpr int F = WMAX;   // field_words(W) on this route
+  uint32_t pl[R][WMAX];
+  float of[R];
+#pragma unroll
+  for (int k = 0; k < R; ++k) {
+    const int row = lane + 32 * k;
+    of[k] = row < n_out ? off[row] : __int_as_float((int)0xff800000u);
+#pragma unroll
+    for (int w = 0; w < WMAX; ++w)
+      pl[k][w] = row < n_out && w < W ? planes[row * S + w] : 0u;
+  }
+  if (lane == 0) ring.start();
+  __syncwarp();
+  if (n > 0) ring.wait(0);
+  uint4 hdr = *reinterpret_cast<const uint4*>(ring.slot(0));
+  uint32_t tr[WMAX];
+  load_field<WMAX>(ring.slot(0) + 4, tr);
+  int wrong = 0;
+  for (int i = 0; i < n; ++i) {
+    const uint32_t* sl = ring.slot(i);
+    // the next sample's header and trace (stale past n)
+    const int i1 = i + 1;
+    if (i1 % kBatch == 0 && i1 < n) ring.wait(i1 / kBatch);
+    const uint4 nhdr = *reinterpret_cast<const uint4*>(ring.slot(i1));
+    uint32_t ntr[WMAX];
+    load_field<WMAX>(ring.slot(i1) + 4, ntr);
+    // readout and argmax
+    uint32_t key[R], best = 0u;
+#pragma unroll
+    for (int k = 0; k < R; ++k) {
+      int c = 0;
+#pragma unroll
+      for (int w = 0; w < WMAX; ++w) c += __popc(tr[w] & pl[k][w]);
+      key[k] = order_key(__fadd_rn((float)(2 * c - (int)hdr.x), of[k]));
+      best = max(best, key[k]);
+    }
+    const uint32_t top = __reduce_max_sync(~0u, best);
+    // this sample's masks, issued while the reduction is in flight (the
+    // compiler would hoist them above the readout)
+    asm volatile("" ::: "memory");
+    uint32_t tpot[WMAX], tdep[WMAX], wdep[WMAX];
+    load_field<WMAX>(sl + 4 + F, tpot);
+    load_field<WMAX>(sl + 4 + 2 * F, tdep);
+    load_field<WMAX>(sl + 4 + 3 * F, wdep);
+    int arg = -1;   // rows 32 k, ... in order
+#pragma unroll
+    for (int k = 0; k < R; ++k) {
+      const unsigned m = __ballot_sync(~0u, key[k] == top);
+      if (arg < 0 && m) arg = 32 * k + __ffs(m) - 1;
+    }
+    if ((uint32_t)arg != hdr.z) {   // wrong: the teacher row, then the winner
+      ++wrong;
+#pragma unroll
+      for (int k = 0; k < R; ++k) {
+        const int row = lane + 32 * k;
+        if (row == (int)hdr.y) {
+#pragma unroll
+          for (int w = 0; w < WMAX; ++w)
+            pl[k][w] = (pl[k][w] & ~tdep[w]) | tpot[w];
+        }
+        if (row == arg) {
+#pragma unroll
+          for (int w = 0; w < WMAX; ++w) pl[k][w] &= ~wdep[w];
+        }
+      }
+    }
+    ring.release(i, lane);
+    hdr = nhdr;
+#pragma unroll
+    for (int w = 0; w < WMAX; ++w) tr[w] = ntr[w];
+  }
+#pragma unroll
+  for (int k = 0; k < R; ++k) {
+    const int row = lane + 32 * k;
+#pragma unroll
+    for (int w = 0; w < WMAX; ++w)
+      if (row < n_out && w < W) planes[row * S + w] = pl[k][w];
+  }
+  return wrong;
+}
+
+// The chain with the readout as bit planes in shared memory (any width that
+// fits): lane o's rows o, o + 32, ..., popc of trace & row words.
+__device__ int chain_shared(const Ring& ring, uint32_t* planes,
+                            const float* off, int n_out, int W, int n) {
+  const int lane = threadIdx.x & 31, S = W | 1, F = field_words(W);
+  if (lane == 0) ring.start();
+  __syncwarp();
+  int wrong = 0;
+  for (int i = 0; i < n; ++i) {
+    if (i % kBatch == 0) ring.wait(i / kBatch);
+    const uint32_t* sl = ring.slot(i);
+    const uint32_t* tr = sl + 4;
+    uint32_t best = 0u, brow = ~0u;
+    for (int o = lane; o < n_out; o += 32) {
+      const uint32_t* row = planes + (size_t)o * S;
+      int c = 0;
+      for (int w = 0; w < W; ++w) c += __popc(tr[w] & row[w]);
+      const uint32_t key =
+          order_key(__fadd_rn((float)(2 * c - (int)sl[0]), off[o]));
+      if (key > best) {
+        best = key;
+        brow = o;
+      }
+    }
+    const uint32_t top = __reduce_max_sync(~0u, best);
+    const int arg = (int)__reduce_min_sync(~0u, best == top ? brow : ~0u);
+    if ((uint32_t)arg != sl[2]) {   // wrong: the teacher row, then the winner
+      uint32_t* teach = planes + (size_t)sl[1] * S;
+      uint32_t* win = planes + (size_t)arg * S;
+      for (int w = lane; w < W; w += 32) {
+        teach[w] = (teach[w] & ~sl[4 + 2 * F + w]) | sl[4 + F + w];
+        win[w] &= ~sl[4 + 3 * F + w];
+      }
+      ++wrong;
+    }
+    __syncwarp();   // the rows written before the next sample reads them
+    ring.release(i, lane);
+  }
+  return wrong;
+}
+
+// WMAX > 0: the readout in registers, WMAX words a row and R rows a lane;
+// WMAX == 0: in shared memory.  stamps (or null): clock64 at the start, at
+// the chain's start and end, after the write-back.
+template <int WMAX, int R>
 __global__ void __launch_bounds__(kEpochThreads, 1)
 column_epoch_kernel(int8_t* __restrict__ bits, int n_out, int n_in,
-                    long long ld, const uint8_t* __restrict__ pre,
-                    const void* labels, int label_bytes,
-                    const float* __restrict__ u_pot,
-                    const float* __restrict__ u_dep_t,
-                    const float* __restrict__ u_dep_w, long long ldu,
-                    const float* __restrict__ offset, int n, float p_pot,
-                    float p_dep, int32_t* __restrict__ wrong_out) {
-  extern __shared__ uint32_t smem[];
-  const int W = epoch_words(n_in), S = W | 1, SW = slot_words(W);
-  uint32_t* planes = smem;                               // [n_out][S]
-  uint32_t* ring = planes + (size_t)n_out * S;           // [kRing][SW]
-  volatile int* ready = (volatile int*)(ring + (size_t)kRing * SW);
-  volatile int* consumed = ready + kRing;                // samples done
-  float* off = (float*)(consumed + 1);                   // [n_out]
+                    long long ld, const uint32_t* __restrict__ slots, int n,
+                    const float* __restrict__ offset,
+                    int32_t* __restrict__ wrong_out, long long* stamps) {
+  extern __shared__ __align__(16) uint32_t smem[];
+  const long long t0 = clock64();
+  const int W = epoch_words(n_in), S = W | 1;
+  const Ring ring{smem, reinterpret_cast<uint64_t*>(smem + ring_words(W)),
+                  slots, slot_words(W), n};
+  uint32_t* planes = smem + ring_words(W) + 2 * kBufs;       // [n_out][S]
+  float* off = reinterpret_cast<float*>(planes + (size_t)n_out * S);
   const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
 
-  for (int t = warp; t < n_out * W; t += kEpochWarps) {
-    const int o = t / W, w = t - o * W, j = 32 * w + lane;
-    const unsigned m = __ballot_sync(~0u, j < n_in && bits[o * ld + j] != 0);
-    if (lane == 0) planes[(size_t)o * S + w] = m;
+  // stage the readout as planes: 4 words a warp at once
+  const int tasks = n_out * W;
+  for (int t4 = 4 * warp; t4 < tasks; t4 += 4 * kEpochWarps) {
+    bool b[4];
+#pragma unroll
+    for (int k = 0; k < 4; ++k) {
+      const int t = t4 + k, o = t / W, j = 32 * (t - o * W) + lane;
+      b[k] = t < tasks && j < n_in && bits[o * ld + j] != 0;
+    }
+#pragma unroll
+    for (int k = 0; k < 4; ++k) {
+      const unsigned m = __ballot_sync(~0u, b[k]);
+      const int t = t4 + k, o = t / W;
+      if (lane == 0 && t < tasks) planes[(size_t)o * S + (t - o * W)] = m;
+    }
   }
   for (int o = threadIdx.x; o < n_out; o += blockDim.x)
     off[o] = offset ? offset[o] : 0.f;
-  for (int s = threadIdx.x; s < kRing; s += blockDim.x) ready[s] = 0;
-  if (threadIdx.x == 0) *consumed = 0;
   __syncthreads();
 
   if (warp == 0) {
-    // the chain: one sample after another, this warp alone
-    int wrong_total = 0;
-    for (int i = 0; i < n; ++i) {
-      const int slot = i % kRing;
-      for (long long spin = 0; ready[slot] != i + 1;)
-        if (++spin > kSpinLimit) __trap();
-      __threadfence_block();
-      const uint32_t* sl = ring + (size_t)slot * SW;
-      const int npre = (int)sl[5 * W];
-      float best = __int_as_float((int)0xff800000u);   // -inf
-      int arg = 0x7fffffff;
-      for (int o = lane; o < n_out; o += 32) {
-        const uint32_t* row = planes + (size_t)o * S;
-        int c = 0;
-        for (int w = 0; w < W; ++w) c += __popc(sl[w] & row[w]);
-        const float v = __fadd_rn((float)(2 * c - npre), off[o]);
-        if (beats(v, o, best, arg)) {
-          best = v;
-          arg = o;
-        }
-      }
-#pragma unroll
-      for (int d = 16; d > 0; d >>= 1) {
-        const float v = __shfl_xor_sync(~0u, best, d);
-        const int o = __shfl_xor_sync(~0u, arg, d);
-        if (beats(v, o, best, arg)) {
-          best = v;
-          arg = o;
-        }
-      }
-      if ((uint32_t)arg != sl[5 * W + 2]) {   // wrong: both rows learn
-        uint32_t* teach = planes + (size_t)sl[5 * W + 1] * S;
-        uint32_t* win = planes + (size_t)arg * S;
-        for (int w = lane; w < W; w += 32) {
-          teach[w] = (teach[w] & ~sl[2 * W + w]) | sl[W + w];
-          win[w] = (win[w] & ~sl[4 * W + w]) | sl[3 * W + w];
-        }
-        ++wrong_total;
-      }
-      __syncwarp();
-      if (lane == 0) {
-        __threadfence_block();
-        *consumed = i + 1;
-      }
-    }
-    if (lane == 0) *wrong_out = wrong_total;
-  } else {
-    // packing: warp p takes samples p-1, p-1+kPackers, ... into the ring
-    for (int i = warp - 1; i < n; i += kPackers) {
-      const size_t base = (size_t)i * n_in, ubase = (size_t)i * ldu;
-      if (lane == 0)
-        for (long long spin = 0; *consumed <= i - kRing; __nanosleep(64))
-          if (++spin > kSpinLimit >> 6) __trap();
-      __syncwarp();
-      __threadfence_block();
-      uint32_t* sl = ring + (size_t)(i % kRing) * SW;
-      int npre = 0;
-      for (int w0 = 0; w0 < W; w0 += kChunk) {
-        uint8_t pv[kChunk];
-        float up[kChunk], ut[kChunk], uw[kChunk];
-#pragma unroll
-        for (int k = 0; k < kChunk; ++k) {
-          const int j = 32 * (w0 + k) + lane;
-          const bool in = j < n_in;
-          pv[k] = in ? __ldg(pre + base + j) : 0;
-          up[k] = in ? __ldg(u_pot + ubase + j) : 0.f;
-          ut[k] = in ? __ldg(u_dep_t + ubase + j) : 0.f;
-          uw[k] = in ? __ldg(u_dep_w + ubase + j) : 0.f;
-        }
-#pragma unroll
-        for (int k = 0; k < kChunk; ++k) {
-          const int w = w0 + k;
-          const bool in = 32 * w + lane < n_in;
-          const unsigned tr = __ballot_sync(~0u, in && pv[k] != 0);
-          const unsigned cp = __ballot_sync(~0u, in && up[k] < p_pot);
-          const unsigned ct = __ballot_sync(~0u, in && ut[k] < p_dep);
-          const unsigned c0 = __ballot_sync(~0u, in && uw[k] < 0.f);
-          const unsigned cw = __ballot_sync(~0u, in && uw[k] < p_dep);
-          npre += __popc(tr);
-          if (lane == 0 && w < W) {
-            sl[w] = tr;
-            sl[W + w] = tr & cp;          // teacher: potentiate where pre
-            sl[2 * W + w] = ~tr & ct;     // teacher: depress where silent
-            sl[3 * W + w] = ~tr & c0;     // winner (trace !pre, p_pot 0)
-            sl[4 * W + w] = tr & cw;      // winner: depress where pre
-          }
-        }
-      }
-      if (lane == 0) {
-        const long long y = label_bytes == 8
-                                ? static_cast<const long long*>(labels)[i]
-                                : static_cast<const int32_t*>(labels)[i];
-        long long r = y < 0 ? y + n_out : y;
-        r = r < 0 ? 0 : (r >= n_out ? n_out - 1 : r);
-        sl[5 * W] = (uint32_t)npre;
-        sl[5 * W + 1] = (uint32_t)r;
-        sl[5 * W + 2] = (y >= 0 && y < n_out) ? (uint32_t)y : ~0u;
-        __threadfence_block();
-        ready[i % kRing] = i + 1;
+    const long long t1 = clock64();
+    int wrong;
+    if constexpr (WMAX > 0)
+      wrong = chain_registers<WMAX, R>(ring, planes, off, n_out, W, n);
+    else
+      wrong = chain_shared(ring, planes, off, n_out, W, n);
+    const long long t2 = clock64();
+    if (lane == 0) {
+      *wrong_out = wrong;
+      if (stamps) {
+        stamps[0] = t0;
+        stamps[1] = t1;
+        stamps[2] = t2;
       }
     }
   }
@@ -266,6 +548,23 @@ column_epoch_kernel(int8_t* __restrict__ bits, int n_out, int n_in,
     const int o = (int)(t / n_in), j = (int)(t - (long long)o * n_in);
     bits[o * ld + j] = (int8_t)((planes[(size_t)o * S + (j >> 5)] >> (j & 31)) & 1u);
   }
+  __syncthreads();
+  if (stamps && threadIdx.x == 0) stamps[3] = clock64();
+}
+
+template <int WMAX, int R>
+int launch_epoch(size_t smem, cudaStream_t stream, int8_t* bits, int n_out,
+                 int n_in, long long ld, const uint32_t* slots, int n,
+                 const float* offset, int32_t* wrong, long long* stamps) {
+  auto kernel = column_epoch_kernel<WMAX, R>;
+  if (smem > 48 * 1024) {
+    const cudaError_t err = cudaFuncSetAttribute(
+        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+    if (err != cudaSuccess) return (int)err;
+  }
+  kernel<<<1, kEpochThreads, smem, stream>>>(bits, n_out, n_in, ld, slots, n,
+                                             offset, wrong, stamps);
+  return (int)cudaGetLastError();
 }
 
 }  // namespace
@@ -320,32 +619,58 @@ long long stdp_max_shared_optin(int device) {
   return v;
 }
 
-// One epoch of n column-event samples on bits int8[n_out, n_in] (row stride
-// ld), in place, in ONE block: pre uint8[n, n_in]; labels int32 or int64
-// (label_bytes 4 or 8) [n]; u_pot, u_dep_t, u_dep_w float32[n, n_in] with
-// row stride ldu; offset float32[n_out] or null (no offset).  *wrong gets
-// the number of wrong samples.  Returns cudaGetLastError().
-int stdp_column_epoch(void* bits, int n_out, int n_in, long long ld,
-                      const void* pre, const void* labels, int label_bytes,
-                      const void* u_pot, const void* u_dep_t,
-                      const void* u_dep_w, long long ldu, const void* offset,
-                      int n, float p_pot, float p_dep, void* wrong,
-                      void* stream) {
+// The epoch's slots, one a sample: slots uint32[n, 4 + 4 F] with F =
+// field_words(ceil(n_in / 32)) (16-byte aligned; ref.epoch_slot_words);
+// pre uint8[n, n_in] with row stride ldp; labels int32 or int64
+// (label_bytes 4 or 8) [n]; key int64[2] (two uint32 words); t_pot, t_dep:
+// uniform_threshold(p_pot), uniform_threshold(p_dep).  Returns
+// cudaGetLastError() (0 without a launch when n is 0).
+int stdp_epoch_masks(void* slots, const void* pre, long long ldp, int n,
+                     int n_in, int n_out, const void* labels, int label_bytes,
+                     const void* key, unsigned t_pot, unsigned t_dep,
+                     void* stream) {
   if (n_out < 1 || n_in < 1 || n < 0 || (label_bytes != 4 && label_bytes != 8))
     return (int)cudaErrorInvalidValue;
-  const size_t smem = epoch_smem_bytes(n_out, n_in);
-  if (smem > 48 * 1024) {
-    const cudaError_t err = cudaFuncSetAttribute(
-        column_epoch_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-        (int)smem);
-    if (err != cudaSuccess) return (int)err;
-  }
-  column_epoch_kernel<<<1, kEpochThreads, smem, (cudaStream_t)stream>>>(
-      (int8_t*)bits, n_out, n_in, ld, (const uint8_t*)pre, labels,
-      label_bytes, (const float*)u_pot, (const float*)u_dep_t,
-      (const float*)u_dep_w, ldu, (const float*)offset, n, p_pot, p_dep,
-      (int32_t*)wrong);
+  if (n == 0) return 0;
+  const int grid = (n + kMaskWarps - 1) / kMaskWarps;
+  epoch_masks_kernel<<<grid, kMaskWarps * 32, 0, (cudaStream_t)stream>>>(
+      (uint32_t*)slots, (const uint8_t*)pre, ldp, n, n_in, n_out, labels,
+      label_bytes, (const long long*)key, t_pot, t_dep);
   return (int)cudaGetLastError();
+}
+
+// One epoch of n samples on bits int8[n_out, n_in] (row stride ld), in
+// place, in ONE block, from the slots stdp_epoch_masks wrote; offset
+// float32[n_out] or null (no offset).  (wmax, rows): the readout in
+// registers, wmax words a row (8, 16 or 32) and rows a lane (1, or 2 with
+// wmax <= 16), or (0, 0): in shared memory.  *wrong gets the number of wrong
+// samples; stamps int64[4] or null.  Returns cudaGetLastError().
+int stdp_column_epoch(void* bits, int n_out, int n_in, long long ld,
+                      const void* slots, int n, const void* offset, int wmax,
+                      int rows, void* wrong, void* stamps, void* stream) {
+  if (n_out < 1 || n_in < 1 || n < 0) return (int)cudaErrorInvalidValue;
+  if (wmax != 0 && (field_words(epoch_words(n_in)) != wmax ||
+                    (n_out + 31) / 32 != rows))
+    return (int)cudaErrorInvalidValue;
+  const size_t smem = epoch_smem_bytes(n_out, n_in);
+  const cudaStream_t st = (cudaStream_t)stream;
+  int8_t* b = (int8_t*)bits;
+  const uint32_t* sl = (const uint32_t*)slots;
+  const float* off = (const float*)offset;
+  int32_t* wr = (int32_t*)wrong;
+  long long* ts = (long long*)stamps;
+#define STDP_EPOCH_ROUTE(WM, R)                                         \
+  if (wmax == WM && rows == R)                                          \
+    return launch_epoch<WM, R>(smem, st, b, n_out, n_in, ld, sl, n, off, \
+                               wr, ts);
+  STDP_EPOCH_ROUTE(8, 1)
+  STDP_EPOCH_ROUTE(16, 1)
+  STDP_EPOCH_ROUTE(32, 1)
+  STDP_EPOCH_ROUTE(8, 2)
+  STDP_EPOCH_ROUTE(16, 2)
+  STDP_EPOCH_ROUTE(0, 0)
+#undef STDP_EPOCH_ROUTE
+  return (int)cudaErrorInvalidValue;
 }
 
 const char* stdp_error_string(int err) {

@@ -1,7 +1,10 @@
 """Wrappers of the transposed-port STDP kernels, dispatched by device.
 
 ``stdp_column_epoch`` is what the online-learning epoch issues: a whole
-epoch of column events in one launch, the readout resident on the chip.
+epoch of column events from a key, in two launches on the card:
+``stdp_epoch_masks`` draws the epoch's uniforms itself (the reference's
+threefry bits) and packs the rule's masks, then one warp runs the chain with
+the readout in its registers.
 ``stdp_column_event`` is one learning neuron's row of the transposed
 layout, written in place, with the row index and the gate in device memory.
 ``stdp_update`` is the full-matrix rule behind ``learning.stdp_update``.
@@ -17,20 +20,27 @@ import ctypes
 
 import torch
 
+from repro_torch.core import packing
 from repro_torch.kernels import _build
 from repro_torch.kernels.common import check_cuda_operands, on_cpu, stream_ptr
 from repro_torch.kernels.stdp.ref import (  # noqa: F401  (re-export)
+    column_event_uniforms,
+    epoch_slot_words,
     f32,
     stdp_column_epoch_ref,
     stdp_column_event_ref,
+    stdp_epoch_masks_ref,
     stdp_update_ref,
+    uniform_threshold,
 )
 
 __all__ = [
     "stdp_column_epoch",
+    "stdp_epoch_masks",
     "stdp_column_event",
     "stdp_update",
     "stdp_column_epoch_ref",
+    "stdp_epoch_masks_ref",
     "stdp_column_event_ref",
     "stdp_update_ref",
     "launch_counts",
@@ -38,8 +48,8 @@ __all__ = [
 ]
 
 #: kernel launches since the last reset, per kernel
-_LAUNCHES = {"stdp_column_epoch": 0, "stdp_column_event": 0,
-             "stdp_update": 0}
+_LAUNCHES = {"stdp_epoch_masks": 0, "stdp_column_epoch": 0,
+             "stdp_column_event": 0, "stdp_update": 0}
 
 _BYTE_TYPES = (torch.bool, torch.int8, torch.uint8)
 
@@ -61,8 +71,12 @@ def _declare(lib: ctypes.CDLL) -> None:
     lib.stdp_column_event.restype = i32
     lib.stdp_update.argtypes = [vp, vp, i32, i32, vp, vp, vp, vp, f, f, vp]
     lib.stdp_update.restype = i32
+    lib.stdp_epoch_masks.argtypes = [
+        vp, vp, i64, i32, i32, i32, vp, i32, vp, ctypes.c_uint,
+        ctypes.c_uint, vp]
+    lib.stdp_epoch_masks.restype = i32
     lib.stdp_column_epoch.argtypes = [
-        vp, i32, i32, i64, vp, vp, i32, vp, vp, vp, i64, vp, i32, f, f, vp, vp]
+        vp, i32, i32, i64, vp, i32, vp, i32, i32, vp, vp, vp]
     lib.stdp_column_epoch.restype = i32
     lib.stdp_column_epoch_smem_bytes.argtypes = [i32, i32]
     lib.stdp_column_epoch_smem_bytes.restype = i64
@@ -88,47 +102,122 @@ def _check_vec(name: str, t: torch.Tensor, n: int, dtype=None) -> None:
         raise TypeError(f"{name} must be {dtype}, got {t.dtype}")
 
 
+def _check_epoch_operands(pre, labels, key, n_in=None) -> None:
+    if pre.dim() != 2 or (n_in is not None and pre.shape[1] != n_in):
+        raise ValueError(f"pre must be [n, {n_in or 'N_in'}], got "
+                         f"{tuple(pre.shape)}")
+    _check_vec("labels", labels, pre.shape[0])
+    if labels.dtype not in (torch.int32, torch.int64):
+        raise TypeError(f"labels must be int32 or int64, got {labels.dtype}")
+    if tuple(key.shape) != (2,) or key.dtype != torch.int64:
+        raise ValueError(f"key must be an int64[2] key, got "
+                         f"{key.dtype}{list(key.shape)}")
+
+
+def _epoch_route(n_out: int, n_in: int) -> tuple[int, int]:
+    """Where the epoch kernel keeps the readout: (words a row, rows a lane)
+    in the chain warp's registers, or (0, 0) in shared memory.  Lane o holds
+    rows o and o + 32: 8, 16 or 32 words of one row, or 8 or 16 words of
+    two.  Wider or taller readouts stay in shared memory."""
+    w, rows = packing.packed_width(n_in), -(-n_out // 32)
+    for wmax in (8, 16, 32):
+        if w <= wmax and (rows == 1 or (rows == 2 and wmax <= 16)):
+            return wmax, rows
+    return 0, 0
+
+
+def stdp_epoch_masks(
+    pre: torch.Tensor,      # {0,1}[n, N_in] pre-synaptic traces
+    labels: torch.Tensor,   # int32/int64 [n] teacher classes
+    key: torch.Tensor,      # int64[2] the epoch's key
+    n_out: int,
+    *,
+    p_pot: float,
+    p_dep: float,
+) -> torch.Tensor:
+    """The epoch's draws and rule masks, one slot a sample (see
+    ``stdp_epoch_masks_ref``): int32 ``[n, epoch_slot_words(N_in)]``.  On
+    the card one launch, one warp a sample, that draws the reference's
+    threefry bits itself; the key stays in device memory."""
+    _check_epoch_operands(pre, labels, key)
+    if n_out < 1:
+        raise ValueError(f"n_out must be positive, got {n_out}")
+    if on_cpu(pre, labels, key):
+        return stdp_epoch_masks_ref(pre, labels, key, n_out, p_pot, p_dep)
+    dev = check_cuda_operands({"pre": pre, "labels": labels, "key": key})
+    n, n_in = pre.shape
+    pre, labels, key = _byte_mask(pre), labels.contiguous(), key.contiguous()
+    slots = torch.empty((n, epoch_slot_words(n_in)), dtype=torch.int32,
+                        device=dev)
+    if n == 0:
+        return slots
+    kl = _library()
+    with torch.cuda.device(dev):
+        err = kl.lib.stdp_epoch_masks(
+            slots.data_ptr(), pre.data_ptr(), pre.stride(0), n, n_in, n_out,
+            labels.data_ptr(), labels.element_size(), key.data_ptr(),
+            uniform_threshold(p_pot), uniform_threshold(p_dep),
+            stream_ptr(dev))
+    _build.check(kl, err, "stdp_epoch_masks launch")
+    _LAUNCHES["stdp_epoch_masks"] += 1
+    return slots
+
+
+def _epoch_chain(bits_t: torch.Tensor, slots: torch.Tensor,
+                 out_offset: torch.Tensor | None,
+                 stamps: torch.Tensor | None = None) -> torch.Tensor:
+    """The epoch's chain on the card over ``stdp_epoch_masks``' slots, in
+    place; returns the wrong count (int32 device scalar).  ``stamps``
+    (int64[4], or None) gets the kernel's clock64 at its start, the chain's
+    start and end, and after the write-back."""
+    n_out, n_in = bits_t.shape
+    dev = bits_t.device
+    kl = _library()
+    wmax, rows = _epoch_route(n_out, n_in)
+    wrong = torch.empty((), dtype=torch.int32, device=dev)
+    with torch.cuda.device(dev):
+        err = kl.lib.stdp_column_epoch(
+            bits_t.data_ptr(), n_out, n_in, bits_t.stride(0),
+            slots.data_ptr(), slots.shape[0],
+            None if out_offset is None else out_offset.data_ptr(), wmax,
+            rows, wrong.data_ptr(),
+            None if stamps is None else stamps.data_ptr(), stream_ptr(dev))
+    _build.check(kl, err, "stdp_column_epoch launch")
+    _LAUNCHES["stdp_column_epoch"] += 1
+    return wrong
+
+
 def stdp_column_epoch(
     bits_t: torch.Tensor,   # {0,1} int8 [N_out, N_in], updated in place
     pre: torch.Tensor,      # {0,1}[n, N_in] pre-synaptic traces
     labels: torch.Tensor,   # int32/int64 [n] teacher classes
-    u_pot: torch.Tensor,    # float32[n, N_in]
-    u_dep_t: torch.Tensor,  # float32[n, N_in]
-    u_dep_w: torch.Tensor,  # float32[n, N_in]
+    key: torch.Tensor,      # int64[2] the epoch's key
     out_offset: torch.Tensor | None = None,   # float32[N_out]
     *,
     p_pot: float,
     p_dep: float,
 ) -> torch.Tensor:
-    """A whole supervised column-event epoch on ``bits_t``, in place (see
-    ``stdp_column_epoch_ref``); returns the number of wrong samples as an
-    int32 scalar on the device.  On the card it is one launch of one block
-    that keeps the readout in shared memory; a readout too large for that
-    raises ``ValueError``."""
+    """A whole supervised column-event epoch on ``bits_t``, in place, with
+    sample i's draws ``column_event_uniforms(key, i)``; returns the number of
+    wrong samples as an int32 scalar on the device.  On the CPU: the draws
+    through ``core/prng.py``, then ``stdp_column_epoch_ref``.  On the card
+    two launches and no host sync: ``stdp_epoch_masks`` draws and packs over
+    the whole card, then one block's warp runs the chain with the readout
+    in its registers (``_epoch_route``) or in shared memory; a readout too
+    large for one block raises ``ValueError``."""
     if bits_t.dim() != 2:
         raise ValueError(f"bits_t must be [N_out, N_in], got "
                          f"{tuple(bits_t.shape)}")
     n_out, n_in = bits_t.shape
-    if pre.dim() != 2 or pre.shape[1] != n_in:
-        raise ValueError(f"pre must be [n, {n_in}], got {tuple(pre.shape)}")
-    n = pre.shape[0]
-    _check_vec("labels", labels, n)
-    if labels.dtype not in (torch.int32, torch.int64):
-        raise TypeError(f"labels must be int32 or int64, got {labels.dtype}")
-    for name, u in (("u_pot", u_pot), ("u_dep_t", u_dep_t),
-                    ("u_dep_w", u_dep_w)):
-        if tuple(u.shape) != (n, n_in) or u.dtype != torch.float32:
-            raise ValueError(f"{name} must be float32[{n}, {n_in}], got "
-                             f"{u.dtype}{list(u.shape)}")
-    operands = {"bits_t": bits_t, "pre": pre, "labels": labels,
-                "u_pot": u_pot, "u_dep_t": u_dep_t, "u_dep_w": u_dep_w}
+    _check_epoch_operands(pre, labels, key, n_in)
+    operands = {"bits_t": bits_t, "pre": pre, "labels": labels, "key": key}
     if out_offset is not None:
         _check_vec("out_offset", out_offset, n_out, torch.float32)
         operands["out_offset"] = out_offset
     if on_cpu(*operands.values()):
-        new, wrong = stdp_column_epoch_ref(bits_t, pre, labels, u_pot,
-                                           u_dep_t, u_dep_w, out_offset,
-                                           p_pot, p_dep)
+        u = column_event_uniforms(key, torch.arange(pre.shape[0]), n_in)
+        new, wrong = stdp_column_epoch_ref(bits_t, pre, labels, *u,
+                                           out_offset, p_pot, p_dep)
         bits_t.copy_(new)
         return wrong
     dev = check_cuda_operands(operands)
@@ -142,25 +231,10 @@ def stdp_column_epoch(
             f"a [{n_out}, {n_in}] readout needs {smem} B of shared memory in "
             f"the epoch kernel's one block; the card allows {limit} B per "
             "block (cudaDevAttrMaxSharedMemoryPerBlockOptin)")
-    pre, labels = _byte_mask(pre), labels.contiguous()
-    # the three draws share one row stride (the slices of one [n, 3, N_in]
-    # draw do) or are made contiguous
-    us = [u if u.stride(1) == 1 else u.contiguous()
-          for u in (u_pot, u_dep_t, u_dep_w)]
-    if len({u.stride(0) for u in us}) != 1:
-        us = [u.contiguous() for u in us]
+    slots = stdp_epoch_masks(pre, labels, key, n_out, p_pot=p_pot,
+                             p_dep=p_dep)
     off = None if out_offset is None else out_offset.contiguous()
-    wrong = torch.empty((), dtype=torch.int32, device=dev)
-    with torch.cuda.device(dev):
-        err = kl.lib.stdp_column_epoch(
-            bits_t.data_ptr(), n_out, n_in, bits_t.stride(0), pre.data_ptr(),
-            labels.data_ptr(), labels.element_size(), us[0].data_ptr(),
-            us[1].data_ptr(), us[2].data_ptr(), us[0].stride(0),
-            None if off is None else off.data_ptr(), n, f32(p_pot),
-            f32(p_dep), wrong.data_ptr(), stream_ptr(dev))
-    _build.check(kl, err, "stdp_column_epoch launch")
-    _LAUNCHES["stdp_column_epoch"] += 1
-    return wrong
+    return _epoch_chain(bits_t, slots, off)
 
 
 def stdp_column_event(

@@ -8,19 +8,41 @@ depresses (bit -> 0) when it was silent and ``u_dep < p_dep``; ``p_pot`` and
 ``p_dep`` are compared in float32, as the reference compares its float32
 uniforms against them.  ``stdp_column_epoch_ref`` is a whole epoch of
 column events, the reference's ``column_event_epoch`` scan body sample by
-sample.  The CUDA kernels of ``csrc/stdp.cu`` are held bit for bit against
-these.  All return new tensors.
+sample.  ``column_event_uniforms`` is that scan's draw (``core/prng.py``,
+so the reference's bits), and ``stdp_epoch_masks_ref`` what the card's
+epoch makes of it: one slot a sample of the rule's masks, packed.  The CUDA
+kernels of ``csrc/stdp.cu`` are held bit for bit against these.  All
+return new tensors.
 """
 
 from __future__ import annotations
 
+import math
+
 import numpy as np
 import torch
+
+from repro_torch.core import packing, prng
 
 
 def f32(p: float) -> float:
     """``p`` rounded to float32 (the precision the rule compares in)."""
     return float(np.float32(p))
+
+
+def uniform_threshold(p: float) -> int:
+    """The integer ``t`` with ``u < p`` exactly when ``(bits >> 9) < t``.
+
+    A uniform is ``(bits >> 9) * 2^-23`` exactly (``prng.uniform``), so
+    ``u < p`` (``p`` rounded to float32) is ``bits >> 9 < p * 2^23``, which
+    for an integer is ``< ceil(p * 2^23)``; clamped to ``[0, 2^23]``, and 0
+    for NaN (no uniform is below NaN).  The epoch kernel compares so."""
+    p = f32(p)
+    if not p > 0.0:
+        return 0
+    if p >= 1.0:
+        return 1 << 23
+    return math.ceil(p * (1 << 23))
 
 
 def _rule(old, pre, u_pot, u_dep, p_pot, p_dep):
@@ -66,6 +88,68 @@ def stdp_column_event_ref(
     new = _rule(old, pre != 0, u_pot, u_dep, p_pot, p_dep)
     gate = torch.as_tensor(apply, device=bits_t.device) != 0
     return bits_t.index_copy(0, idx, torch.where(gate, new, old)[None])
+
+
+def column_event_uniforms(
+    key: torch.Tensor, sample_index, n_in: int
+) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """Per-sample uniforms for the <= 2 event columns of supervised STDP.
+
+    ``fold_in(key, i)`` per sample, then phase 0 potentiates / phase 1
+    depresses the teacher column, phase 2 depresses the wrong-winner column.
+    ``sample_index`` is an int or an integer tensor of indices; each output
+    is float32 ``[*sample_index.shape, n_in]``, all drawn in one call."""
+    idx = torch.as_tensor(sample_index, device=key.device)
+    ks = prng.fold_in(key, idx)
+    phase = torch.arange(3, dtype=torch.int64, device=key.device)
+    u = prng.uniform(prng.fold_in(ks[..., None, :], phase), (n_in,))
+    return u[..., 0, :], u[..., 1, :], u[..., 2, :]
+
+
+def epoch_slot_words(n_in: int) -> int:
+    """int32 words of one sample's slot: a 4-word header and four fields of
+    ``W = ceil(n_in / 32)`` words rounded up to 8, 16 or 32 (the epoch
+    kernel's register routes read a whole field) or, past 32, to 4."""
+    w = packing.packed_width(n_in)
+    field = next((f for f in (8, 16, 32) if w <= f), -(-w // 4) * 4)
+    return 4 + 4 * field
+
+
+def stdp_epoch_masks_ref(
+    pre: torch.Tensor,      # {0,1}[n, N_in] pre-synaptic traces
+    labels: torch.Tensor,   # integer [n] teacher classes
+    key: torch.Tensor,      # int64[2] the epoch's key
+    n_out: int,
+    p_pot: float,
+    p_dep: float,
+) -> torch.Tensor:
+    """The epoch's slots, one a sample ``i`` (its position in the epoch):
+    int32 ``[n, epoch_slot_words(N_in)]``.
+
+    Header: the trace's popcount, the teacher row (the label wrapped once if
+    negative, then clamped), the label as the argmax compares it (-1, i.e.
+    ``~0u``, when outside ``[0, n_out)``), 0.  Then four packed fields,
+    zero past the trace: the trace; the teacher's potentiate mask (trace 1
+    and ``u_pot < p_pot``) and depress mask (trace 0 and ``u_dep_t <
+    p_dep``); the winner's depress mask (trace 1 and ``u_dep_w < p_dep``;
+    the winner learns on the inverted trace with ``p_pot`` 0, so it never
+    potentiates).  The draws are ``column_event_uniforms(key, i)``."""
+    n, n_in = pre.shape
+    pre = pre != 0
+    u_pot, u_dep_t, u_dep_w = column_event_uniforms(
+        key, torch.arange(n, device=pre.device), n_in)
+    masks = (pre, pre & (u_pot < f32(p_pot)), ~pre & (u_dep_t < f32(p_dep)),
+             pre & (u_dep_w < f32(p_dep)))
+    field = (epoch_slot_words(n_in) - 4) // 4
+    words = [torch.nn.functional.pad(packing.pack_spikes(m),
+                                     (0, field - packing.packed_width(n_in)))
+             for m in masks]
+    y = labels.long()
+    teach = torch.where(y < 0, y + n_out, y).clamp(0, n_out - 1)
+    compared = torch.where((y >= 0) & (y < n_out), y, -1)
+    header = torch.stack((pre.sum(-1), teach, compared, torch.zeros_like(y)),
+                         -1).to(torch.int32)
+    return torch.cat([header, *words], -1)
 
 
 def stdp_column_epoch_ref(

@@ -10,8 +10,8 @@ transposable port (Sec 4.4.1):
   eval splits, and is reused by every epoch;
 * the readout bits stay transposed-resident (``{0,1}[n_out, n_in]``) on the
   device across epochs, updated in place by ``learning.column_event_epoch``:
-  one up-front draw of the epoch's uniforms and one ``stdp_column_epoch``
-  launch an epoch on the card;
+  two launches an epoch on the card, ``stdp_epoch_masks`` (which draws the
+  epoch's uniforms inside the kernel) and ``stdp_column_epoch``;
 * accuracy is read per epoch from the resident layout, and checkpoints are
   written through ``checkpoint.io`` in the network's ``[n_in, n_out]``
   layout, the reference's format, so either package resumes the other's.

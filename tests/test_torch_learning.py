@@ -4,9 +4,9 @@ The same numpy-made networks, spikes and labels, and the same PRNGKey, go
 through both packages; the port draws its own uniforms (core/prng.py) and
 must give the same bits.  Tolerance 0 everywhere: weight bits, spikes,
 V_mem and update counts are equal, at ragged widths, p of 0 and 1 and with
-a label outside [0, n_out) too.  Tests that need a card (the epoch on
-the CUDA kernels against the same epoch on the CPU) carry the ``cuda``
-marker and skip here."""
+a label outside [0, n_out) too.  The epoch on the CUDA kernels against the
+same epoch on the CPU is in ``test_torch_learning_cuda.py``, which imports
+no JAX so that it runs on the card's machine."""
 
 from __future__ import annotations
 
@@ -185,6 +185,30 @@ def test_column_event_epoch_widths_probabilities_and_labels(
     assert int(got_n) == int(want_n)
 
 
+@pytest.mark.parametrize("key", [(0xDEADBEEF, 0x9E3779B9), (0x80000000, 0)])
+@pytest.mark.parametrize("p_pot,p_dep", [(0.0, 1.0), (1.0, 0.0), (0.25, 0.2)])
+def test_column_event_epoch_keys_and_infinite_offset(key, p_pot, p_dep):
+    """Keys made with numpy whose words are past 2^31, p of 0 and 1, and an
+    offset holding +inf and -inf, through ``learning.column_event_epoch``."""
+    rng = np.random.default_rng(21)
+    bits_t = rng.integers(0, 2, size=(10, 70), dtype=np.int8)
+    pre, y = _data(22, 40, 70, 10, density=0.45)
+    off = rng.normal(size=10).astype(np.float32)
+    off[1], off[7] = np.inf, -np.inf
+    words = np.array(key, dtype=np.uint32)
+    want_b, want_n = jl.column_event_epoch(
+        jnp.asarray(bits_t), jnp.asarray(pre), jnp.asarray(y),
+        jnp.asarray(words), p_pot=p_pot, p_dep=p_dep,
+        out_offset=jnp.asarray(off))
+    t = torch.from_numpy(bits_t.copy())
+    got_b, got_n = learning.column_event_epoch(
+        t, torch.from_numpy(pre), torch.from_numpy(y),
+        torch.from_numpy(words.astype(np.int64)), p_pot=p_pot, p_dep=p_dep,
+        out_offset=torch.from_numpy(off))
+    np.testing.assert_array_equal(got_b.numpy(), np.asarray(want_b))
+    assert int(got_n) == int(want_n) > 0
+
+
 @pytest.mark.parametrize("topo", [(70, 32, 32, 10), (70, 40, 10)])
 @pytest.mark.parametrize("given_pre", [False, True])
 def test_online_learning_epoch(topo, given_pre):
@@ -244,46 +268,3 @@ def test_network_numpy_round_trip():
         assert a.dtype == b.dtype
     b2[0][0, 0] ^= 1                                  # copies, not views
     assert net.weight_bits[0][0, 0] == bits[0][0, 0]
-
-
-# ----------------------------------------------------------------------- #
-# on the card: the same epochs through the CUDA kernels
-# ----------------------------------------------------------------------- #
-@pytest.fixture
-def cuda():
-    if not torch.cuda.is_available():
-        pytest.skip("needs an NVIDIA GPU (CUDA kernels have no CPU mode)")
-    return torch.device("cuda")
-
-
-@pytest.mark.cuda
-@pytest.mark.parametrize("topo", [(768, 256, 256, 256, 10), (70, 40, 10)])
-def test_cuda_epochs_match_cpu(cuda, topo):
-    from repro_torch.kernels.cim_matmul_packed import ops as packed_ops
-    from repro_torch.kernels.stdp import ops as stdp_ops
-
-    bits, vth = _net(topo, 17, tied=True)
-    x, y = _data(18, 300, topo[0], topo[-1])
-    out = {}
-    for dev in ("cpu", cuda):
-        stdp_ops.reset_launch_counts()
-        packed_ops.reset_launch_counts()
-        b, n = learning.online_learning_epoch(
-            [t.to(dev) for t in _t(bits)], [t.to(dev) for t in _t(vth)],
-            x, y, prng.PRNGKey(3), p_pot=0.2, p_dep=0.1)
-        s, ns = learning.online_learning_epoch_scan(
-            [t.to(dev) for t in _t(bits)], [t.to(dev) for t in _t(vth)],
-            x[:20], y[:20], prng.PRNGKey(3), p_pot=0.2, p_dep=0.1)
-        out[str(dev)] = (b.cpu(), int(n), s.cpu(), int(ns),
-                         stdp_ops.launch_counts(),
-                         packed_ops.launch_counts())
-    cpu, gpu = out["cpu"], out[str(cuda)]
-    assert torch.equal(cpu[0], gpu[0]) and cpu[1] == gpu[1]
-    assert torch.equal(cpu[2], gpu[2]) and cpu[3] == gpu[3]
-    # the epoch is one stdp_column_epoch launch; no per-sample events
-    assert gpu[4] == {"stdp_column_epoch": 1, "stdp_column_event": 0,
-                      "stdp_update": 40}
-    hidden_packed = all(n % 32 == 0 for n in topo[1:-1])
-    assert gpu[5] == {"fused_fire_packed":
-                      len(topo) - 2 if hidden_packed else 0,
-                      "cim_matmul_packed": 0}

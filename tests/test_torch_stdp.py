@@ -4,12 +4,16 @@ On the CPU the port's plain versions of the column-event and full-matrix
 STDP kernels are held bit for bit against the reference's Pallas kernels in
 interpret mode and against its jnp oracles, on inputs made with numpy from a
 seed (odd widths, the gate on and off, the wrong-winner event's p_pot = 0).
-The plain epoch, fed the port's column-event draws, is held bit for bit
-against the reference's ``column_event_epoch`` under the same key (offset
-or none, tied logits, int32 and int64 labels, p of 0 and 1, ragged widths,
-an out-of-range label).  The wrappers' in-place writes, launch counts and
-checks are tested too.  The CUDA kernels against the plain versions run
-only on a card (marker ``cuda``); here they skip."""
+The plain epoch, fed the port's column-event draws, and the key-taking
+wrapper on the CPU are held bit for bit against the reference's
+``column_event_epoch`` under the same key (offset or none, +-inf in it,
+tied logits, int32 and int64 labels, p of 0 and 1, ragged widths, an
+out-of-range label, keys with words past 2^31); the epoch's masks plain
+version against the reference's draws; the kernel's integer compare of a
+draw against p at its edge.  The wrappers' in-place writes, launch counts
+and checks are tested too.  The CUDA kernels against the plain versions
+are in ``test_torch_stdp_cuda.py``, which imports no JAX so that it runs on
+the card's machine."""
 
 from __future__ import annotations
 
@@ -19,6 +23,7 @@ import numpy as np
 import pytest
 import torch
 
+from repro.core import packing as packing_np
 from repro.core.esam import learning as jl
 from repro.kernels.stdp import ops as jops
 from repro_torch.core import prng
@@ -71,7 +76,8 @@ def test_column_event_wrapper_writes_in_place_on_the_cpu():
             torch.from_numpy(u_pot), torch.from_numpy(u_dep),
             p_pot=0.0, p_dep=0.5)
         assert out is t
-        assert ops.launch_counts() == {"stdp_column_epoch": 0,
+        assert ops.launch_counts() == {"stdp_epoch_masks": 0,
+                                       "stdp_column_epoch": 0,
                                        "stdp_column_event": 0,
                                        "stdp_update": 0}
         want = jops.stdp_column_event_ref(
@@ -242,142 +248,151 @@ def test_column_epoch_matches_reference(n_out, n_in, offset, tied,
         p_pot, p_dep)
     np.testing.assert_array_equal(got_b.numpy(), want_b)
     assert wrong.dtype == torch.int32 and 2 * int(wrong) == int(want_n)
-    # the wrapper on CPU tensors: the plain version, in place, no launch
+    # the wrapper on CPU tensors, given the key: the same draws and the plain
+    # version, in place, no launch
     t = torch.from_numpy(bits_t.copy())
     ops.reset_launch_counts()
-    wrong_w = ops.stdp_column_epoch(t, torch.from_numpy(pre), y, *u, off_t,
+    wrong_w = ops.stdp_column_epoch(t, torch.from_numpy(pre), y,
+                                    prng.PRNGKey(n_in), off_t,
                                     p_pot=p_pot, p_dep=p_dep)
-    assert ops.launch_counts()["stdp_column_epoch"] == 0
+    assert ops.launch_counts() == dict.fromkeys(ops.launch_counts(), 0)
     np.testing.assert_array_equal(t.numpy(), want_b)
     assert int(wrong_w) == int(wrong)
     if bad_label is not None:     # always wrong, and the teacher row clamps
         assert int(wrong) > 0
 
 
+#: keys made with numpy: PRNGKey-style, both words at or past 2^31, one each
+KEYS = [(0, 17), (0xDEADBEEF, 0x9E3779B9), (0x80000000, 5)]
+
+
+@pytest.mark.parametrize("key", KEYS)
+@pytest.mark.parametrize("p_pot,p_dep", [(0.0, 0.0), (1.0, 1.0), (0.0, 1.0),
+                                         (1.0, 0.0), (0.3, 0.15)])
+@pytest.mark.parametrize("offset", ["none", "inf", "nan"])
+def test_column_epoch_key_matches_reference(key, p_pot, p_dep, offset):
+    """The key-taking wrapper on the CPU against the reference's epoch under
+    the same key: keys whose words are past 2^31, p of 0 and 1, an offset
+    with +inf and -inf (those rows always, never win), and with a NaN too
+    (that row always wins)."""
+    n_out, n_in, n = 10, 100, 40
+    bits_t, pre, labels, off = _epoch_operands(
+        7, n_out, n_in, n, offset=offset != "none", bad_label=-1)
+    if offset != "none":
+        off[2], off[5] = np.inf, -np.inf
+    if offset == "nan":
+        off[8] = np.nan
+    words = np.array(key, dtype=np.uint32)
+    want_b, want_n = jl.column_event_epoch(
+        jnp.asarray(bits_t), jnp.asarray(pre), jnp.asarray(labels),
+        jnp.asarray(words), p_pot=p_pot, p_dep=p_dep,
+        out_offset=None if off is None else jnp.asarray(off))
+    t = torch.from_numpy(bits_t.copy())
+    wrong = ops.stdp_column_epoch(
+        t, torch.from_numpy(pre), torch.from_numpy(labels),
+        torch.from_numpy(words.astype(np.int64)),
+        None if off is None else torch.from_numpy(off),
+        p_pot=p_pot, p_dep=p_dep)
+    np.testing.assert_array_equal(t.numpy(), np.asarray(want_b))
+    assert 2 * int(wrong) == int(want_n) > 0
+
+
+@pytest.mark.parametrize("p", [0.0, -0.0, 1.0, 0.1, 0.5, 2.0 ** -23, 2.0 ** -30,
+                               float(np.nextafter(np.float32(1), 0)), 1.5,
+                               -0.25, float("inf"), float("-inf"),
+                               float("nan"), 0.3])
+def test_uniform_threshold_is_the_float_compare(p):
+    """(bits >> 9) < uniform_threshold(p) is u < p for every draw: at the
+    threshold's edge, at both ends and at random 23-bit values, against the
+    float32 compare of ``prng.uniform``."""
+    t = ops.uniform_threshold(p)
+    assert 0 <= t <= 1 << 23
+    f = np.concatenate([np.arange(max(t - 3, 0), min(t + 3, 1 << 23)),
+                        [0, 1, (1 << 23) - 1],
+                        np.random.default_rng(0).integers(0, 1 << 23, 1000)])
+    u = (f.astype(np.uint32) | np.uint32(0x3F800000)).view(np.float32) - 1
+    np.testing.assert_array_equal(f < t, u < np.float32(p))
+
+
+@pytest.mark.parametrize("n_out,n_in,n", [(10, 256, 33), (33, 257, 9),
+                                          (4, 33, 5), (3, 1, 4)])
+def test_epoch_masks_plain_matches_reference_draws(n_out, n_in, n):
+    """``stdp_epoch_masks_ref`` (what the card's masks kernel writes) against
+    the reference's own ``column_event_uniforms`` and rule, packed with
+    numpy: header, trace, the teacher's and the winner's masks, zero past
+    the trace.  The CPU wrapper returns it without a launch."""
+    rng = np.random.default_rng(n_in)
+    pre = rng.random((n, n_in)) < 0.45
+    labels = rng.integers(0, n_out, size=(n,))
+    labels[0], labels[-1] = -1, n_out
+    key = jax.random.PRNGKey(n)
+    got = ops.stdp_epoch_masks_ref(torch.from_numpy(pre),
+                                   torch.from_numpy(labels), prng.PRNGKey(n),
+                                   n_out, 0.3, 0.2)
+    ops.reset_launch_counts()
+    assert torch.equal(ops.stdp_epoch_masks(
+        torch.from_numpy(pre), torch.from_numpy(labels.astype(np.int32)),
+        prng.PRNGKey(n), n_out, p_pot=0.3, p_dep=0.2), got)
+    assert ops.launch_counts()["stdp_epoch_masks"] == 0
+    assert got.dtype == torch.int32
+    assert got.shape == (n, ops.epoch_slot_words(n_in))
+    field = (got.shape[1] - 4) // 4
+    for i in range(n):
+        u_pot, u_dep_t, u_dep_w = (np.asarray(u) for u in
+                                   jl.column_event_uniforms(key, jnp.int32(i),
+                                                            n_in))
+        p = pre[i]
+        masks = (p, p & (u_pot < np.float32(0.3)),
+                 ~p & (u_dep_t < np.float32(0.2)),
+                 p & (u_dep_w < np.float32(0.2)))
+        want = []
+        for m in masks:
+            w = packing_np.pack_spikes_np(m[None])[0].view(np.int32)
+            want.append(np.pad(w, (0, field - w.size)))
+        y = int(labels[i])
+        teach = min(max(y + n_out if y < 0 else y, 0), n_out - 1)
+        header = [int(p.sum()), teach, y if 0 <= y < n_out else -1, 0]
+        np.testing.assert_array_equal(got[i].numpy(),
+                                      np.concatenate([header, *want]))
+
+
+@pytest.mark.parametrize("n_out,n_in,route", [
+    (10, 256, (8, 1)), (10, 257, (16, 1)), (32, 1024, (32, 1)),
+    (33, 257, (16, 2)), (64, 256, (8, 2)), (1, 1, (8, 1)),
+    (64, 768, (0, 0)), (65, 100, (0, 0)), (10, 1025, (0, 0)),
+    (256, 768, (0, 0))])
+def test_epoch_route(n_out, n_in, route):
+    """The chain keeps the readout in its warp's registers, lane o rows o and
+    o + 32, up to 32 words of one row or 16 words of two; in shared memory
+    past that."""
+    assert ops._epoch_route(n_out, n_in) == route
+
+
 def test_column_epoch_wrapper_checks_shapes_and_devices():
     bits_t, pre, labels, off = (
         torch.from_numpy(a) for a in _epoch_operands(2, 4, 32, 6,
                                                      offset=True))
-    u = torch.zeros((6, 32))
+    key = prng.PRNGKey(1)
     kw = dict(p_pot=0.1, p_dep=0.1)
     bad = [
-        ((bits_t[0], pre, labels, u, u, u), ValueError),       # 1-d readout
-        ((bits_t, pre[:, :31], labels, u, u, u), ValueError),  # n_in
-        ((bits_t, pre, labels[:5], u, u, u), ValueError),      # n labels
-        ((bits_t, pre, labels.float(), u, u, u), TypeError),   # label dtype
-        ((bits_t, pre, labels, u[:5], u, u), ValueError),      # draw rows
-        ((bits_t, pre, labels, u, u.double(), u), ValueError),  # draw dtype
-        ((bits_t, pre, labels, u, u, u, off[:3]), ValueError),  # offset
-        ((bits_t, pre, labels, u, u, u, off.double()), TypeError),
+        ((bits_t[0], pre, labels, key), ValueError),         # 1-d readout
+        ((bits_t, pre[:, :31], labels, key), ValueError),    # n_in
+        ((bits_t, pre, labels[:5], key), ValueError),        # n labels
+        ((bits_t, pre, labels.float(), key), TypeError),     # label dtype
+        ((bits_t, pre, labels, key[None]), ValueError),      # key shape
+        ((bits_t, pre, labels, key.int()), ValueError),      # key dtype
+        ((bits_t, pre, labels, key, off[:3]), ValueError),   # offset
+        ((bits_t, pre, labels, key, off.double()), TypeError),
     ]
     for args, err in bad:
         with pytest.raises(err):
             ops.stdp_column_epoch(*args, **kw)
+    with pytest.raises(ValueError):
+        ops.stdp_epoch_masks(pre, labels, key, 0, **kw)
     meta = torch.device("meta")
     with pytest.raises(ValueError, match="different devices"):
-        ops.stdp_column_epoch(bits_t.to(meta), pre, labels, u, u, u, **kw)
+        ops.stdp_column_epoch(bits_t.to(meta), pre, labels, key, **kw)
     with pytest.raises(ValueError, match="different devices"):
-        ops.stdp_column_epoch(bits_t, pre, labels, u, u, u, off.to(meta),
-                              **kw)
-
-
-# ----------------------------------------------------------------------- #
-# the CUDA kernels against the plain versions, on the card
-# ----------------------------------------------------------------------- #
-@pytest.fixture
-def cuda():
-    if not torch.cuda.is_available():
-        pytest.skip("needs an NVIDIA GPU (CUDA kernels have no CPU mode)")
-    return torch.device("cuda")
-
-
-@pytest.mark.cuda
-@pytest.mark.parametrize("n_out,n_in", [(10, 256), (256, 768), (8, 100)])
-@pytest.mark.parametrize("p_pot,p_dep", PROBS)
-def test_cuda_column_event_matches_plain(cuda, n_out, n_in, p_pot, p_dep):
-    bits_t, pre, u_pot, u_dep = (torch.from_numpy(a).to(cuda) for a in
-                                 _operands(n_in, n_out, n_in, (n_in,)))
-    for col in (torch.tensor(n_out - 1, device=cuda),
-                torch.tensor(0, dtype=torch.int32, device=cuda)):
-        for apply in (True, False):
-            gate = torch.tensor(apply, device=cuda)
-            ops.reset_launch_counts()
-            got = ops.stdp_column_event(bits_t.clone(), col, gate, pre,
-                                        u_pot, u_dep, p_pot=p_pot, p_dep=p_dep)
-            assert ops.launch_counts()["stdp_column_event"] == 1
-            want = ops.stdp_column_event_ref(bits_t, col, gate, pre, u_pot,
-                                             u_dep, p_pot, p_dep)
-            assert torch.equal(got, want)
-
-
-@pytest.mark.cuda
-@pytest.mark.parametrize("n_out,n_in", [(10, 256), (7, 99)])
-@pytest.mark.parametrize("where", ["n_out", "minus_1", "minus_n_out_minus_1"])
-@pytest.mark.parametrize("apply", [True, False])
-def test_cuda_column_event_out_of_range_row_matches_plain(cuda, n_out, n_in,
-                                                          where, apply):
-    col = dict(zip(("n_out", "minus_1", "minus_n_out_minus_1"),
-                   _out_of_range_cols(n_out)))[where]
-    bits_t, pre, u_pot, u_dep = (torch.from_numpy(a).to(cuda) for a in
-                                 _operands(n_out + n_in, n_out, n_in, (n_in,)))
-    gate = torch.tensor(apply, device=cuda)
-    for dtype in (torch.int64, torch.int32):
-        c = torch.tensor(col, dtype=dtype, device=cuda)
-        ops.reset_launch_counts()
-        got = ops.stdp_column_event(bits_t.clone(), c, gate, pre, u_pot,
-                                    u_dep, p_pot=0.5, p_dep=0.5)
-        assert ops.launch_counts()["stdp_column_event"] == 1
-        want = ops.stdp_column_event_ref(bits_t, c, gate, pre, u_pot, u_dep,
-                                         0.5, 0.5)
-        assert torch.equal(got, want)
-
-
-@pytest.mark.cuda
-@pytest.mark.parametrize("n_out,n_in", [(10, 256), (256, 768), (7, 99)])
-@pytest.mark.parametrize("p_pot,p_dep", PROBS)
-def test_cuda_stdp_update_matches_plain(cuda, n_out, n_in, p_pot, p_dep):
-    bits_t, pre, u_pot, u_dep = (torch.from_numpy(a).to(cuda) for a in
-                                 _operands(n_in, n_out, n_in, (n_out, n_in)))
-    post = torch.from_numpy(np.arange(n_out) % 3 == 0).to(cuda)
-    ops.reset_launch_counts()
-    got = ops.stdp_update(bits_t, pre, post, u_pot, u_dep,
-                          p_pot=p_pot, p_dep=p_dep)
-    assert ops.launch_counts()["stdp_update"] == 1
-    want = ops.stdp_update_ref(bits_t, pre, post, u_pot, u_dep, p_pot, p_dep)
-    assert torch.equal(got, want)
-
-
-@pytest.mark.cuda
-@pytest.mark.parametrize("n_out,n_in,n", [(10, 256, 4096), (33, 257, 300),
-                                          (64, 768, 200)])
-@pytest.mark.parametrize("tied", [False, True])
-@pytest.mark.parametrize("offset", [False, True])
-def test_cuda_column_epoch_matches_plain(cuda, n_out, n_in, n, tied, offset):
-    bits_t, pre, labels, off = _epoch_operands(
-        n_in + n, n_out, n_in, n, tied=tied, offset=offset, bad_label=-1)
-    bits_t, pre, labels = (torch.from_numpy(a).to(cuda)
-                           for a in (bits_t, pre, labels))
-    off = None if off is None else torch.from_numpy(off).to(cuda)
-    u = learning.column_event_uniforms(prng.PRNGKey(n), torch.arange(n),
-                                       n_in)
-    u = [t.to(cuda) for t in u]
-    ops.reset_launch_counts()
-    got = bits_t.clone()
-    wrong = ops.stdp_column_epoch(got, pre, labels, *u, off,
-                                  p_pot=0.2, p_dep=0.1)
-    assert ops.launch_counts()["stdp_column_epoch"] == 1
-    want, want_wrong = ops.stdp_column_epoch_ref(bits_t, pre, labels, *u,
-                                                 off, 0.2, 0.1)
-    assert torch.equal(got, want) and int(wrong) == int(want_wrong) > 0
-
-
-@pytest.mark.cuda
-def test_cuda_column_epoch_capacity(cuda):
-    n_out, n_in = 2048, 1024       # 264 KiB of bit planes: past one block
-    bits_t = torch.zeros((n_out, n_in), dtype=torch.int8, device=cuda)
-    u = torch.zeros((1, n_in), device=cuda)
-    with pytest.raises(ValueError, match="shared memory"):
-        ops.stdp_column_epoch(
-            bits_t, torch.ones((1, n_in), dtype=torch.bool, device=cuda),
-            torch.zeros((1,), dtype=torch.int32, device=cuda), u, u, u,
-            p_pot=0.2, p_dep=0.1)
+        ops.stdp_column_epoch(bits_t, pre, labels, key, off.to(meta), **kw)
+    with pytest.raises(ValueError, match="different devices"):
+        ops.stdp_epoch_masks(pre, labels, key.to(meta), 4, **kw)

@@ -1,0 +1,209 @@
+"""repro_torch.kernels.stdp's CUDA kernels against their plain versions.
+
+Every test here needs an NVIDIA GPU (marker ``cuda``) and skips without
+one.  The file imports no JAX, so it runs on the card's machine, where the
+JAX package is not installed:
+
+    PYTHONPATH=src python -m pytest -q -m cuda tests/test_torch_stdp_cuda.py
+
+The single column event and the full-matrix rule are held bit for bit
+against their plain versions; the epoch's two kernels against theirs: the
+masks kernel slot for slot against ``stdp_epoch_masks_ref`` (keys past
+2^31, p of 0 and 1, p set exactly to a drawn uniform, so an off-by-one in
+the kernel's integer compare shows), the whole epoch against
+``stdp_column_epoch_ref`` on the same draws, on both of the chain's routes
+(the readout as tensor-core fragments in registers; in shared memory).
+The plain versions are held against the reference in
+``test_torch_stdp.py``."""
+
+from __future__ import annotations
+
+import numpy as np
+import pytest
+import torch
+
+from repro_torch.core import prng
+from repro_torch.kernels.stdp import ops
+
+PROBS = [(1.0, 1.0), (0.25, 0.1), (0.0, 0.3), (0.2, 0.0)]
+KEYS = [(0, 17), (0xDEADBEEF, 0x9E3779B9), (0x80000000, 5)]
+
+
+@pytest.fixture
+def cuda():
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU (CUDA kernels have no CPU mode)")
+    return torch.device("cuda")
+
+
+def _operands(seed, n_out, n_in, u_shape):
+    rng = np.random.default_rng(seed)
+    bits_t = rng.integers(0, 2, size=(n_out, n_in), dtype=np.int8)
+    pre = rng.random(n_in) < 0.4
+    u_pot = rng.random(u_shape, dtype=np.float32)
+    u_dep = rng.random(u_shape, dtype=np.float32)
+    return bits_t, pre, u_pot, u_dep
+
+
+def _out_of_range_cols(n_out):
+    return [n_out, -1, -n_out - 1]
+
+
+def _epoch_operands(seed, n_out, n_in, n, *, tied=False, offset=False,
+                    bad_label=None):
+    """numpy readout, traces, labels and offset for one epoch; ``tied``
+    makes every readout row the same (every V_mem ties), ``bad_label``
+    puts that label (outside [0, n_out)) at sample 3."""
+    rng = np.random.default_rng(seed)
+    bits_t = rng.integers(0, 2, size=(n_out, n_in), dtype=np.int8)
+    if tied:
+        bits_t[:] = bits_t[:1]
+    pre = rng.random((n, n_in)) < 0.45
+    labels = rng.integers(0, n_out, size=(n,)).astype(np.int32)
+    if bad_label is not None:
+        labels[3] = bad_label
+    off = rng.normal(size=n_out).astype(np.float32) if offset else None
+    return bits_t, pre, labels, off
+
+
+def _key(words, device):
+    return torch.tensor(np.array(words, dtype=np.int64), device=device)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n_out,n_in", [(10, 256), (256, 768), (8, 100)])
+@pytest.mark.parametrize("p_pot,p_dep", PROBS)
+def test_cuda_column_event_matches_plain(cuda, n_out, n_in, p_pot, p_dep):
+    bits_t, pre, u_pot, u_dep = (torch.from_numpy(a).to(cuda) for a in
+                                 _operands(n_in, n_out, n_in, (n_in,)))
+    for col in (torch.tensor(n_out - 1, device=cuda),
+                torch.tensor(0, dtype=torch.int32, device=cuda)):
+        for apply in (True, False):
+            gate = torch.tensor(apply, device=cuda)
+            ops.reset_launch_counts()
+            got = ops.stdp_column_event(bits_t.clone(), col, gate, pre,
+                                        u_pot, u_dep, p_pot=p_pot, p_dep=p_dep)
+            assert ops.launch_counts()["stdp_column_event"] == 1
+            want = ops.stdp_column_event_ref(bits_t, col, gate, pre, u_pot,
+                                             u_dep, p_pot, p_dep)
+            assert torch.equal(got, want)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n_out,n_in", [(10, 256), (7, 99)])
+@pytest.mark.parametrize("where", ["n_out", "minus_1", "minus_n_out_minus_1"])
+@pytest.mark.parametrize("apply", [True, False])
+def test_cuda_column_event_out_of_range_row_matches_plain(cuda, n_out, n_in,
+                                                          where, apply):
+    col = dict(zip(("n_out", "minus_1", "minus_n_out_minus_1"),
+                   _out_of_range_cols(n_out)))[where]
+    bits_t, pre, u_pot, u_dep = (torch.from_numpy(a).to(cuda) for a in
+                                 _operands(n_out + n_in, n_out, n_in, (n_in,)))
+    gate = torch.tensor(apply, device=cuda)
+    for dtype in (torch.int64, torch.int32):
+        c = torch.tensor(col, dtype=dtype, device=cuda)
+        ops.reset_launch_counts()
+        got = ops.stdp_column_event(bits_t.clone(), c, gate, pre, u_pot,
+                                    u_dep, p_pot=0.5, p_dep=0.5)
+        assert ops.launch_counts()["stdp_column_event"] == 1
+        want = ops.stdp_column_event_ref(bits_t, c, gate, pre, u_pot, u_dep,
+                                         0.5, 0.5)
+        assert torch.equal(got, want)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n_out,n_in", [(10, 256), (256, 768), (7, 99)])
+@pytest.mark.parametrize("p_pot,p_dep", PROBS)
+def test_cuda_stdp_update_matches_plain(cuda, n_out, n_in, p_pot, p_dep):
+    bits_t, pre, u_pot, u_dep = (torch.from_numpy(a).to(cuda) for a in
+                                 _operands(n_in, n_out, n_in, (n_out, n_in)))
+    post = torch.from_numpy(np.arange(n_out) % 3 == 0).to(cuda)
+    ops.reset_launch_counts()
+    got = ops.stdp_update(bits_t, pre, post, u_pot, u_dep,
+                          p_pot=p_pot, p_dep=p_dep)
+    assert ops.launch_counts()["stdp_update"] == 1
+    want = ops.stdp_update_ref(bits_t, pre, post, u_pot, u_dep, p_pot, p_dep)
+    assert torch.equal(got, want)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n_out,n_in,n", [(10, 256, 4096), (33, 257, 300),
+                                          (64, 768, 200), (256, 768, 300)])
+@pytest.mark.parametrize("tied", [False, True])
+@pytest.mark.parametrize("offset", ["none", "normal", "special"])
+def test_cuda_column_epoch_matches_plain(cuda, n_out, n_in, n, tied, offset):
+    """The two kernels of an epoch (one launch each) against the per-sample
+    plain loop on the same draws; (10, 256) and (33, 257) keep the readout
+    in the chain warp's registers, (64, 768) and (256, 768) in shared
+    memory.  ``special``: offsets of +inf, -inf and NaN (NaN always wins)."""
+    bits_t, pre, labels, off = _epoch_operands(
+        n_in + n, n_out, n_in, n, tied=tied, offset=offset != "none",
+        bad_label=-1)
+    if offset == "special":
+        off[1], off[4], off[7] = np.inf, -np.inf, np.nan
+    bits_t, pre, labels = (torch.from_numpy(a).to(cuda)
+                           for a in (bits_t, pre, labels))
+    off = None if off is None else torch.from_numpy(off).to(cuda)
+    key = prng.PRNGKey(n, device=cuda)
+    ops.reset_launch_counts()
+    got = bits_t.clone()
+    wrong = ops.stdp_column_epoch(got, pre, labels, key, off,
+                                  p_pot=0.2, p_dep=0.1)
+    assert ops.launch_counts() == {"stdp_epoch_masks": 1,
+                                   "stdp_column_epoch": 1,
+                                   "stdp_column_event": 0, "stdp_update": 0}
+    u = ops.column_event_uniforms(key, torch.arange(n, device=cuda), n_in)
+    want, want_wrong = ops.stdp_column_epoch_ref(bits_t, pre, labels, *u,
+                                                 off, 0.2, 0.1)
+    assert torch.equal(got, want) and int(wrong) == int(want_wrong) > 0
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("key", KEYS)
+@pytest.mark.parametrize("p_pot,p_dep", [(0.0, 0.0), (1.0, 1.0), (0.2, 0.1)])
+@pytest.mark.parametrize("n_out,n_in,n", [(10, 256, 4096), (33, 257, 300),
+                                          (3, 1, 5)])
+def test_cuda_epoch_masks_matches_plain(cuda, key, p_pot, p_dep, n_out, n_in,
+                                        n):
+    _, pre, labels, _ = _epoch_operands(n, n_out, n_in, n, bad_label=-1)
+    pre = torch.from_numpy(pre).to(cuda)
+    labels = torch.from_numpy(labels).to(cuda)
+    labels[-1] = n_out
+    k = _key(key, cuda)
+    ops.reset_launch_counts()
+    got = ops.stdp_epoch_masks(pre, labels, k, n_out, p_pot=p_pot,
+                               p_dep=p_dep)
+    assert ops.launch_counts()["stdp_epoch_masks"] == 1
+    want = ops.stdp_epoch_masks_ref(pre, labels, k, n_out, p_pot, p_dep)
+    assert torch.equal(got, want)
+
+
+@pytest.mark.cuda
+def test_cuda_epoch_masks_at_a_drawn_uniform(cuda):
+    """p set exactly to a drawn uniform: u < p is false for that draw and
+    true one step below it, so the kernel's integer compare must give
+    exactly the float compare's masks."""
+    n, n_in, n_out = 64, 100, 10
+    _, pre, labels, _ = _epoch_operands(5, n_out, n_in, n)
+    pre = torch.from_numpy(pre).to(cuda)
+    labels = torch.from_numpy(labels).to(cuda)
+    key = prng.PRNGKey(11, device=cuda)
+    u = ops.column_event_uniforms(key, torch.arange(n, device=cuda), n_in)
+    for p in (float(u[0][0, 0]), float(u[1][5, 7]), float(u[2][9, 3])):
+        for p_pot, p_dep in ((p, p), (p, 0.3), (0.3, p)):
+            got = ops.stdp_epoch_masks(pre, labels, key, n_out, p_pot=p_pot,
+                                       p_dep=p_dep)
+            want = ops.stdp_epoch_masks_ref(pre, labels, key, n_out, p_pot,
+                                            p_dep)
+            assert torch.equal(got, want)
+
+
+@pytest.mark.cuda
+def test_cuda_column_epoch_capacity(cuda):
+    n_out, n_in = 2048, 1024       # 264 KiB of bit planes: past one block
+    bits_t = torch.zeros((n_out, n_in), dtype=torch.int8, device=cuda)
+    with pytest.raises(ValueError, match="shared memory"):
+        ops.stdp_column_epoch(
+            bits_t, torch.ones((1, n_in), dtype=torch.bool, device=cuda),
+            torch.zeros((1,), dtype=torch.int32, device=cuda),
+            prng.PRNGKey(0, device=cuda), p_pot=0.2, p_dep=0.1)
