@@ -10,21 +10,25 @@ Phases; any failure raises, so the exit code is non-zero:
    ``nvcc`` per library, and one for ``probes/rate_probe.cu``, all
    started together); then the issue rates of the b1 and int8 tensor-core
    products and the popc unit, with the SM clock (``rate_probe``; the b1
-   reading is the rate of B2's and B3's bound), and the tensor-core
-   instruction in B2/B3's kernel (``cuobjdump``, ``sass``);
+   reading is the rate of the b1 kernels' bounds), and the tensor-core
+   instruction (BMMA) in every kernel on the b1 product: B2/B3's, B1's b1
+   instantiation and B9/B9''s (``cuobjdump``, ``sass``);
 3. each kernel against its plain PyTorch version on the card, bit for bit,
    at the paths' shapes and more (B2 and B3 at ragged shapes in every
    output mode, on all-zero and all-one operands, at thresholds of -2^31
    and 2^31 - 1 and on strided spike rows, each with its route, the
    CUDA-core kernel's time before it and three bounds (b1, int8, popc);
-   B9', B10 and B11 at the bench's shapes,
-   ragged ones and 4096 x 768 -> 256; B10 in four spike dtypes; B11 at
-   threshold equality and int32 wraparound; B1 at the bench's
-   (768, 768, 768, 10) and on each route of its launcher: clusters of 1,
-   2, 4, 8 and 16 CTAs, word counts fixed at compile time and not, a
-   partly empty last slice, more slices than clusters, each asserted,
-   and under two geometries its launcher does not pick (``mega_geometry``
-   lines);
+   B9 and B9' at the paths' and the bench's shapes, ragged ones, on spike
+   bits set past K, at K 40000, on weight views whose rows are 16-byte
+   aligned or not, each with its route and three bounds; B10 and B11 at
+   the bench's shapes, ragged ones and 4096 x 768 -> 256; B10 in four
+   spike dtypes; B11 at threshold equality and int32 wraparound; B1 at
+   the bench's (768, 768, 768, 10) and on each route of its launcher:
+   clusters of 1, 2, 4, 8 and 16 CTAs, word counts fixed at compile time
+   and not, a partly empty last slice, more slices than clusters, the
+   popc and the b1 MAC, each asserted, and under three geometries its
+   launcher does not pick at B 128, 256 and 1024 (``mega_geometry``
+   lines: the other MAC, clusters of 8, a CTA an SM);
    the single column event at rows inside and
    outside [0, n_out); the epoch's two kernels (``stdp_epoch_masks``, which
    draws the uniforms itself, and the chain) at 4096 x 256 -> 10 and ragged
@@ -198,9 +202,9 @@ def start_probe_build():
 
     out = _build.build_dir() / "librate_probe.so"
     out.parent.mkdir(parents=True, exist_ok=True)
-    include = ROOT / "src/repro_torch/kernels/cim_popcount/csrc"
     proc = subprocess.Popen(
-        [_build._nvcc(), *_build.NVCC_FLAGS, f"-I{include}", "-o", str(out),
+        [_build._nvcc(), *_build.NVCC_FLAGS, f"-I{_build.SHARED_INCLUDE}",
+         "-o", str(out),
          str(PROBE_SOURCE)],
         stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
     return proc, out
@@ -269,39 +273,60 @@ def probe_rates(card, build) -> dict:
     return out
 
 
-def tile_sass(lib_path) -> dict:
-    """Tensor-core instructions in the SASS of each instantiation of B2/B3's
-    kernel (``popcount_fire_kernel``), from ``cuobjdump -sass`` of the
-    built library; raises unless every one holds the b1 product (BMMA)."""
+#: the kernels on the b1 tensor-core product, by library: each
+#: instantiation's SASS must hold BMMA, but the cascade's popc-MAC one
+#: (``mega_cascade_kernel<false>``), reported beside them
+B1_KERNELS = {"cim_popcount": ("popcount_fire_kernel", "mega_cascade_kernel"),
+              "cim_matmul_packed": ("fused_fire_packed_kernel",)}
+POPC_CASCADE = "mega_cascade_kernelILb0E"
+
+
+def tile_sass(reports) -> dict:
+    """Tensor-core instructions in the SASS of each instantiation of the
+    kernels that run their MAC on the b1 product (``B1_KERNELS``: B2/B3's
+    ``popcount_fire_kernel``, B1's ``mega_cascade_kernel``, B9/B9''s
+    ``fused_fire_packed_kernel``), from ``cuobjdump -sass`` of the built
+    libraries; raises unless each holds the b1 product (BMMA), the
+    cascade's popc instantiation excepted."""
     import re
 
     from repro_torch.kernels import _build
 
     cuobjdump = Path(_build._nvcc()).with_name("cuobjdump")
-    sass = subprocess.run([str(cuobjdump), "-sass", str(lib_path)],
-                          capture_output=True, text=True, check=True,
-                          timeout=120).stdout
     found = {}
-    for section in sass.split("Function : ")[1:]:
-        name = section.split(maxsplit=1)[0]
-        if "popcount_fire_kernel" in name:
-            ops = re.findall(r"\b((?:BMMA|IMMA|HMMA)[.A-Z0-9_]*)", section)
-            found[name] = {op: ops.count(op) for op in sorted(set(ops))}
-    if not found or not all(any(op.startswith("BMMA") for op in v)
-                            for v in found.values()):
-        raise AssertionError(
-            f"popcount_fire_kernel SASS without BMMA: {found}")
+    for rep in reports:
+        if rep.name not in B1_KERNELS:
+            continue
+        sass = subprocess.run([str(cuobjdump), "-sass", str(rep.path)],
+                              capture_output=True, text=True, check=True,
+                              timeout=120).stdout
+        for section in sass.split("Function : ")[1:]:
+            name = section.split(maxsplit=1)[0]
+            if any(k in name for k in B1_KERNELS[rep.name]):
+                ops = re.findall(r"\b((?:BMMA|IMMA|HMMA)[.A-Z0-9_]*)",
+                                 section)
+                found[name] = {op: ops.count(op) for op in sorted(set(ops))}
+    missing = [k for ks in B1_KERNELS.values() for k in ks
+               if not any(k in name for name in found)]
+    if missing or not all(any(op.startswith("BMMA") for op in v)
+                          for name, v in found.items()
+                          if POPC_CASCADE not in name):
+        raise AssertionError(f"b1 kernels' SASS without BMMA: {found}, "
+                             f"not found: {missing}")
     print("sass " + json.dumps(found), flush=True)
     return found
 
 
-def random_words(rng, batch: int, n: int):
+def random_words(rng, batch: int, n: int, tail: bool = False):
     """int32 wire words of random spikes at p=0.5 (bit 31 set in about half
-    of the full words); the tail past ``n`` is zero."""
+    of the full words); the bits past ``n`` in the last word are zero, or
+    all set with ``tail`` (which every consumer must drop)."""
     from repro_torch.core import packing
 
-    return packing.words_from_np(
-        packing.pack_spikes_np(rng.integers(0, 2, size=(batch, n))))
+    words = packing.pack_spikes_np(rng.integers(0, 2, size=(batch, n)))
+    if tail and n % 32:
+        words[:, -1] |= np.uint32(~((1 << (n % 32)) - 1) & 0xFFFFFFFF)
+    return packing.words_from_np(words)
 
 
 #: B1's device time in a CUDA graph before its redesign (PR 20's run, NVIDIA
@@ -350,7 +375,7 @@ def check_mega(card, rng, topology, batch, kernels, **route):
                               torch.cuda.current_device())
     got = {"cluster": took.cluster, "fixed": took.fixed_words,
            "partial": took.slices * took.rows > batch,
-           "persistent": took.clusters < took.slices}
+           "persistent": took.clusters < took.slices, "mac": took.mac}
     if any(got[k] != v for k, v in route.items()):
         raise AssertionError(f"mega_cascade at {topology} B={batch}: route "
                              f"{took}, want {route}")
@@ -362,7 +387,7 @@ def check_mega(card, rng, topology, batch, kernels, **route):
                    + batch * topology[-1] + batch * sum(h // 32 for h in hidden))
     n_popc = batch * (sum(n * w for n, w in zip(topology[1:], g["w_words"]))
                       + g["w_words"][0] + sum(h // 32 for h in hidden))
-    bound_ms, bound_by = card.bound(n_bytes, n_popc)
+    n_ops = 2 * batch * sum(k * n for k, n in zip(topology, topology[1:]))
     shape = ":".join(map(str, topology))
     row = {
         "kernel": "mega_cascade", "topology": shape, "batch": batch,
@@ -375,17 +400,19 @@ def check_mega(card, rng, topology, batch, kernels, **route):
         "plain_ms": graph_ms(lambda: ops.esam_cascade_popcount_ref(
             x, planes, vth), **({"calls": 2, "replays": 3}
                                 if sum(g["w_words"]) > 64 else {})),
-        "bound_ms": bound_ms, "bound_by": bound_by, "library_ms": None,
+        **_b1_bounds(card, n_bytes, n_ops, n_popc), "library_ms": None,
     }
     print("kernel_check " + json.dumps(row), flush=True)
     kernels.append(row)
 
 
 def mega_geometries(rng, topology, batch) -> None:
-    """The cascade kernel under the launcher's geometry and two it does not
-    pick, called through its C interface, each held bit for bit against the
-    plain cascade and timed in a CUDA graph: clusters of 8 with the same
-    rows a slice, and one CTA an SM walking the slices (clusters of 1)."""
+    """The cascade kernel under the launcher's geometry and three it does
+    not pick, called through its C interface, each held bit for bit
+    against the plain cascade (logits and every fired plane) and timed in a
+    CUDA graph: the launcher's with the other MAC (the popc unit for the
+    b1 product or back), clusters of 8 with the same rows a slice, and one
+    CTA an SM walking the slices (clusters of 1)."""
     import torch
 
     from repro_torch.core import packing
@@ -412,31 +439,40 @@ def mega_geometries(rng, topology, batch) -> None:
     fired = torch.empty(sum(f.numel() for f in want_fired),
                         dtype=torch.int32, device=dev)
     route = ops._cascade_route(tuple(topology), batch, dev.index)
+    other = "popc" if route.mac == "b1" else "b1"
     sms = torch.cuda.get_device_properties(dev).multi_processor_count
     row = {"topology": ":".join(map(str, topology)), "batch": batch}
-    for name, cluster, rows, clusters in (
-            ("launcher", route.cluster, route.rows, route.clusters),
-            ("cluster_8", 8, route.rows, None),
-            ("cta_per_sm", 1, route.rows, sms)):
+    for name, cluster, rows, clusters, mac in (
+            ("launcher", route.cluster, route.rows, route.clusters,
+             route.mac),
+            (f"mac_{other}", route.cluster, route.rows, route.clusters,
+             other),
+            ("cluster_8", 8, route.rows, None, route.mac),
+            ("cta_per_sm", 1, route.rows, sms, route.mac)):
         slices = -(-batch // rows)
         fits = lib.cim_mega_cascade_max_clusters(
-            len(topology) - 1, n_out, w_words, cluster, rows)
+            len(topology) - 1, n_out, w_words, cluster, rows,
+            ops._MAC_CODE[mac])
         clusters = min(slices, fits, clusters or slices)
 
         def run():
             err = lib.cim_mega_cascade(
                 x.data_ptr(), batch, tiles.data_ptr(), tiles.numel(),
                 logits.data_ptr(), fired.data_ptr(), len(topology) - 1,
-                n_out, w_words, cluster, rows, clusters, stream_ptr(dev))
+                n_out, w_words, cluster, rows, clusters, ops._MAC_CODE[mac],
+                stream_ptr(dev))
             if err:
                 raise RuntimeError(f"mega_cascade launch failed: {err}")
 
+        logits.fill_(-1)
+        fired.fill_(-1)
         run()
         torch.cuda.synchronize()
         if not torch.equal(torch.cat([logits.reshape(-1), fired]), want):
-            raise AssertionError(f"mega_cascade {name} geometry != plain")
+            raise AssertionError(f"mega_cascade {name} geometry != plain at "
+                                 f"{topology} B={batch}")
         row[name] = {"cluster": cluster, "rows": rows, "clusters": clusters,
-                     "ms": graph_ms(run)}
+                     "mac": mac, "ms": graph_ms(run)}
     print("mega_geometry " + json.dumps(row), flush=True)
 
 
@@ -525,26 +561,32 @@ def _tile_route(x, planes, route):
     return took._asdict()
 
 
-def _tile_bounds(card, batch, n_in, n_out, n_bytes) -> dict:
-    """B2's and B3's bounds, each against the bytes: the b1 product's, the
-    datapath the kernel runs (2 B N K operations at this run's probed b1
-    rate, ``probe_rates``), and beside it the int8 product's (the same
-    operations at the int8 data-sheet rate) and the popc unit's (AND+popc
-    word pairs and spike-word popcs), so that earlier rows stay
+def _b1_bounds(card, n_bytes, n_ops, n_popc) -> dict:
+    """The bounds of a kernel whose MAC runs on the b1 product, each against
+    its bytes: the b1 product's, the datapath it runs (``n_ops`` AND+popc
+    operations, two a bit pair, at this run's probed b1 rate,
+    ``probe_rates``), and beside it the int8 product's (the same
+    operations at the int8 data-sheet rate) and the popc unit's (``n_popc``
+    AND+popc word pairs and spike-word popcs), so that earlier rows stay
     comparable."""
-    from repro_torch.core import packing
-
     if card.b1_ops_per_s is None:
-        raise RuntimeError("B2/B3 bounds need the b1 rate: run probe_rates")
-    words = packing.packed_width(n_in)
-    n_ops = 2 * batch * n_out * n_in
+        raise RuntimeError("b1 bounds need the b1 rate: run probe_rates")
     b1_ms, b1_by = card.bound(n_bytes, n_ops, card.b1_ops_per_s)
     int8_ms, int8_by = card.bound(n_bytes, n_ops, INT8_OPS_PER_S)
-    popc_ms, popc_by = card.bound(n_bytes, batch * n_out * words
-                                  + batch * words)
+    popc_ms, popc_by = card.bound(n_bytes, n_popc)
     return {"bound_ms": b1_ms, "bound_by": b1_by,
             "int8_bound_ms": int8_ms, "int8_bound_by": int8_by,
             "popc_bound_ms": popc_ms, "popc_bound_by": popc_by}
+
+
+def _tile_bounds(card, batch, n_in, n_out, n_bytes) -> dict:
+    """One tile's bounds (B2, B3, B9, B9'): 2 B N K operations, B N W + B W
+    popcs (``_b1_bounds``)."""
+    from repro_torch.core import packing
+
+    words = packing.packed_width(n_in)
+    return _b1_bounds(card, n_bytes, 2 * batch * n_out * n_in,
+                      batch * n_out * words + batch * words)
 
 
 def _plain_ms(fn, n_in) -> float:
@@ -690,45 +732,74 @@ def check_fire(card, rng, batch, n_in, n_out, kernels, pack_output=True, *,
     kernels.append(row)
 
 
+#: B9's and B9''s device time in a CUDA graph before their move onto the
+#: b1 product (the CUDA-core kernel of PR 14 / 17, timed by PR 20's run 2 on
+#: NVIDIA H100 80GB HBM3, 700 W; PERF.md), printed beside the new time
+PACKED_BEFORE_MS = {("fused_fire_packed", "4096x768->256"): 0.0333,
+                    ("cim_matmul_packed", "1024x768->768"): 0.0244}
+
+
+def _packed_row(ops, x, n_out) -> dict:
+    """The route B9/B9' took for these spike words, checked against the
+    shape: the spans cover B, the groups N."""
+    took = ops._route_for(x, n_out)
+    B = x.shape[0]
+    spans, groups = took.grid
+    if (not spans * took.span_rows >= B > (spans - 1) * took.span_rows
+            or not 0 <= groups * 64 - n_out < 64):
+        raise AssertionError(f"B9 route {took} at B={B} N={n_out}")
+    return took._asdict()
+
+
 def check_packed_fire(card, rng, batch, n_in, n_out, kernels,
-                      pack_output=True):
+                      pack_output=True, tail=False, view=None):
     """fused_fire_packed (spike words x {0,1} int8 weights, fire, re-pack)
-    vs its plain version."""
+    vs its plain version; ``tail`` sets every spike bit past n_in, which
+    both must drop; ``view`` (width, first) takes the weights as columns
+    first.. of a wider matrix (rows 16-byte aligned or not)."""
     import torch
 
     from repro_torch.core import packing
     from repro_torch.kernels.cim_matmul_packed import ops
 
+    width, first = view or (n_out, 0)
     bits = torch.from_numpy(
-        rng.integers(0, 2, size=(n_in, n_out), dtype=np.int8)).cuda()
+        rng.integers(0, 2, size=(n_in, width), dtype=np.int8)).cuda()
+    bits = bits[:, first:first + n_out]
     vth = torch.from_numpy(
         rng.integers(-8, 9, size=(n_out,), dtype=np.int32)).cuda()
-    x = random_words(rng, batch, n_in).cuda()
+    x = random_words(rng, batch, n_in, tail).cuda()
 
     def run():
         return ops.esam_layer_packed(x, bits, vth, pack_output=pack_output)
 
+    ops.reset_launch_counts()
     out = run()
+    if ops.launch_counts()["fused_fire_packed"] != 1:
+        raise AssertionError(f"fused_fire_packed launches "
+                             f"{ops.launch_counts()}")
     ref = ops.esam_layer_packed_ref(x, bits, vth, pack_output=pack_output)
     torch.cuda.synchronize()
     err = _word_err(out, ref)
     if err or not torch.equal(out, ref):
         raise AssertionError(f"fused_fire_packed != plain at B={batch} "
-                             f"{n_in}->{n_out} pack={pack_output}: err={err}")
+                             f"{n_in}->{n_out} pack={pack_output} "
+                             f"tail={tail} view={view}: err={err}")
     words = packing.packed_width(n_in)
     out_bytes = batch * (n_out // 8 if pack_output else n_out)
+    # the int8 weights, not planes: the kernel builds those
     n_bytes = 4 * batch * words + n_in * n_out + 4 * n_out + out_bytes
-    # the data's work: one multiply-add per active synapse
-    active = int(packing.popcount32(x).sum())
-    bound_ms, bound_by = card.bound(n_bytes, 2 * active * n_out,
-                                    INT8_OPS_PER_S)
+    shape = f"{batch}x{n_in}->{n_out}"
     row = {
-        "kernel": "fused_fire_packed", "shape": f"{batch}x{n_in}->{n_out}",
-        "pack_output": pack_output, "batch": batch, "max_abs_err": err,
-        "ms": graph_ms(run), "call_ms": call_ms(run),
+        "kernel": "fused_fire_packed", "shape": shape,
+        "pack_output": pack_output, "batch": batch, "tail": tail,
+        "view": view, "route": _packed_row(ops, x, n_out),
+        "max_abs_err": err, "ms": graph_ms(run), "call_ms": call_ms(run),
+        "before_ms": None if tail or view else PACKED_BEFORE_MS.get(
+            ("fused_fire_packed", shape)),
         "plain_ms": graph_ms(lambda: ops.esam_layer_packed_ref(
             x, bits, vth, pack_output=pack_output)),
-        "bound_ms": bound_ms, "bound_by": bound_by,
+        **_tile_bounds(card, batch, n_in, n_out, n_bytes),
         "library_ms": _matmul_yardstick(x, bits, n_in),
     }
     print("kernel_check " + json.dumps(row), flush=True)
@@ -1284,9 +1355,9 @@ def check_cim_matmul(card, rng, batch, n_in, n_out, kernels, fire=False,
     kernels.append(row)
 
 
-def check_packed_mac(card, rng, batch, n_in, n_out, kernels):
+def check_packed_mac(card, rng, batch, n_in, n_out, kernels, tail=False):
     """cim_matmul_packed (spike words x {0,1} int8 weights -> int32 V) vs
-    its plain version."""
+    its plain version; ``tail`` as in ``check_packed_fire``."""
     import torch
 
     from repro_torch.core import packing
@@ -1294,29 +1365,33 @@ def check_packed_mac(card, rng, batch, n_in, n_out, kernels):
 
     bits = torch.from_numpy(
         rng.integers(0, 2, size=(n_in, n_out), dtype=np.int8)).cuda()
-    x = random_words(rng, batch, n_in).cuda()
+    x = random_words(rng, batch, n_in, tail).cuda()
 
     def run():
         return ops.cim_matmul_packed(x, bits)
 
+    ops.reset_launch_counts()
     out = run()
+    if ops.launch_counts()["cim_matmul_packed"] != 1:
+        raise AssertionError(f"cim_matmul_packed launches "
+                             f"{ops.launch_counts()}")
     ref = ops.cim_matmul_packed_ref(x, bits)
     torch.cuda.synchronize()
     err = _word_err(out, ref)
     if err or not torch.equal(out, ref):
         raise AssertionError(f"cim_matmul_packed != plain at B={batch} "
-                             f"{n_in}->{n_out}: err={err}")
+                             f"{n_in}->{n_out} tail={tail}: err={err}")
     words = packing.packed_width(n_in)
     n_bytes = 4 * batch * words + n_in * n_out + 4 * batch * n_out
-    active = int(packing.popcount32(x).sum())
-    bound_ms, bound_by = card.bound(n_bytes, 2 * active * n_out,
-                                    INT8_OPS_PER_S)
+    shape = f"{batch}x{n_in}->{n_out}"
     row = {
-        "kernel": "cim_matmul_packed", "shape": f"{batch}x{n_in}->{n_out}",
-        "batch": batch, "max_abs_err": err,
-        "ms": graph_ms(run), "call_ms": call_ms(run),
+        "kernel": "cim_matmul_packed", "shape": shape, "batch": batch,
+        "tail": tail, "route": _packed_row(ops, x, n_out),
+        "max_abs_err": err, "ms": graph_ms(run), "call_ms": call_ms(run),
+        "before_ms": None if tail else PACKED_BEFORE_MS.get(
+            ("cim_matmul_packed", shape)),
         "plain_ms": graph_ms(lambda: ops.cim_matmul_packed_ref(x, bits)),
-        "bound_ms": bound_ms, "bound_by": bound_by,
+        **_tile_bounds(card, batch, n_in, n_out, n_bytes),
         "library_ms": _matmul_yardstick(x, bits, n_in),
     }
     print("kernel_check " + json.dumps(row), flush=True)
@@ -2167,7 +2242,7 @@ def main() -> int:
     # the exact MAC datapaths' issue rates (probes/rate_probe.cu), and the
     # one B2/B3 uses in the built kernel
     probe_rates(card, probe_build)
-    tile_sass(next(r.path for r in reports if r.name == "cim_popcount"))
+    tile_sass(reports)
     epoch_sass(next(r for r in reports if r.name == "stdp"))
 
     # 3. kernels vs plain, on the card
@@ -2182,21 +2257,42 @@ def main() -> int:
     # clusters
     mega_rows, mac_rows = [], []
     paper_fixed = (True,) * (len(PAPER_TOPOLOGY) - 1)
-    for batch in (1, 7, BUCKET, 1000, SERVE_REQUESTS):
+    # (the MAC runs on the b1 product from 5 rows a slice, B 320; 1000 is
+    # 15 rows a slice, its last slice partly empty)
+    # (whether 4096 rows need more slices than the card holds clusters
+    # depends on the occupancy the compiler's registers allow: 16384 do)
+    for batch in (1, 7, BUCKET, 512, 1000, BENCH_B, SERVE_REQUESTS,
+                  4 * SERVE_REQUESTS):
+        route = {} if batch == SERVE_REQUESTS else {
+            "persistent": batch > SERVE_REQUESTS}
         check_mega(card, rng, PAPER_TOPOLOGY, batch, mega_rows, cluster=2,
-                   fixed=paper_fixed, partial=False,
-                   persistent=batch == SERVE_REQUESTS)
-    check_mega(card, rng, PAPER_TOPOLOGY, 333, mega_rows, partial=True)
+                   fixed=paper_fixed, partial=batch == 1000,
+                   mac="b1" if batch >= 320 else "popc", **route)
+    check_mega(card, rng, PAPER_TOPOLOGY, 333, mega_rows, partial=True,
+               mac="b1")
+    check_mega(card, rng, PAPER_TOPOLOGY, 254, mega_rows, partial=True,
+               mac="popc")
     check_mega(card, rng, (768, 256, 10), BUCKET, mega_rows, cluster=2)
     check_mega(card, rng, (100, 64, 96, 33), 45, mega_rows, cluster=2,
                fixed=(False, False, False))
+    check_mega(card, rng, (100, 64, 96, 33), 1000, mega_rows, cluster=2,
+               fixed=(False, False, False), partial=True, mac="b1")
     for topology, cluster in (((100, 32, 10), 1), ((1024, 4096, 10), 4),
                               ((2048, 4096, 10), 8), ((4096, 4096, 10), 16)):
         check_mega(card, rng, topology, 8, mega_rows, cluster=cluster)
-    # why those geometries: the same kernel under two the launcher does
-    # not pick, bit for bit and timed
+    check_mega(card, rng, (4096, 4096, 10), 600, mega_rows, cluster=16,
+               partial=True, mac="b1")
+    # why those geometries: the same kernel under three the launcher does
+    # not pick (the other MAC; clusters of 8; a CTA an SM), bit for bit and
+    # timed, at a serving round's B 128 (2 rows a slice: the popc MAC), at
+    # 256 and 320 (4 and 5 rows: the last popc and the first b1 route) and
+    # the bench's 1024
     for topology, batch in ((PAPER_TOPOLOGY, BUCKET),
+                            (PAPER_TOPOLOGY, 2 * BUCKET),
+                            (PAPER_TOPOLOGY, 5 * 64),
+                            (PAPER_TOPOLOGY, BENCH_B),
                             (PAPER_TOPOLOGY, SERVE_REQUESTS),
+                            (BENCH_CASCADE, BUCKET),
                             (BENCH_CASCADE, BENCH_B)):
         mega_geometries(rng, topology, batch)
     check_mac(card, rng, BUCKET, 768, 10, mac_rows, paired=True)
@@ -2325,8 +2421,26 @@ def main() -> int:
             check_cim_matmul(card, rng, batch, n_in, n_out, matmul_rows,
                              fire=fire)
     for batch, n_in, n_out in (((BENCH_B, BENCH_K, BENCH_N),) + RAGGED_SHAPES
-                               + ((4096, 768, 256),)):
+                               + ((4096, 768, 256), (300, 768, 4096))):
         check_packed_mac(card, rng, batch, n_in, n_out, packed_mac_rows)
+    # B9 and B9' on spike bits set past K (K 777 and 100: both must drop
+    # them), on long inputs (K 40000, 157 K steps), and B9 on
+    # weight views whose rows start 16-byte aligned (cp.async staging) or
+    # not (byte loads)
+    for batch, n_in, n_out in ((BENCH_B, 777, BENCH_N), (7, 100, 10),
+                               (37, 40000, 96)):
+        check_packed_mac(card, rng, batch, n_in, n_out, packed_mac_rows,
+                         tail=True)
+    for batch, n_in, n_out, pack in ((1000, 777, 256, True),
+                                     (37, 100, 96, False),
+                                     (37, 100, 96, True),
+                                     (37, 40000, 96, True)):
+        check_packed_fire(card, rng, batch, n_in, n_out, packed_rows,
+                          pack_output=pack, tail=True)
+    for n_out, view, pack in ((70, (80, 0), False), (64, (97, 1), True),
+                              (64, (96, 32), True), (77, (77, 0), False)):
+        check_packed_fire(card, rng, 77, 333, n_out, packed_rows,
+                          pack_output=pack, tail=True, view=view)
     for batch, rounds, n in ((8, 32, 256), (1, 5, 10), (7, 3, 100),
                              (4096, 32, 256)):
         check_if_neuron(card, rng, batch, rounds, n, if_rows)

@@ -63,7 +63,7 @@ def main() -> int:
     kernels = ROOT / "src/repro_torch/kernels"
     build = subprocess.run(
         [_build._nvcc(), *_build.NVCC_FLAGS, f"-I{kernels / 'stdp/csrc'}",
-         f"-I{kernels / 'cim_popcount/csrc'}", "-o", str(lib_path),
+         f"-I{kernels / 'csrc'}", "-o", str(lib_path),
          str(ROOT / "probes/epoch_chain_probe.cu")],
         capture_output=True, text=True)
     if build.returncode:

@@ -3,8 +3,8 @@
 // one (mma m16n8k32 .s8, for bits unpacked to bytes) and the 32-bit popc
 // of the CUDA cores.  It is no part of the port: it replaces no TPU kernel
 // and no path runs it.  chip_smoke.py builds it on its own (nvcc, beside
-// the kernel libraries, with -I src/repro_torch/kernels/cim_popcount/csrc
-// for mma.cuh), launches it once on one SM and once on all of them, and
+// the kernel libraries, with -I src/repro_torch/kernels/csrc for
+// mma.cuh), launches it once on one SM and once on all of them, and
 // prints each datapath's instructions and AND+popc products per clock per
 // SM with the SM clock, because NVIDIA publishes no b1 rate for the H100.
 // The b1 reading is the rate B2's and B3's bound is computed from.

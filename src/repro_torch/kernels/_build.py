@@ -4,7 +4,9 @@ library -> ctypes).
 Each kernel library (``LIBRARIES``) is the ``*.cu`` sources of one kernel
 package, compiled with ``nvcc`` for ``sm_90a`` into a shared library with a
 plain C interface, cached under ``build/repro_torch/`` at the repository
-root on a hash of the sources and flags, and loaded with ``ctypes``.  Every
+root on a hash of the sources, the headers it may include (its own
+``csrc/*.cuh`` and the shared ``kernels/csrc/*.cuh``, passed with ``-I``)
+and the flags, and loaded with ``ctypes``.  Every
 library exports ``<name>_error_string(int)`` for :func:`check`.
 
 Nothing here runs at import time: this module imports on a machine with no
@@ -27,6 +29,8 @@ from pathlib import Path
 from typing import Callable, Optional
 
 KERNELS = Path(__file__).resolve().parent
+#: headers shared by several libraries (the b1 tensor-core tile helpers)
+SHARED_INCLUDE = KERNELS / "csrc"
 #: the kernel packages that carry CUDA sources under ``csrc/``
 LIBRARIES = ("cim_popcount", "cim_matmul_packed", "stdp", "arbiter",
              "lif_step", "cim_matmul", "if_neuron")
@@ -88,8 +92,9 @@ def _paths(name: str) -> tuple[Path, Path]:
     """(library path, ptxas report path), keyed on the sources and flags."""
     csrc = KERNELS / name / "csrc"
     digest = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
-    for path in _sources(name) + sorted(csrc.glob("*.cuh")):
-        digest.update(path.name.encode())
+    for path in (_sources(name) + sorted(csrc.glob("*.cuh"))
+                 + sorted(SHARED_INCLUDE.glob("*.cuh"))):
+        digest.update(f"{path.parent.parent.name}/{path.name}".encode())
         digest.update(path.read_bytes())
     key = digest.hexdigest()[:16]
     out = build_dir()
@@ -109,7 +114,8 @@ def build_all(names=LIBRARIES) -> list[BuildReport]:
             continue
         tmp = out_dir / f".{lib_path.name}.{os.getpid()}"
         proc = subprocess.Popen(
-            [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), *map(str, _sources(name))],
+            [_nvcc(), *NVCC_FLAGS, f"-I{SHARED_INCLUDE}", "-o", str(tmp),
+             *map(str, _sources(name))],
             stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
         running.append((name, lib_path, report, tmp, proc, time.perf_counter()))
     reports, failures = [], []

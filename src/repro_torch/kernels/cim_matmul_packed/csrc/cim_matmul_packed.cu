@@ -9,159 +9,359 @@
 // which unpack the spike words in VMEM and run the +-1 MAC on the MXU
 // (bf16 x bf16 -> f32) against {0,1} int8 weights [K, N]; the first fires
 // at V >= vth and re-packs the fired bits, the second stores V as int32.
-// The reference's product is exact (|V| <= K < 2^24), so this kernel sums
-// the same terms in int32 and gives the same words and V:
-//
-//     V[b, n] = sum_{k : s[b, k] = 1} (2 * w[k, n] - 1).
-//
-// What bounds it on an H100: for the learning prefix (4096 x 768 -> 256 at
-// spike density ~0.5) about 0.7 MB of operands against ~0.8 G adds, so the
-// bound is the arithmetic (int8 tensor-core rate, 1,979 TOP/s) at well
-// under a microsecond; this version is far from it.  The MAC alone (the
-// kernel bench's 1024 x 768 -> 768) writes 3.1 MB of int32 V and is bound by
-// those bytes, about 1.1 us at 3.35 TB/s.
-//
-// Design: the weights become bit planes in shared memory, and the MAC is
-// the popcount identity of the cim_popcount kernels,
+// The reference's product is exact (|V| <= K < 2^24), so this kernel gives
+// the same words and V from the popcount identity
 //
 //     V[b, n] = 2 * sum_j popc(s[b, j] & plane[n, j]) - sum_j popc(s[b, j]),
 //
-// so a lane spends one AND and one popcount per 32 synapses.
-//   * a block owns 32 output neurons (one lane each) and kRows batch rows
-//     (kRowsPerWarp per warp, accumulators in registers);
-//   * per pass of kChunkWords input words, each warp builds planes for some
-//     words: lane b reads the 32 weight bytes of input row 32 j + b for the
-//     block's 32 neurons (two 16-byte loads when aligned), and one
-//     __ballot_sync per neuron turns the 32 lanes' bytes into that neuron's
-//     plane word (bit b = w[32 j + b, n]); a nonzero byte is a '1';
-//   * each spike word is read once per row as a warp-wide broadcast; bits
-//     past K in the last word are masked, as the reference's unpack drops
-//     them, and plane bits past K or N are zero;
-//   * the fire predicates of the 32 lanes go through __ballot_sync, which is
-//     exactly the LSB-first wire word (lane i -> bit i);
-//   * the MAC without the fire is the same kernel with another epilogue: each
-//     lane stores its neuron's int32 V (32 consecutive words per warp row).
-// Left for later: the int8 tensor-core (mma, int32 accumulate) datapath,
-// cp.async staging.
+// where plane[n, j] bit i is w[32 j + i, n] != 0 and bits past K in the
+// last spike word are masked (the reference's unpack drops them).
+//
+// What bounds it on an H100: the MAC term is the b1 tensor-core product
+// mma.sync m16n8k256 .and.popc (BMMA in SASS), 21,744 bit pairs a clock an
+// SM (probes/rate_probe.cu), so 2 B N K operations take 0.14 us at the
+// learning prefix's 4096 x 768 -> 256 and the kernel is bound by its bytes
+// (spike words, int8 weights, outputs).  The planes are not an operand: the
+// kernel builds them from the int8 weights, and that build, not the
+// product, is the work to hide.
+//
+// Design (one launch a tile; ops._packed_route picks the grid):
+//   * a CTA owns one 64-neuron group (8 mma n-tiles) and a span of rows (a
+//     multiple of 16, up to 16 x 8 warps x kMaxTilesPerWarp), the span sized
+//     so that the grid fills the card about once; it builds its group's
+//     planes once, so each group's weights are read once a span, not once
+//     every 64 rows;
+//   * the build: the CTA stages its [K, 64] int8 slab into shared memory by
+//     cp.async, 256 K rows (one 256-bit K step: a word a warp) a stage, a
+//     ring of two stages in flight, 16-byte chunks swizzled against bank
+//     conflicts; zero-filled past K and N.  Where the weights' base or row
+//     stride is not 16-byte aligned (column views; N = 10 or 77
+//     contiguous) the same stage fills by predicated byte loads, a thread
+//     a row (`vec`, decided per launch).  Each warp then turns its 32
+//     staged rows into that step's plane words: each lane's 64 bytes into
+//     64 bits (__vcmpne4, a nonzero byte is a 1), then a 32 x 32 bit
+//     transpose across the warp (five __shfl_xor_sync butterflies a half),
+//     which leaves neuron l's word in lane l (one __ballot_sync a neuron
+//     is slower: probes/packed_tile_probe.py times both; PERF.md);
+//   * the MAC, one K step at a time behind the build: each warp walks
+//     16-row tiles of the span (tile i of warp w is rows 16 (w + 8 i)..), A
+//     fragments straight from the spike words in device memory (as
+//     popcount_fire loads them, kInFlight steps in flight from kernel
+//     start), B fragments from the step's planes in shared memory (a
+//     neuron's 8 words contiguous: conflict-free 8-byte loads), one
+//     mma.sync a n-tile.  So the planes are never held whole: any K runs
+//     in 34 KB of static shared memory, and the next stage's copy overlaps
+//     this step's transpose and product;
+//   * a row's spike count from the A words the quad holds and two quad
+//     shuffles, once a row, after the tail bits past K are masked (in the
+//     product and the count alike);
+//   * the epilogue (tile_epilogue, shared with popcount_fire): kVmem int32
+//     V, kFireInt8 one byte a neuron, kFirePacked each quad's bits ORed into
+//     the row's 32-neuron words.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include "mma.cuh"
+
 namespace {
 
-constexpr int kThreads = 256;
-constexpr int kWarps = kThreads / 32;
-constexpr int kRowsPerWarp = 8;
-constexpr int kRows = kWarps * kRowsPerWarp;
-constexpr int kChunkWords = 64;             // input words per pass
+constexpr int kWarps = 8;
+constexpr int kThreads = kWarps * 32;
+constexpr int kGroup = 64;                 // neurons of a CTA
+constexpr int kNTiles = kGroup / 8;        // mma n-tiles of a CTA
+constexpr int kTileRows = 16;              // rows of a warp's tile
+constexpr int kMaxTilesPerWarp = 2;        // row tiles a warp walks, at most
+constexpr int kStepWords = 8;              // input words of a K step
+constexpr int kInFlight = 3;               // K steps whose loads are in flight
+constexpr int kStageRows = 32 * kStepWords;   // K rows of a stage: one step
+constexpr int kStageBytes = kStageRows * kGroup;
+constexpr int kStages = 2;                 // stages in flight
+static_assert(kWarps == kStepWords, "a warp transposes a word of a step");
 
-// What the epilogue writes.
-enum OutMode : int { kFireInt8 = 0, kFirePacked = 1, kVmem = 2 };
-
-// The 32 weight bytes w[k, n0 .. n0 + 31] as 8 little-endian words; bytes
-// past N, and every byte of a row k >= K, are zero.
-__device__ __forceinline__ void load_row32(const int8_t* __restrict__ w,
-                                           long long ldw, int k, int K,
-                                           int n0, int N, bool vec,
-                                           uint32_t (&r)[8]) {
-#pragma unroll
-  for (int i = 0; i < 8; ++i) r[i] = 0u;
-  if (k >= K) return;
-  const int8_t* p = w + (long long)k * ldw + n0;
-  if (vec && n0 + 32 <= N) {
-    const uint4 a = __ldg(reinterpret_cast<const uint4*>(p));
-    const uint4 b = __ldg(reinterpret_cast<const uint4*>(p) + 1);
-    r[0] = a.x; r[1] = a.y; r[2] = a.z; r[3] = a.w;
-    r[4] = b.x; r[5] = b.y; r[6] = b.z; r[7] = b.w;
-    return;
-  }
-#pragma unroll
-  for (int i = 0; i < 32; ++i)
-    if (n0 + i < N)
-      r[i >> 2] |= (uint32_t)(uint8_t)__ldg(p + i) << (8 * (i & 3));
+__device__ __forceinline__ unsigned smem_addr(const void* p) {
+  return (unsigned)__cvta_generic_to_shared(p);
 }
 
+// 16 bytes into shared memory, of which the first `src_bytes` (0..16) come
+// from `src` and the rest are zero.
+__device__ __forceinline__ void cp_async16(void* dst, const void* src,
+                                           int src_bytes) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(
+                   smem_addr(dst)),
+               "l"(src), "r"(src_bytes)
+               : "memory");
+}
+
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+
+// Waits until at most the newest kStages - 1 groups are in flight.
+__device__ __forceinline__ void cp_async_wait_ring() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(kStages - 1) : "memory");
+}
+
+// Byte offset of 16-neuron chunk q of staged row r: the rows are 64 bytes,
+// the chunks of each pair of rows rotated, so the 8 lanes of a quarter warp
+// reading chunk q of 8 consecutive rows hit 32 different banks.
+__device__ __forceinline__ int stage_offset(int r, int q) {
+  return r * kGroup + 16 * (q ^ ((r >> 1) & 3));
+}
+
+// Stages K rows [k0, k0 + kStageRows) of neurons [n0, n0 + 64) of the int8
+// weights, zero past K and N.  Where every row starts 16-byte aligned
+// (`vec`): a cp.async a 16-byte chunk, four a thread.  Otherwise a thread a
+// row, by predicated byte loads, 16 neurons at a time and only as many
+// chunks as the group has neurons (one for N = 10).
+__device__ __forceinline__ void stage_rows(uint8_t* stage,
+                                           const int8_t* __restrict__ w,
+                                           long long ldw, int k0, int K,
+                                           int n0, int N, bool vec) {
+  if (vec) {
+#pragma unroll
+    for (int m = 0; m < kStageRows * 4 / kThreads; ++m) {
+      const int i = threadIdx.x + m * kThreads;
+      const int r = i >> 2, q = i & 3;
+      const int k = k0 + r, c = n0 + 16 * q;
+      const int valid = k < K ? min(16, max(0, N - c)) : 0;
+      cp_async16(stage + stage_offset(r, q),
+                 valid ? w + (long long)k * ldw + c : w, valid);
+    }
+    return;
+  }
+  static_assert(kStageRows == kThreads, "a thread a staged row");
+  const int r = threadIdx.x, k = k0 + r;
+  const int8_t* src = w + (long long)k * ldw + n0;
+  const int cols = k < K ? min(kGroup, N - n0) : 0;
+#pragma unroll 1
+  for (int q = 0; q < 4; ++q) {
+    uint32_t v[4] = {0u, 0u, 0u, 0u};
+    if (16 * q < cols) {
+#pragma unroll
+      for (int b = 0; b < 16; ++b)
+        if (16 * q + b < cols)
+          v[b >> 2] |= (uint32_t)(uint8_t)__ldg(src + 16 * q + b)
+                       << (8 * (b & 3));
+    }
+    *reinterpret_cast<uint4*>(stage + stage_offset(r, q)) =
+        make_uint4(v[0], v[1], v[2], v[3]);
+  }
+}
+
+// Bit i of the result: byte i of y is nonzero (i < 4): the bytes' top bits
+// after __vcmpne4, gathered by one multiply into bits 28..31.
+__device__ __forceinline__ uint32_t nonzero_bytes(uint32_t y) {
+  return ((__vcmpne4(y, 0u) & 0x80808080u) * 0x00204081u) >> 28;
+}
+
+// A 32 x 32 bit matrix held a row a lane (bit c of lane r), transposed
+// across the warp: bit r of lane c on return.  Five butterflies, each
+// swapping the off-diagonal j x j blocks of every 2j x 2j block.
+__device__ __forceinline__ uint32_t transpose32(uint32_t x, int lane) {
+  const uint32_t masks[5] = {0x0000ffffu, 0x00ff00ffu, 0x0f0f0f0fu,
+                             0x33333333u, 0x55555555u};
+#pragma unroll
+  for (int i = 0, j = 16; i < 5; ++i, j >>= 1) {
+    const uint32_t m = masks[i];
+    const uint32_t y = __shfl_xor_sync(0xffffffffu, x, j);
+    x = (lane & j) ? ((y >> j) & m) | (x & ~m) : (x & m) | ((y & m) << j);
+  }
+  return x;
+}
+
+// Word `warp` of the step's planes from this warp's 32 staged rows (lane l:
+// row l's 64 bytes, as 64 bits): lane l stores neurons l and l + 32, a
+// neuron's 8 words of the step contiguous in `planes`; the upper half only
+// where the group has neurons there.
+__device__ __forceinline__ void transpose_word(const uint8_t* stage,
+                                               uint32_t* planes, int warp,
+                                               int lane, bool upper) {
+  const int r = 32 * warp + lane;
+  uint32_t lo = 0u, hi = 0u;   // neurons 0..31 and 32..63 of row r
+#pragma unroll
+  for (int q = 0; q < 4; ++q) {
+    const uint4 v =
+        *reinterpret_cast<const uint4*>(stage + stage_offset(r, q));
+    const uint32_t bits = nonzero_bytes(v.x) | nonzero_bytes(v.y) << 4 |
+                          nonzero_bytes(v.z) << 8 | nonzero_bytes(v.w) << 12;
+    if (q < 2)
+      lo |= bits << (16 * q);
+    else
+      hi |= bits << (16 * (q - 2));
+  }
+  planes[lane * kStepWords + warp] = transpose32(lo, lane);
+  planes[(lane + 32) * kStepWords + warp] = upper ? transpose32(hi, lane) : 0u;
+}
+
+// One K step's A fragment (a[0] / a[2]: row g's words 2t / 2t + 1; a[1] /
+// a[3]: row g + 8's), bits past K masked.
+struct RowOperands {
+  const uint32_t* s0;   // row g
+  const uint32_t* s1;   // row g + 8
+  bool real0, real1;
+  int W;                // input words
+  uint32_t tail;        // the real bits of word W - 1
+};
+
+template <bool kPaired>
+__device__ __forceinline__ void load_a(uint32_t (&a)[4], const RowOperands& o,
+                                       int j) {
+  uint2 x0 = load_pair<kPaired>(o.s0, j, o.W, o.real0);
+  uint2 x1 = load_pair<kPaired>(o.s1, j, o.W, o.real1);
+  if (j == o.W - 1) {
+    x0.x &= o.tail;
+    x1.x &= o.tail;
+  } else if (j + 1 == o.W - 1) {
+    x0.y &= o.tail;
+    x1.y &= o.tail;
+  }
+  a[0] = x0.x;
+  a[2] = x0.y;
+  a[1] = x1.x;
+  a[3] = x1.y;
+}
+
+// grid (spans, ceil(N / 64)), kThreads threads: CTA (x, y) computes rows
+// [x * span_rows, (x + 1) * span_rows) of neurons [64 y, 64 y + 64).
+// kTiles row tiles a warp (span_rows <= 16 * kWarps * kTiles).
+template <bool kPaired, int kTiles>
 __global__ void __launch_bounds__(kThreads)
 fused_fire_packed_kernel(const uint32_t* __restrict__ packed, long long lds,
                          const int8_t* __restrict__ w, long long ldw,
                          const int32_t* __restrict__ vth,
                          void* __restrict__ out, int B, int K, int N,
-                         int out_mode, int vec) {
-  __shared__ uint32_t wp[kChunkWords][33];  // [word][lane], padded
-
+                         int span_rows, int out_mode, int vec) {
+  __shared__ __align__(16) uint8_t stages[kStages][kStageBytes];
+  __shared__ __align__(16) uint32_t planes[kGroup * kStepWords];
   const int lane = threadIdx.x & 31;
   const int warp = threadIdx.x >> 5;
-  const int n0 = blockIdx.y * 32;
-  const int n = n0 + lane;
-  const long long row0 = (long long)blockIdx.x * kRows;
+  const int g = lane >> 2, t = lane & 3;
+  const int n0 = blockIdx.y * kGroup;
+  const int nt = min(kNTiles, (N - n0 + 7) >> 3);   // n-tiles with neurons
+  const bool upper = N - n0 > 32;
   const int W = (K + 31) >> 5;
+  const int steps = (W + kStepWords - 1) / kStepWords;
+  const long long span0 = (long long)blockIdx.x * span_rows;
 
-  int acc[kRowsPerWarp], cnt[kRowsPerWarp];
+  // this warp's row tiles: tile i is rows span0 + 16 (warp + kWarps i)..
+  RowOperands o[kTiles];
+  bool busy[kTiles];
 #pragma unroll
-  for (int r = 0; r < kRowsPerWarp; ++r) acc[r] = cnt[r] = 0;
-
-  for (int j0 = 0; j0 < W; j0 += kChunkWords) {
-    const int jc = min(kChunkWords, W - j0);
-    __syncthreads();  // the previous pass is done with wp
-    for (int jj = warp; jj < jc; jj += kWarps) {
-      uint32_t r8[8];
-      load_row32(w, ldw, (j0 + jj) * 32 + lane, K, n0, N, vec != 0, r8);
-      uint32_t mine = 0u;
+  for (int i = 0; i < kTiles; ++i) {
+    const int tile_row = kTileRows * (warp + kWarps * i);
+    const long long r0 = span0 + tile_row + g;
+    busy[i] = tile_row < span_rows && span0 + tile_row < B;
+    o[i].real0 = busy[i] && r0 < B;
+    o[i].real1 = busy[i] && r0 + 8 < B;
+    o[i].s0 = packed + r0 * lds;
+    o[i].s1 = packed + (r0 + 8) * lds;
+    o[i].W = W;
+    o[i].tail = (K & 31) ? (1u << (K & 31)) - 1u : 0xffffffffu;
+  }
+  // the first steps' spike words and the stages' weights, all in flight at
+  // once; then the thresholds
+  uint32_t a[kTiles][kInFlight][4];
 #pragma unroll
-      for (int l = 0; l < 32; ++l) {
-        const uint32_t word =
-            __ballot_sync(0xffffffffu, (r8[l >> 2] >> (8 * (l & 3))) & 0xffu);
-        if (lane == l) mine = word;
-      }
-      wp[jj][lane] = mine;
+  for (int i = 0; i < kTiles; ++i)
+#pragma unroll
+    for (int s = 0; s < kInFlight; ++s)
+      if (busy[i] && s < steps)
+        load_a<kPaired>(a[i][s], o[i], s * kStepWords + 2 * t);
+#pragma unroll 1
+  for (int s = 0; s < kStages; ++s) {
+    if (s < steps)
+      stage_rows(stages[s], w, ldw, s * kStageRows, K, n0, N, vec != 0);
+    cp_async_commit();
+  }
+  int th[kNTiles][2] = {};
+  if (out_mode != kVmem) {
+#pragma unroll
+    for (int q = 0; q < kNTiles; ++q) {
+      const int n = n0 + 8 * q + 2 * t;
+      if (q < nt && n < N) th[q][0] = __ldg(vth + n);
+      if (q < nt && n + 1 < N) th[q][1] = __ldg(vth + n + 1);
     }
-    __syncthreads();
+  }
+  int acc[kTiles][kNTiles][4] = {};
+  int pc[kTiles][2] = {};   // popc(s) of rows g and g + 8 of each tile
+  const uint32_t* b_row = planes + g * kStepWords + 2 * t;   // neuron g
+  for (int base = 0; base < steps; base += kInFlight) {
 #pragma unroll
-    for (int r = 0; r < kRowsPerWarp; ++r) {
-      const long long row = row0 + warp + r * kWarps;
-      if (row >= B) continue;
-      const uint32_t* s = packed + row * lds + j0;
-      for (int jj = 0; jj < jc; ++jj) {
-        uint32_t word = __ldg(s + jj);
-        const int valid = K - (j0 + jj) * 32;
-        if (valid < 32) word &= (1u << valid) - 1u;
-        acc[r] += __popc(word & wp[jj][lane]);
-        cnt[r] += __popc(word);
+    for (int s = 0; s < kInFlight; ++s) {
+      const int step = base + s;
+      if (step >= steps) break;
+      uint8_t* stage = stages[step % kStages];
+      cp_async_wait_ring();   // the step's stage has landed (these copies)
+      __syncthreads();        // ... every thread's; the last step's
+                              // product is done with the planes
+      transpose_word(stage, planes, warp, lane, upper);
+      __syncthreads();        // the step's planes are whole; the stage free
+      if (step + kStages < steps)
+        stage_rows(stage, w, ldw, (step + kStages) * kStageRows, K, n0, N,
+                   vec != 0);
+      cp_async_commit();
+#pragma unroll
+      for (int i = 0; i < kTiles; ++i) {
+        if (!busy[i]) continue;   // the whole warp
+        pc[i][0] += __popc(a[i][s][0]) + __popc(a[i][s][2]);
+        pc[i][1] += __popc(a[i][s][1]) + __popc(a[i][s][3]);
+#pragma unroll
+        for (int q = 0; q < kNTiles; ++q) {
+          if (q < nt) {
+            const uint2 bv = *reinterpret_cast<const uint2*>(
+                b_row + q * 8 * kStepWords);
+            const uint32_t b[2] = {bv.x, bv.y};
+            mma_and_popc(acc[i][q], a[i][s], b);
+          }
+        }
+        if (step + kInFlight < steps)
+          load_a<kPaired>(a[i][s], o[i],
+                          (step + kInFlight) * kStepWords + 2 * t);
       }
     }
   }
 
 #pragma unroll
-  for (int r = 0; r < kRowsPerWarp; ++r) {
-    const long long row = row0 + warp + r * kWarps;
-    if (row >= B) continue;
-    const int v = 2 * acc[r] - cnt[r];
-    if (out_mode == kVmem) {
-      if (n < N) static_cast<int32_t*>(out)[row * N + n] = v;
-      continue;
-    }
-    const bool fire = n < N && v >= __ldg(vth + n);
-    if (out_mode == kFirePacked) {
-      const uint32_t word = __ballot_sync(0xffffffffu, fire);
-      if (lane == 0)
-        static_cast<uint32_t*>(out)[row * (N >> 5) + blockIdx.y] = word;
-    } else if (n < N) {
-      static_cast<int8_t*>(out)[row * N + n] = fire ? 1 : 0;
-    }
+  for (int i = 0; i < kTiles; ++i) {
+    if (!busy[i]) continue;
+    int pc0 = pc[i][0], pc1 = pc[i][1];
+    pc0 += __shfl_xor_sync(0xffffffffu, pc0, 1);
+    pc0 += __shfl_xor_sync(0xffffffffu, pc0, 2);
+    pc1 += __shfl_xor_sync(0xffffffffu, pc1, 1);
+    pc1 += __shfl_xor_sync(0xffffffffu, pc1, 2);
+    const long long r0 = span0 + kTileRows * (warp + kWarps * i) + g;
+    tile_epilogue<kNTiles>(acc[i], pc0, pc1, th, out, out_mode, r0,
+                           o[i].real0, o[i].real1, n0, nt, N, t);
   }
 }
 
 int launch(const void* packed, long long lds, const void* w, long long ldw,
-           const void* vth, void* out, int B, int K, int N, int out_mode,
-           void* stream) {
-  if (B < 1 || K < 1 || N < 1 || (out_mode == kFirePacked && N % 32))
+           const void* vth, void* out, int B, int K, int N, int span_rows,
+           int spans, int paired, int out_mode, void* stream) {
+  const int W = (K + 31) / 32;
+  if (B < 1 || K < 1 || N < 1 || lds < 0 || ldw < 0 ||
+      (out_mode == kFirePacked && N % 32) || span_rows < kTileRows ||
+      span_rows % kTileRows ||
+      span_rows > kTileRows * kWarps * kMaxTilesPerWarp || spans < 1 ||
+      (long long)spans * span_rows < B ||
+      (long long)(spans - 1) * span_rows >= B)
     return (int)cudaErrorInvalidValue;
-  // 16-byte weight loads when every 32-neuron group starts 16-byte aligned
-  const int vec = (uintptr_t)w % 16 == 0 && ldw % 16 == 0;
-  const dim3 grid((B + kRows - 1) / kRows, (N + 31) / 32);
-  fused_fire_packed_kernel<<<grid, kThreads, 0, (cudaStream_t)stream>>>(
+  if (paired && (((lds | W) & 1) || reinterpret_cast<uintptr_t>(packed) & 7))
+    return (int)cudaErrorInvalidValue;
+  // cp.async of whole 16-byte chunks where every row of every group starts
+  // 16-byte aligned
+  const int vec = reinterpret_cast<uintptr_t>(w) % 16 == 0 && ldw % 16 == 0;
+  const dim3 grid((unsigned)spans, (unsigned)((N + kGroup - 1) / kGroup));
+  const bool two = span_rows > kTileRows * kWarps;
+  const auto kernel =
+      paired ? (two ? fused_fire_packed_kernel<true, 2>
+                    : fused_fire_packed_kernel<true, 1>)
+             : (two ? fused_fire_packed_kernel<false, 2>
+                    : fused_fire_packed_kernel<false, 1>);
+  kernel<<<grid, kThreads, 0, (cudaStream_t)stream>>>(
       (const uint32_t*)packed, lds, (const int8_t*)w, ldw,
-      (const int32_t*)vth, out, B, K, N, out_mode, vec);
+      (const int32_t*)vth, out, B, K, N, span_rows, out_mode, vec);
   return (int)cudaGetLastError();
 }
 
@@ -171,21 +371,26 @@ extern "C" {
 
 // Fired spikes of one tile: uint32[B, N/32] when pack_out (N % 32 == 0) else
 // int8[B, N], from packed uint32[B, ceil(K/32)] (row stride lds words),
-// weight bits int8[K, N] (row stride ldw bytes) and vth int32[N].
+// weight bits int8[K, N] (row stride ldw bytes) and vth int32[N], on the
+// grid of ops._packed_route: `spans` spans of `span_rows` rows (a multiple
+// of 16, at most 256, the spans covering B) by ceil(N / 64) groups;
+// `paired` for 8-byte spike loads (W and lds even, packed 8-byte aligned).
 // Returns cudaGetLastError().
 int cim_matmul_packed_fire(const void* packed, long long lds, const void* w,
                            long long ldw, const void* vth, void* out, int B,
-                           int K, int N, int pack_out, void* stream) {
-  return launch(packed, lds, w, ldw, vth, out, B, K, N,
-                pack_out ? kFirePacked : kFireInt8, stream);
+                           int K, int N, int span_rows, int spans, int paired,
+                           int pack_out, void* stream) {
+  return launch(packed, lds, w, ldw, vth, out, B, K, N, span_rows, spans,
+                paired, pack_out ? kFirePacked : kFireInt8, stream);
 }
 
-// V int32[B, N] of one tile, from the same operands (no threshold).
-// Returns cudaGetLastError().
+// V int32[B, N] of one tile, from the same operands and grid (no
+// threshold).  Returns cudaGetLastError().
 int cim_matmul_packed_mac(const void* packed, long long lds, const void* w,
                           long long ldw, void* out, int B, int K, int N,
-                          void* stream) {
-  return launch(packed, lds, w, ldw, nullptr, out, B, K, N, kVmem, stream);
+                          int span_rows, int spans, int paired, void* stream) {
+  return launch(packed, lds, w, ldw, nullptr, out, B, K, N, span_rows, spans,
+                paired, kVmem, stream);
 }
 
 const char* cim_matmul_packed_error_string(int err) {

@@ -18,10 +18,10 @@
 // quarter of the AND/ADD rate: 0.32 us for a 128-row round on an NVIDIA
 // H100 80GB HBM3 at its 1980 MHz maximum SM clock (700 W limit).  The b1
 // tensor-core product does 39x the popc unit's pairs a second on that card
-// (probes/rate_probe.cu), so popcount_fire and popcount_mac use it.  At a
-// serving round's 128 rows the cascade is a chain instead: four tiles, each
-// needing the last one's fired words, so latency sets its time (PERF.md
-// has the measurements).
+// (probes/rate_probe.cu), so popcount_fire and popcount_mac use it, and the
+// cascade from 5 rows a slice.  At a serving round's 128 rows the cascade
+// is a chain instead: four tiles, each needing the last one's fired words,
+// so latency sets its time (PERF.md has the measurements).
 //
 // mega_cascade: the whole cascade in one launch (the TPU kernel's single
 // pallas_call): MAC -> IF fire -> re-pack -> next tile.  Its design:
@@ -35,24 +35,35 @@
 //     every tile at once, each tile completing on its own mbarrier, so tile
 //     t waits for its own words only and tiles 1.. land while tile 0
 //     computes.  The plan regroups the operands once (ops.cascade_tiles)
-//     so that a share is contiguous: per 32-neuron group, (w + 1) x 32
-//     words, the group's planes transposed (the 32 lanes of a warp read 32
-//     consecutive words) and its thresholds;
-//   * one warp computes 32 neighbouring neurons of one row: each lane owns a
-//     neuron, and __ballot_sync of the fire predicates is exactly the
-//     LSB-first packed word (lane i -> bit i).  Lanes 0..C-1 push it into
-//     the next tile's row buffer of every CTA of the cluster (distributed
-//     shared memory, st.async), each store completing 4 bytes on that
-//     buffer's mbarrier there; lane 31 writes the collected fired plane.  A
-//     tile waits for exactly its input words, not for a cluster barrier;
-//   * a row's spike count popc(s) is one popc a lane and a warp reduction,
-//     inside the warp that needs it: no serial per-row loop;
-//   * the common word counts (8 and 24, the paper topology's) run a MAC
-//     unrolled at compile time with 128-bit loads of the row's words; the
-//     others a run-time loop.  One kernel, a switch per tile.
+//     so that a share is contiguous: per 32-neuron group, (w8 + 1) x 32
+//     words (w8: w rounded up to 8), the group's planes transposed (row j:
+//     word j of the 32 neurons, rotated by 8 (j / 2 mod 4) words so that
+//     both MACs below read 32 banks), zero rows to w8, its thresholds;
+//   * the MAC of a tile runs one of two ways, by the rows a slice:
+//     - from 5 rows (ops._B1_MIN_ROWS) on the b1 tensor-core product: a
+//       warp takes the slice's rows (up to 16, the mma's m; A fragments
+//       from the row buffer, rows past the slice zero) x one group (4
+//       n-tiles; B fragments from the staged block), one mma.sync a n-tile
+//       and 256-bit step.  The fire bits of rows g and g + 8 come from the
+//       accumulator fragments and two quad OR shuffles; lane t of quad g
+//       pushes both rows' words to CTAs t, t + 4, .. of the cluster;
+//     - below, on the popc unit: a warp computes 32 neighbouring neurons of
+//       one row, each lane a neuron, and __ballot_sync of the fire
+//       predicates is exactly the LSB-first packed word (lane i -> bit i);
+//       lanes 0..C-1 push it to the CTAs of the cluster, lane 31 writes the
+//       fired plane.  The common word counts (8 and 24, the paper
+//       topology's) run unrolled at compile time with 128-bit loads of the
+//       row's words; the others a run-time loop.  A row's spike count is
+//       one popc a lane and a warp reduction;
+//     each push goes into the next tile's row buffer of a CTA of the
+//     cluster (distributed shared memory, st.async), completing 4 bytes on
+//     that buffer's mbarrier there.  A tile waits for exactly its input
+//     words, not for a cluster barrier.
 // The launcher (ops._cascade_route) picks C = 2, or 1 for one group a tile,
-// doubled while a CTA's share does not fit shared memory, and rows from the
-// batch.  PERF.md has the measurements behind that, and behind what was
+// doubled while a CTA's share does not fit shared memory, rows from the
+// batch (up to 16) and the MAC from the rows.  PERF.md has the measurements
+// behind that (the popc unit wins at a serving round's 2 rows a slice and
+// at 4, the b1 product from 5), and behind what was
 // left out: clusters of 8 (slower at every batch but 1: every CTA of a
 // cluster loads the rows and counts their spikes), a cluster barrier a tile
 // (~1,000 cycles), cp.async staging (~3,000 cycles to issue), and each CTA
@@ -86,11 +97,12 @@
 //   * a row's spike count popc(s) comes from the A words the quad already
 //     holds (two popc a thread a step) and two quad shuffles, once per
 //     warp tile, next to the product;
-//   * the epilogue works on the accumulator fragments: kVmem writes V =
-//     2 acc - popc(s); kFireInt8 one byte a neuron (V >= vth); kFirePacked
-//     sets each thread's two neurons' bits of a row's LSB-first 32-neuron
-//     word, ORs them over the quad (__shfl_xor_sync) and lets each lane of
-//     the quad store one of its four words.
+//   * the epilogue (tile_epilogue in mma.cuh, shared with the packed tile
+//     of kernels/cim_matmul_packed) works on the accumulator fragments:
+//     kVmem writes V = 2 acc - popc(s); kFireInt8 one byte a neuron (V >=
+//     vth); kFirePacked sets each thread's two neurons' bits of a row's
+//     LSB-first 32-neuron word, ORs them over the quad (__shfl_xor_sync)
+//     and lets each lane of the quad store one of its four words.
 // On an H100 the b1 product issues 0.66 times a clock per SM, 21,744 bit
 // pairs a clock per SM (probes/rate_probe.cu; PERF.md), so these tiles are
 // bound by latency and launch, not by the MAC.
@@ -105,20 +117,10 @@ namespace {
 constexpr int kMaxTiles = 16;
 constexpr int kThreads = 256;
 constexpr int kMaxCluster = 16;   // CTAs of a cascade cluster (8 portable)
-
-// What popcount_fire_kernel's epilogue writes.
-enum OutMode : int { kFireInt8 = 0, kFirePacked = 1, kVmem = 2 };
-
-// One lane's MAC term sum_j popc(s[j] & wt[j * ld + n]): the row's spike
-// words `s` are a broadcast, the staged weights `wt` are word-major and
-// neuron-minor, so the 32 lanes of a warp read 32 consecutive words.
-__device__ __forceinline__ int and_popc(const uint32_t* s, const uint32_t* wt,
-                                        int ld, int n, int w) {
-  int acc = 0;
-#pragma unroll 4
-  for (int j = 0; j < w; ++j) acc += __popc(s[j] & wt[j * ld + n]);
-  return acc;
-}
+// The cascade's MAC: a lane a neuron on the popc unit, or a warp a task on
+// the b1 tensor-core product (ops._cascade_route picks it from the rows).
+enum CascadeMac : int { kMacPopc = 0, kMacB1 = 1 };
+constexpr int kB1MaxRows = 16;    // rows of a b1 task: the mma's m
 
 // ---- popcount_fire / popcount_mac ----------------------------------- //
 
@@ -135,20 +137,6 @@ struct StepFrag {
   uint32_t a[4];
   uint32_t b[kNTiles][2];
 };
-
-// Words j and j + 1 of a row, zero past w or for a row that is not real.
-template <bool kPaired>
-__device__ __forceinline__ uint2 load_pair(const uint32_t* row, int j, int w,
-                                           bool real) {
-  uint2 v = make_uint2(0u, 0u);
-  if (kPaired) {   // w even, row 8-byte aligned: j < w covers j + 1
-    if (real && j < w) v = __ldg(reinterpret_cast<const uint2*>(row + j));
-  } else {
-    if (real && j < w) v.x = __ldg(row + j);
-    if (real && j + 1 < w) v.y = __ldg(row + j + 1);
-  }
-  return v;
-}
 
 // Everything one thread reads: its two rows, its neuron of each n-tile.
 struct TileOperands {
@@ -180,24 +168,6 @@ __device__ __forceinline__ void load_step(StepFrag& f, const TileOperands& o,
       f.b[q][0] = y.x;
       f.b[q][1] = y.y;
     }
-  }
-}
-
-// Stores a thread's two neighbouring outputs (n, n + 1) of row r of a
-// [B, N] output; `even` (N even) makes them one aligned store.
-template <typename T, typename T2>
-__device__ __forceinline__ void store_two(T* out, long long r, int n, int N,
-                                          bool real, bool even, T v0, T v1) {
-  if (!real || n >= N) return;
-  T* p = out + r * N + n;
-  if (even) {
-    T2 v;
-    v.x = v0;
-    v.y = v1;
-    *reinterpret_cast<T2*>(p) = v;
-  } else {
-    p[0] = v0;
-    if (n + 1 < N) p[1] = v1;
   }
 }
 
@@ -268,61 +238,8 @@ popcount_fire_kernel(const uint32_t* __restrict__ packed, long long lds,
   pc1 += __shfl_xor_sync(0xffffffffu, pc1, 1);
   pc1 += __shfl_xor_sync(0xffffffffu, pc1, 2);
 
-  // acc[q][i] of n-tile q: row g (i 0, 1) or g + 8 (i 2, 3), neuron
-  // n0 + 8 q + 2 t + (i & 1)
-  const bool even = !(N & 1);
-  if (out_mode == kVmem) {
-    int32_t* o32 = static_cast<int32_t*>(out);
-#pragma unroll
-    for (int q = 0; q < kNTiles; ++q) {
-      if (q >= nt) continue;
-      const int n = n0 + 8 * q + 2 * t;
-      store_two<int32_t, int2>(o32, r0, n, N, o.real0, even,
-                               2 * acc[q][0] - pc0, 2 * acc[q][1] - pc0);
-      store_two<int32_t, int2>(o32, r1, n, N, o.real1, even,
-                               2 * acc[q][2] - pc1, 2 * acc[q][3] - pc1);
-    }
-    return;
-  }
-  uint32_t w00 = 0, w01 = 0, w10 = 0, w11 = 0;   // [row g / g+8][word 0 / 1]
-#pragma unroll
-  for (int q = 0; q < kNTiles; ++q) {
-    if (q >= nt) continue;
-    const int n = n0 + 8 * q + 2 * t;
-    const bool f00 = 2 * acc[q][0] - pc0 >= th[q][0];
-    const bool f01 = 2 * acc[q][1] - pc0 >= th[q][1];
-    const bool f10 = 2 * acc[q][2] - pc1 >= th[q][0];
-    const bool f11 = 2 * acc[q][3] - pc1 >= th[q][1];
-    if (out_mode == kFireInt8) {
-      int8_t* o8 = static_cast<int8_t*>(out);
-      store_two<int8_t, char2>(o8, r0, n, N, o.real0, even, f00, f01);
-      store_two<int8_t, char2>(o8, r1, n, N, o.real1, even, f10, f11);
-      continue;
-    }
-    const int sh = 8 * (q & 3) + 2 * t;   // LSB-first within the word
-    const uint32_t b0 = (uint32_t)f00 << sh | (uint32_t)f01 << (sh + 1);
-    const uint32_t b1 = (uint32_t)f10 << sh | (uint32_t)f11 << (sh + 1);
-    if (q < 4) {
-      w00 |= b0;
-      w10 |= b1;
-    } else {
-      w01 |= b0;
-      w11 |= b1;
-    }
-  }
-  if (out_mode != kFirePacked) return;
-#pragma unroll
-  for (int m = 1; m <= 2; m <<= 1) {
-    w00 |= __shfl_xor_sync(0xffffffffu, w00, m);
-    w01 |= __shfl_xor_sync(0xffffffffu, w01, m);
-    w10 |= __shfl_xor_sync(0xffffffffu, w10, m);
-    w11 |= __shfl_xor_sync(0xffffffffu, w11, m);
-  }
-  // lane t of the quad stores word t & 1 of row g (t < 2) or g + 8
-  const uint32_t word = t == 0 ? w00 : t == 1 ? w01 : t == 2 ? w10 : w11;
-  const int wi = (n0 >> 5) + (t & 1);
-  if ((t < 2 ? o.real0 : o.real1) && wi < (N >> 5))
-    static_cast<uint32_t*>(out)[(t < 2 ? r0 : r1) * (N >> 5) + wi] = word;
+  tile_epilogue<kNTiles>(acc, pc0, pc1, th, out, out_mode, r0, o.real0,
+                         o.real1, n0, nt, N, t);
 }
 
 // One launch of popcount_fire_kernel on a grid of (row_blocks,
@@ -354,14 +271,16 @@ int launch_tile(const void* packed, long long lds, const void* planes,
 
 // One tile of the cascade, and the slice of it one CTA of a cluster owns.
 // The tiles operand holds, per tile, per 32-neuron group, a block of
-// (w + 1) x 32 words: row j < w is word j of the group's 32 weight planes
-// (lane l: neuron 32 g + l), row w their thresholds.
+// (w8 + 1) x 32 words, w8 = w rounded up to 8: row j < w is word j of the
+// group's 32 weight planes, neuron n in column block_col(j, n); rows w..w8-1
+// are zero; row w8 holds the thresholds (lane l: neuron 32 g + l).
 struct CascadeTile {
   int n_out;             // real output width
   int w;                 // input words ceil(K / 32)
+  int w8;                // w rounded up to 8 (256-bit product steps)
   int groups;            // 32-neuron groups, ceil(n_out / 32)
   int gpc;               // groups a CTA owns, ceil(groups / cluster)
-  int blk;               // words of a group's block, (w + 1) * 32
+  int blk;               // words of a group's block, (w8 + 1) * 32
   int wt_off;            // shared words before the CTA's blocks
   long long tiles_off;   // words before the tile's blocks in `tiles`
   long long fired_off;   // words before the tile's plane in `fired`
@@ -376,7 +295,8 @@ struct CascadeArgs {
   int cluster;                // CTAs of a cluster
   int rows;                   // batch rows of a slice
   int slices;                 // ceil(B / rows)
-  int pw;                     // words of a row buffer (a multiple of 4)
+  int mac;                    // kMacPopc or kMacB1
+  int pw;                     // words of a buffer row: 8 or 24 mod 32
   int row_off;                // shared words before the two row buffers
   int bar_off;                // shared words before the mbarriers (even)
   int smem_words;             // shared words of a CTA
@@ -481,38 +401,54 @@ __device__ __forceinline__ void st_async(uint32_t* local, uint64_t* bar,
       : "memory");
 }
 
-// and_popc with the word count W fixed at compile time: the row's words `s`
+// Column of neuron n in row j of a group block: the rows' 32 words are
+// rotated by 8 (j / 2 mod 4), so that a lane a neuron (the popc MAC) and the
+// b1 product's B fragments (rows 2t, 2t + 1 of a step in quad lane t) both
+// read 32 different banks.
+__device__ __forceinline__ int block_col(int j, int n) {
+  return n ^ (8 * ((j >> 1) & 3));
+}
+
+// One lane's MAC term sum_j popc(s[j] & plane_n[j]) over a group block
+// `blk`, with the word count W fixed at compile time: the row's words `s`
 // (16-byte aligned, a broadcast) in 128-bit loads, four partial sums.
 template <int W>
 __device__ __forceinline__ int and_popc_fixed(const uint32_t* s,
-                                              const uint32_t* wt, int ld,
-                                              int n) {
+                                              const uint32_t* blk, int n) {
   static_assert(W % 4 == 0, "W must be a multiple of 4");
+  const uint32_t* col[4] = {blk + n, blk + (n ^ 8), blk + (n ^ 16),
+                            blk + (n ^ 24)};
   int a0 = 0, a1 = 0, a2 = 0, a3 = 0;
 #pragma unroll
   for (int j = 0; j < W; j += 4) {
     const uint4 sv = *reinterpret_cast<const uint4*>(s + j);
-    a0 += __popc(sv.x & wt[(j + 0) * ld + n]);
-    a1 += __popc(sv.y & wt[(j + 1) * ld + n]);
-    a2 += __popc(sv.z & wt[(j + 2) * ld + n]);
-    a3 += __popc(sv.w & wt[(j + 3) * ld + n]);
+    a0 += __popc(sv.x & col[(j >> 1) & 3][(j + 0) * 32]);
+    a1 += __popc(sv.y & col[(j >> 1) & 3][(j + 1) * 32]);
+    a2 += __popc(sv.z & col[((j + 2) >> 1) & 3][(j + 2) * 32]);
+    a3 += __popc(sv.w & col[((j + 2) >> 1) & 3][(j + 3) * 32]);
   }
   return (a0 + a1) + (a2 + a3);
 }
 
-// Whether the cascade's MAC takes a compile-time path at w words.
+// Whether the cascade's popc MAC takes a compile-time path at w words.
 __host__ __device__ inline bool fixed_words(int w) { return w == 8 || w == 24; }
 
-// One lane's MAC term over a group block's column `col` (stride 32).
+// One lane's popc MAC term for neuron n of a group block over w words.
 __device__ __forceinline__ int cascade_mac(const uint32_t* s,
-                                           const uint32_t* col, int w) {
+                                           const uint32_t* blk, int n,
+                                           int w) {
   switch (w) {
     case 8:
-      return and_popc_fixed<8>(s, col, 32, 0);
+      return and_popc_fixed<8>(s, blk, n);
     case 24:
-      return and_popc_fixed<24>(s, col, 32, 0);
-    default:
-      return and_popc(s, col, 32, 0, w);
+      return and_popc_fixed<24>(s, blk, n);
+    default: {
+      int acc = 0;
+#pragma unroll 4
+      for (int j = 0; j < w; ++j)
+        acc += __popc(s[j] & blk[j * 32 + block_col(j, n)]);
+      return acc;
+    }
   }
 }
 
@@ -521,6 +457,59 @@ __device__ __forceinline__ int row_spikes(const uint32_t* s, int w, int lane) {
   int c = 0;
   for (int j = lane; j < w; j += 32) c += __popc(s[j]);
   return __reduce_add_sync(0xffffffffu, c);
+}
+
+// Words j and j + 1 of a row buffer row, zero past w or for a row that is
+// not in the slice (rows are 8-byte aligned, j even).
+__device__ __forceinline__ uint2 row_pair(const uint32_t* s, int j, int w,
+                                          bool real) {
+  uint2 v = make_uint2(0u, 0u);
+  if (real && j < w) {
+    if (j + 1 < w)
+      v = *reinterpret_cast<const uint2*>(s + j);
+    else
+      v.x = s[j];
+  }
+  return v;
+}
+
+// The b1 MAC of one task: the slice's rows (at most 16; A from the row
+// buffer `cur`, row stride pw) x one group block (4 mma n-tiles of B from
+// the staged planes), in thread (g, t).  acc[q][i]: n-tile q, row g (i 0, 1)
+// or g + 8 (i 2, 3), neuron 8 q + 2 t + (i & 1) of the group; pc0 / pc1 the
+// two rows' spike counts, summed over the quad.
+__device__ __forceinline__ void cascade_b1(const uint32_t* cur, int pw,
+                                           int rows, const uint32_t* blk,
+                                           int w, int w8, int g, int t,
+                                           int (&acc)[4][4], int& pc0,
+                                           int& pc1) {
+  const bool real0 = g < rows, real1 = g + 8 < rows;
+  const uint32_t* s0 = cur + g * pw;
+  const uint32_t* s1 = cur + (g + 8) * pw;
+  // rows 2t and 2t + 1 of a step are rotated by 8 t: neuron 8 q + g of them
+  // sits in column 8 (q ^ t) + g
+  const uint32_t* b = blk + 64 * t + g;
+  pc0 = pc1 = 0;
+#pragma unroll 3
+  for (int j0 = 0; j0 < w8; j0 += 8) {
+    const int j = j0 + 2 * t;
+    const uint2 x0 = row_pair(s0, j, w, real0);
+    const uint2 x1 = row_pair(s1, j, w, real1);
+    const uint32_t a[4] = {x0.x, x1.x, x0.y, x1.y};
+    pc0 += __popc(x0.x) + __popc(x0.y);
+    pc1 += __popc(x1.x) + __popc(x1.y);
+    const uint32_t* bs = b + 32 * j0;
+#pragma unroll
+    for (int q = 0; q < 4; ++q) {
+      const int c = 8 * (q ^ t);
+      const uint32_t bq[2] = {bs[c], bs[32 + c]};
+      mma_and_popc(acc[q], a, bq);
+    }
+  }
+  pc0 += __shfl_xor_sync(0xffffffffu, pc0, 1);
+  pc0 += __shfl_xor_sync(0xffffffffu, pc0, 2);
+  pc1 += __shfl_xor_sync(0xffffffffu, pc1, 1);
+  pc1 += __shfl_xor_sync(0xffffffffu, pc1, 2);
 }
 
 // grid = clusters * cluster CTAs, clusters of `cluster` along x.  Cluster k
@@ -535,6 +524,10 @@ __device__ __forceinline__ int row_spikes(const uint32_t* s, int w, int lane) {
 // word for tile t + 1 needs every word of tile t, and each of those is
 // pushed after its task read its row.  Slices part with a cluster barrier
 // (the last tile pushes nothing, so nothing else orders them).
+// kB1: the MAC on the b1 product (a.mac == kMacB1), else on the popc unit;
+// two instantiations, so that the popc one keeps its own small register
+// footprint.
+template <bool kB1>
 __global__ void __launch_bounds__(kThreads)
 mega_cascade_kernel(const __grid_constant__ CascadeArgs a) {
   extern __shared__ __align__(16) uint32_t cascade_smem[];
@@ -601,20 +594,75 @@ mega_cascade_kernel(const __grid_constant__ CascadeArgs a) {
       const int g0 = rank * T.gpc;
       const int ng = min(T.gpc, T.groups - g0);
       const uint32_t* wt = smem + T.wt_off;
+      if (kB1) {
+        // a task: the slice's rows x one group, on the tensor cores
+        const int g = lane >> 2, lt = lane & 3;   // quad g, lane lt
+        for (int q = warp; q < ng; q += n_warps) {
+          const uint32_t* blk = wt + q * T.blk;
+          const int grp = g0 + q;
+          int acc[4][4] = {};
+          int pc0, pc1;
+          cascade_b1(cur, a.pw, rows, blk, T.w, T.w8, g, lt, acc, pc0, pc1);
+          const bool real0 = g < rows, real1 = g + 8 < rows;
+          if (last) {
+#pragma unroll
+            for (int qq = 0; qq < 4; ++qq) {
+              const int n = (grp << 5) + 8 * qq + 2 * lt;
+              int32_t* l0 = a.logits + (row0 + g) * T.n_out + n;
+              int32_t* l1 = l0 + 8LL * T.n_out;
+              if (real0 && n < T.n_out) l0[0] = 2 * acc[qq][0] - pc0;
+              if (real0 && n + 1 < T.n_out) l0[1] = 2 * acc[qq][1] - pc0;
+              if (real1 && n < T.n_out) l1[0] = 2 * acc[qq][2] - pc1;
+              if (real1 && n + 1 < T.n_out) l1[1] = 2 * acc[qq][3] - pc1;
+            }
+            continue;
+          }
+          // the fired bits of rows g and g + 8, LSB-first, ORed over the
+          // quad: then every lane of quad g holds both rows' words
+          const uint32_t* th = blk + T.w8 * 32;
+          uint32_t w0 = 0u, w1 = 0u;
+#pragma unroll
+          for (int qq = 0; qq < 4; ++qq) {
+            const int p = 8 * qq + 2 * lt;
+            const int th0 = (int32_t)th[p], th1 = (int32_t)th[p + 1];
+            w0 |= (uint32_t)(2 * acc[qq][0] - pc0 >= th0) << p |
+                  (uint32_t)(2 * acc[qq][1] - pc0 >= th1) << (p + 1);
+            w1 |= (uint32_t)(2 * acc[qq][2] - pc1 >= th0) << p |
+                  (uint32_t)(2 * acc[qq][3] - pc1 >= th1) << (p + 1);
+          }
+#pragma unroll
+          for (int m = 1; m <= 2; m <<= 1) {
+            w0 |= __shfl_xor_sync(0xffffffffu, w0, m);
+            w1 |= __shfl_xor_sync(0xffffffffu, w1, m);
+          }
+          // lane lt of the quad pushes both rows' words to CTAs lt, lt + 4, ..
+          for (int c = lt; c < a.cluster; c += 4) {
+            if (real0)
+              st_async(nxt + g * a.pw + grp, full + (b ^ 1), c, w0);
+            if (real1)
+              st_async(nxt + (g + 8) * a.pw + grp, full + (b ^ 1), c, w1);
+          }
+          uint32_t* fired = a.fired + T.fired_off + grp;
+          if (lt == 0 && real0) fired[(row0 + g) * T.groups] = w0;
+          if (lt == 1 && real1) fired[(row0 + g + 8) * T.groups] = w1;
+        }
+        continue;
+      }
       for (int task = warp; task < rows * ng; task += n_warps) {
         const int q = task / rows;
         const int r = task - q * rows;
         const uint32_t* s = cur + r * a.pw;
-        const uint32_t* col = wt + q * T.blk + lane;
+        const uint32_t* blk = wt + q * T.blk;
         const int grp = g0 + q;
-        const int v = 2 * cascade_mac(s, col, T.w) - row_spikes(s, T.w, lane);
+        const int v = 2 * cascade_mac(s, blk, lane, T.w) -
+                      row_spikes(s, T.w, lane);
         const long long row = row0 + r;
         if (last) {
           const int n = (grp << 5) + lane;
           if (n < T.n_out) a.logits[row * T.n_out + n] = v;
         } else {
-          const uint32_t word =
-              __ballot_sync(0xffffffffu, v >= (int32_t)col[T.w * 32]);
+          const uint32_t word = __ballot_sync(
+              0xffffffffu, v >= (int32_t)blk[T.w8 * 32 + lane]);
           if (lane < a.cluster)
             st_async(nxt + r * a.pw + grp, full + (b ^ 1), lane, word);
           if (lane == 31) a.fired[T.fired_off + row * T.groups + grp] = word;
@@ -630,15 +678,18 @@ mega_cascade_kernel(const __grid_constant__ CascadeArgs a) {
 
 // Fills the cascade's layout; false on a shape the kernel cannot take.
 bool cascade_layout(CascadeArgs& a, int B, int n_tiles, const int* n_out,
-                    const int* w_words, int cluster, int rows) {
+                    const int* w_words, int cluster, int rows, int mac) {
   if (n_tiles < 2 || n_tiles > kMaxTiles || cluster < 1 ||
-      cluster > kMaxCluster || rows < 1 || B < 0)
+      cluster > kMaxCluster || rows < 1 || B < 0 ||
+      (mac != kMacPopc && mac != kMacB1) ||
+      (mac == kMacB1 && rows > kB1MaxRows))
     return false;
   a = CascadeArgs{};
   a.B = B;
   a.n_tiles = n_tiles;
   a.cluster = cluster;
   a.rows = rows;
+  a.mac = mac;
   a.slices = (B + rows - 1) / rows;
   int off = 0, pw = 0;
   long long tiles = 0, fired = 0;
@@ -650,9 +701,10 @@ bool cascade_layout(CascadeArgs& a, int B, int n_tiles, const int* n_out,
       return false;
     T.n_out = n_out[t];
     T.w = w_words[t];
+    T.w8 = (T.w + 7) & ~7;
     T.groups = (n_out[t] + 31) / 32;
     T.gpc = (T.groups + cluster - 1) / cluster;
-    T.blk = (T.w + 1) * 32;
+    T.blk = (T.w8 + 1) * 32;
     T.wt_off = off;
     off += T.gpc * T.blk;
     T.tiles_off = tiles;
@@ -662,11 +714,20 @@ bool cascade_layout(CascadeArgs& a, int B, int n_tiles, const int* n_out,
     if (T.w > pw) pw = T.w;
   }
   a.tiles_words = tiles;
-  a.pw = (pw + 3) & ~3;
+  // 8 or 24 mod 32: the b1 MAC's half warps (rows g 0..3, words 2t, 2t + 1)
+  // read 32 banks; a multiple of 4 for the popc MAC's 128-bit loads
+  a.pw = (pw + 7) & ~7;
+  if (a.pw % 16 == 0) a.pw += 8;
   a.row_off = off;   // a multiple of 32: every block is
   a.bar_off = a.row_off + 2 * rows * a.pw;
   a.smem_words = a.bar_off + 2 * (n_tiles + 2);
   return true;
+}
+
+// The instantiation of the layout's MAC.
+void (*cascade_kernel(const CascadeArgs& a))(CascadeArgs) {
+  return a.mac == kMacB1 ? mega_cascade_kernel<true>
+                         : mega_cascade_kernel<false>;
 }
 
 // The kernel's attributes for a CTA of the layout's shared memory in
@@ -678,11 +739,11 @@ cudaError_t cascade_config(cudaLaunchConfig_t& cfg, cudaLaunchAttribute& attr,
   const size_t smem = 4 * (size_t)a.smem_words;
   cudaError_t err = cudaSuccess;
   if (smem > 48 * 1024)
-    err = cudaFuncSetAttribute(mega_cascade_kernel,
+    err = cudaFuncSetAttribute(cascade_kernel(a),
                                cudaFuncAttributeMaxDynamicSharedMemorySize,
                                (int)smem);
   if (err == cudaSuccess && a.cluster > 8)
-    err = cudaFuncSetAttribute(mega_cascade_kernel,
+    err = cudaFuncSetAttribute(cascade_kernel(a),
                                cudaFuncAttributeNonPortableClusterSizeAllowed,
                                1);
   cfg = cudaLaunchConfig_t{};
@@ -735,44 +796,49 @@ long long cim_mega_cascade_smem_bytes(int n_tiles, const int* n_out,
                                       const int* w_words, int cluster,
                                       int rows) {
   CascadeArgs a;
-  if (!cascade_layout(a, 0, n_tiles, n_out, w_words, cluster, rows))
+  if (!cascade_layout(a, 0, n_tiles, n_out, w_words, cluster, rows, kMacPopc))
     return -1;
   return 4LL * a.smem_words;
 }
 
 // Clusters of the mega cascade that can be resident on the current device
-// at once (cudaOccupancyMaxActiveClusters), or minus a CUDA error code.
+// at once (cudaOccupancyMaxActiveClusters) with the MAC `mac`, or minus a
+// CUDA error code.
 int cim_mega_cascade_max_clusters(int n_tiles, const int* n_out,
-                                  const int* w_words, int cluster, int rows) {
+                                  const int* w_words, int cluster, int rows,
+                                  int mac) {
   CascadeArgs a;
-  if (!cascade_layout(a, 0, n_tiles, n_out, w_words, cluster, rows))
+  if (!cascade_layout(a, 0, n_tiles, n_out, w_words, cluster, rows, mac))
     return -(int)cudaErrorInvalidValue;
   cudaLaunchConfig_t cfg;
   cudaLaunchAttribute attr;
   cudaError_t err = cascade_config(cfg, attr, a, 1, 0);
   int n = 0;
   if (err == cudaSuccess)
-    err = cudaOccupancyMaxActiveClusters(&n, mega_cascade_kernel, &cfg);
+    err = cudaOccupancyMaxActiveClusters(&n, cascade_kernel(a), &cfg);
   return err == cudaSuccess ? n : -(int)err;
 }
 
-// 1 where the cascade's MAC over w words is unrolled at compile time.
+// 1 where the cascade's popc MAC over w words is unrolled at compile time.
 int cim_mega_cascade_fixed_words(int w) { return fixed_words(w) ? 1 : 0; }
 
 // Whole cascade in one launch.  packed: uint32[B, w_words[0]]; tiles: per
-// tile t, per 32-neuron group, (w_words[t] + 1) x 32 words (the group's
-// weight planes transposed, then its thresholds), tiles_words in all;
-// logits: int32[B, n_out[last]]; fired: the hidden planes uint32[B,
-// n_out[t]/32] back to back.  `clusters` clusters of `cluster` CTAs walk
-// the batch in slices of `rows` rows.  Returns the launch's error
+// tile t, per 32-neuron group, (w8 + 1) x 32 words (w8 = w_words[t] rounded
+// up to 8: the group's weight planes transposed and rotated, zero rows,
+// then its thresholds; ops.cascade_tiles), tiles_words in all; logits:
+// int32[B, n_out[last]]; fired: the hidden planes uint32[B, n_out[t]/32]
+// back to back.  `clusters` clusters of `cluster` CTAs walk the batch in
+// slices of `rows` rows; `mac` 0 runs the MAC on the popc unit, 1 on the
+// b1 tensor-core product (rows <= 16).  Returns the launch's error
 // (cudaGetLastError()).
 int cim_mega_cascade(const void* packed, int B, const void* tiles,
                      long long tiles_words, void* logits, void* fired,
                      int n_tiles, const int* n_out, const int* w_words,
-                     int cluster, int rows, int clusters, void* stream) {
+                     int cluster, int rows, int clusters, int mac,
+                     void* stream) {
   CascadeArgs a;
   if (B < 1 || clusters < 1 ||
-      !cascade_layout(a, B, n_tiles, n_out, w_words, cluster, rows) ||
+      !cascade_layout(a, B, n_tiles, n_out, w_words, cluster, rows, mac) ||
       clusters > a.slices || tiles_words != a.tiles_words ||
       reinterpret_cast<uintptr_t>(tiles) % 16)
     return (int)cudaErrorInvalidValue;
@@ -785,7 +851,7 @@ int cim_mega_cascade(const void* packed, int B, const void* tiles,
   cudaError_t err =
       cascade_config(cfg, attr, a, clusters, (cudaStream_t)stream);
   if (err != cudaSuccess) return (int)err;
-  err = cudaLaunchKernelEx(&cfg, mega_cascade_kernel, a);
+  err = cudaLaunchKernelEx(&cfg, cascade_kernel(a), a);
   if (err != cudaSuccess) return (int)err;
   return (int)cudaGetLastError();
 }

@@ -74,9 +74,17 @@ _MAX_TILES = 16
 #: CTAs of a mega cascade cluster, unless a tile has one group (then 1) or
 #: a CTA's share does not fit shared memory (then doubled, up to 16)
 _CLUSTER = 2
-#: batch rows a slice: batch // _ROW_BATCH, from 1 to _MAX_ROWS (the best
-#: of a geometry sweep on an NVIDIA H100 80GB HBM3: PERF.md, PR 21)
-_ROW_BATCH, _MAX_ROWS = 64, 8
+#: batch rows a slice: batch // _ROW_BATCH, from 1 to _MAX_ROWS (a geometry
+#: sweep on an NVIDIA H100 80GB HBM3 picked 64; the b1 MAC takes up to the
+#: mma's 16 rows a task: PERF.md)
+_ROW_BATCH, _MAX_ROWS = 64, 16
+#: rows a slice from which the cascade's MAC runs on the b1 tensor-core
+#: product (a warp a slice x 32-neuron group); below, on the popc unit (a
+#: lane a neuron, a warp a row x group).  At the paper topology on an NVIDIA
+#: H100 80GB HBM3 the popc unit wins at a serving round's 2 rows and at 4,
+#: and loses from 5 (chip_smoke.py's mega_geometry lines at B 128, 256 and
+#: 320; PERF.md)
+_B1_MIN_ROWS = 5
 
 #: rows and neurons of one warp's tile in ``popcount_fire``'s tensor-core
 #: kernel (one b1 mma's m, and 8 mma n-tiles)
@@ -111,11 +119,11 @@ def _declare(lib: ctypes.CDLL) -> None:
     vp, i32, i64 = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
     ip = ctypes.POINTER(ctypes.c_int)
     lib.cim_mega_cascade.argtypes = [
-        vp, i32, vp, i64, vp, vp, i32, ip, ip, i32, i32, i32, vp]
+        vp, i32, vp, i64, vp, vp, i32, ip, ip, i32, i32, i32, i32, vp]
     lib.cim_mega_cascade.restype = i32
     lib.cim_mega_cascade_smem_bytes.argtypes = [i32, ip, ip, i32, i32]
     lib.cim_mega_cascade_smem_bytes.restype = i64
-    lib.cim_mega_cascade_max_clusters.argtypes = [i32, ip, ip, i32, i32]
+    lib.cim_mega_cascade_max_clusters.argtypes = [i32, ip, ip, i32, i32, i32]
     lib.cim_mega_cascade_max_clusters.restype = i32
     lib.cim_mega_cascade_fixed_words.argtypes = [i32]
     lib.cim_mega_cascade_fixed_words.restype = i32
@@ -159,20 +167,27 @@ class CascadeRoute(NamedTuple):
     clusters: int
     #: dynamic shared memory of one CTA, bytes
     smem: int
-    #: per tile, whether its MAC's word count is fixed at compile time
+    #: per tile, whether its popc MAC's word count is fixed at compile time
     fixed_words: tuple
+    #: the MAC: "b1" (the tensor-core product, a warp a slice x 32-neuron
+    #: group) from ``_B1_MIN_ROWS`` rows a slice, else "popc" (a lane a
+    #: neuron)
+    mac: str
 
 
 @functools.lru_cache(maxsize=None)
 def _cascade_route(topology: tuple[int, ...], batch: int,
-                   device_index: int) -> CascadeRoute:
+                   device_index: int, *, rows: int | None = None,
+                   mac: str | None = None) -> CascadeRoute:
     """The mega cascade's geometry, derived from the topology, the batch and
     the card: clusters of ``_CLUSTER`` CTAs (1 where every hidden tile is
     one 32-neuron group), doubled up to 16 while a CTA's share of the tiles
     does not fit shared memory; one row a slice for every ``_ROW_BATCH``
-    rows of the batch, at most ``_MAX_ROWS``; as many clusters as slices,
-    at most as many as the card holds at once.  Raises when the topology
-    fits no cluster."""
+    rows of the batch, at most ``_MAX_ROWS``; the MAC by the rows a slice
+    (:func:`_cascade_mac`); as many clusters as slices, at most as many as
+    the card holds at once.  ``rows`` and ``mac`` pin those two instead
+    (to time or check a route the launcher does not pick).  Raises when the
+    topology fits no cluster."""
     lib = _library().lib
     g = cascade_geometry(topology)
     n_tiles = g["n_tiles"]
@@ -193,12 +208,14 @@ def _cascade_route(topology: tuple[int, ...], batch: int,
         raise ValueError(
             f"topology {topology} needs {smem(cluster, 1)} B of shared memory "
             f"per CTA in clusters of {cluster}; the card allows {limit} B")
-    rows = max(1, min(_MAX_ROWS, batch // _ROW_BATCH))
-    while rows > 1 and smem(cluster, rows) > limit:
-        rows -= 1
+    if rows is None:
+        rows = max(1, min(_MAX_ROWS, batch // _ROW_BATCH))
+        while rows > 1 and smem(cluster, rows) > limit:
+            rows -= 1
     slices = cdiv(batch, rows)
+    mac = mac or _cascade_mac(rows)
     active = lib.cim_mega_cascade_max_clusters(n_tiles, n_out, w_words,
-                                               cluster, rows)
+                                               cluster, rows, _MAC_CODE[mac])
     if active < 1:
         raise ValueError(f"no cluster of {cluster} CTAs for topology "
                          f"{topology} fits the card (code {active})")
@@ -206,7 +223,19 @@ def _cascade_route(topology: tuple[int, ...], batch: int,
         cluster=cluster, rows=rows, slices=slices,
         clusters=min(slices, active), smem=smem(cluster, rows),
         fixed_words=tuple(bool(lib.cim_mega_cascade_fixed_words(w))
-                          for w in g["w_words"]))
+                          for w in g["w_words"]),
+        mac=mac)
+
+
+def _cascade_mac(rows: int) -> str:
+    """The cascade's MAC at ``rows`` rows a slice: the b1 product from
+    ``_B1_MIN_ROWS`` rows, the popc unit below (PERF.md has both times at
+    B 128 and 1024)."""
+    return "b1" if rows >= _B1_MIN_ROWS else "popc"
+
+
+#: the launcher's code of each MAC (``CascadeMac`` in the kernel)
+_MAC_CODE = {"popc": 0, "b1": 1}
 
 
 class FireRoute(NamedTuple):
@@ -384,22 +413,43 @@ def stack_cascade_operands(weight_planes, vth, topology):
 def cascade_tiles(w_stack: torch.Tensor, vth_stack: torch.Tensor,
                   topology) -> torch.Tensor:
     """The stacked operands regrouped for the card's cascade: per tile t,
-    per 32-neuron group g, a block of ``(w_t + 1) x 32`` words whose row
-    j < w_t holds word j of neurons 32g..32g+31's planes (lane-minor) and
-    whose last row holds their thresholds (zero for the readout).  A CTA's
-    share of a tile is then one contiguous run of blocks, one bulk copy.
-    Built once per parameter set, beside :func:`stack_cascade_operands`."""
+    per 32-neuron group g, a block of ``(w8 + 1) x 32`` words (w8 = w_t
+    rounded up to 8, the b1 product's 256-bit steps) whose row j < w_t
+    holds word j of neurons 32g..32g+31's planes, neuron n in column
+    ``n ^ 8 (j // 2 % 4)`` (:func:`_block_columns`), whose rows w_t..w8-1
+    are zero and whose last row holds their thresholds (zero for the
+    readout).  A CTA's share of a tile is then one contiguous run of
+    blocks, one bulk copy; the rotation lets both MACs read their words
+    from 32 banks.  Built once per parameter set, beside
+    :func:`stack_cascade_operands`."""
     g = cascade_geometry(tuple(topology))
     blocks = []
     for t, (n, w) in enumerate(zip(topology[1:], g["w_words"])):
-        groups = cdiv(n, LANE_BITS)
-        planes = w_stack[t, : groups * LANE_BITS, :w]
+        groups, w8 = cdiv(n, LANE_BITS), round_up(w, 8)
+        planes = pad_dim_to(w_stack[t, : groups * LANE_BITS, :w], w8, 1)
+        rows = planes.reshape(groups, LANE_BITS, w8).transpose(1, 2)
+        cols = _block_columns(w8, rows.device).expand(groups, w8, LANE_BITS)
         th = (vth_stack[t, : groups * LANE_BITS]
               if t + 1 < g["n_tiles"] else torch.zeros_like(planes[:, 0]))
         blocks.append(torch.cat([
-            planes.reshape(groups, LANE_BITS, w).transpose(1, 2),
+            torch.gather(rows, 2, cols),
             th.to(WORD_DTYPE).reshape(groups, 1, LANE_BITS)], 1).reshape(-1))
     return torch.cat(blocks).contiguous()
+
+
+def _block_columns(w8: int, device) -> torch.Tensor:
+    """int64[w8, 32]: row j's column c holds neuron ``c ^ 8 (j // 2 % 4)``
+    (the rotation is its own inverse)."""
+    j = torch.arange(w8, device=device)
+    return (torch.arange(LANE_BITS, device=device)[None, :]
+            ^ (8 * ((j >> 1) & 3))[:, None])
+
+
+def _tiles_words(topology: tuple[int, ...]) -> int:
+    """Words of :func:`cascade_tiles` for a topology."""
+    g = cascade_geometry(topology)
+    return sum(cdiv(n, LANE_BITS) * (round_up(w, 8) + 1) * LANE_BITS
+               for n, w in zip(topology[1:], g["w_words"]))
 
 
 def esam_cascade_popcount(
@@ -454,8 +504,7 @@ def esam_cascade_popcount(
     if n_tiles == 1:
         return (cim_popcount_matmul(
             packed, w_stack[0, : topology[1], : g["w_words"][0]]), ())
-    n_words = sum(cdiv(n, LANE_BITS) * (w + 1) * LANE_BITS
-                  for n, w in zip(topology[1:], g["w_words"]))
+    n_words = _tiles_words(topology)
     if (tiles is None or tuple(tiles.shape) != (n_words,)
             or tiles.dtype != WORD_DTYPE or tiles.device != dev):
         raise ValueError(
@@ -475,14 +524,24 @@ def esam_cascade_popcount(
         off += B * w
     if B == 0:
         return logits, tuple(fired)
+    with torch.cuda.device(dev):
+        _cascade_launch(packed, tiles, topology, logits, fired_buf,
+                        _cascade_route(topology, B, dev.index))
+    return logits, tuple(fired)
+
+
+def _cascade_launch(packed: torch.Tensor, tiles: torch.Tensor,
+                    topology: tuple[int, ...], logits: torch.Tensor,
+                    fired_buf: torch.Tensor, route: CascadeRoute) -> None:
+    """One ``mega_cascade`` launch on ``route`` into ``logits`` and the
+    hidden planes' buffer, on checked CUDA operands of a batch of at least
+    one row; counted."""
     kl = _library()
     n_out, w_words = _cascade_arrays(topology)
-    with torch.cuda.device(dev):
-        route = _cascade_route(topology, B, dev.index)
-        err = kl.lib.cim_mega_cascade(
-            packed.data_ptr(), B, tiles.data_ptr(), n_words,
-            logits.data_ptr(), fired_buf.data_ptr(), n_tiles, n_out, w_words,
-            route.cluster, route.rows, route.clusters, stream_ptr(dev))
+    err = kl.lib.cim_mega_cascade(
+        packed.data_ptr(), packed.shape[0], tiles.data_ptr(), tiles.numel(),
+        logits.data_ptr(), fired_buf.data_ptr(), len(topology) - 1, n_out,
+        w_words, route.cluster, route.rows, route.clusters,
+        _MAC_CODE[route.mac], stream_ptr(packed.device))
     _build.check(kl, err, "mega_cascade launch")
     _LAUNCHES["mega_cascade"] += 1
-    return logits, tuple(fired)

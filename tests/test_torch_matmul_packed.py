@@ -4,9 +4,11 @@ On the CPU the port's plain versions of the packed-spike tile -- the fire
 (``esam_layer_packed``) and the MAC alone (``cim_matmul_packed``) -- are
 held bit for bit against the reference's Pallas ``fused_fire_packed_kernel``
 and ``mac_packed_kernel`` in interpret mode and its jnp reference, on inputs
-made with numpy from a seed (odd K, ragged batches, both output forms).
-The CUDA kernels against the plain versions run only on a card (marker
-``cuda``); here they skip."""
+made with numpy from a seed (odd K, ragged batches, both output forms),
+and the card kernel's grid (``_packed_route``, pure geometry) is checked.
+The CUDA kernel against the plain versions is in
+``test_torch_matmul_packed_cuda.py`` (no JAX, so it runs on the card's
+machine)."""
 
 from __future__ import annotations
 
@@ -98,56 +100,50 @@ def test_rejects_bad_operands():
         ops.cim_matmul_packed(xt.to(meta), wt.to(meta))
 
 
-@pytest.fixture
-def cuda():
-    if not torch.cuda.is_available():
-        pytest.skip("needs an NVIDIA GPU (CUDA kernels have no CPU mode)")
-    return torch.device("cuda")
+# ----------------------------------------------------------------------- #
+# the card kernel's grid (B9 and B9', one kernel)
+# ----------------------------------------------------------------------- #
+PACKED_ROUTE_SHAPES = [  # (B, N)
+    (4096, 256), (1024, 768), (1024, 10), (1000, 256), (37, 96), (1, 96),
+    (7, 10), (3, 64), (300, 4096), (5000, 64), (100_000, 4096), (1, 1),
+    (129, 128), (16, 8448), (33, 65), (600, 2048), (16_896, 64)]
 
 
-@pytest.mark.cuda
-@pytest.mark.parametrize("B,K,N", SHAPES + [(4096, 768, 256),
-                                            (1000, 777, 256), (3, 3000, 64)])
-@pytest.mark.parametrize("pack_output", [True, False])
-def test_cuda_fire_matches_plain(cuda, B, K, N, pack_output):
-    x, w, vth = _operands(B + K + N, B, K, N)
-    xt, wt, vt = (packing.words_from_np(x).to(cuda),
-                  torch.from_numpy(w).to(cuda), torch.from_numpy(vth).to(cuda))
-    ops.reset_launch_counts()
-    got = ops.esam_layer_packed(xt, wt, vt, pack_output=pack_output)
-    assert ops.launch_counts() == {"fused_fire_packed": 1,
-                                   "cim_matmul_packed": 0}
-    want = ops.esam_layer_packed_ref(xt, wt, vt, pack_output=pack_output)
-    assert torch.equal(got, want)
+@pytest.mark.parametrize("B,N", PACKED_ROUTE_SHAPES)
+@pytest.mark.parametrize("paired", [True, False])
+def test_packed_route_covers_the_shape(B, N, paired):
+    """The grid covers B rows (spans of a multiple of 16 rows, at most 256,
+    less than a span past B) and N neurons (64 a group)."""
+    r = ops._packed_route(B, N, paired)
+    spans, groups = r.grid
+    assert r.paired is paired
+    assert r.span_rows % 16 == 0 and 16 <= r.span_rows <= ops._MAX_SPAN
+    assert spans * r.span_rows >= B > (spans - 1) * r.span_rows
+    assert groups == -(-N // 64)
 
 
-@pytest.mark.cuda
-@pytest.mark.parametrize("width,first,N", [(80, 0, 70), (97, 1, 64),
-                                           (256, 0, 256)])
-def test_cuda_fire_on_weight_views(cuda, width, first, N):
-    """Weights as a column slice of a wider matrix: rows strided, the first
-    group aligned or not, the last group partial or not."""
-    B, K = 77, 333
-    x, w, vth = _operands(width + first, B, K, width)
-    xt = packing.words_from_np(x).to(cuda)
-    wt = torch.from_numpy(w).to(cuda)[:, first:first + N]
-    vt = torch.from_numpy(vth[:N]).to(cuda)
-    for pack_output in ([True, False] if N % 32 == 0 else [False]):
-        got = ops.esam_layer_packed(xt, wt, vt, pack_output=pack_output)
-        want = ops.esam_layer_packed_ref(xt, wt, vt, pack_output=pack_output)
-        assert torch.equal(got, want)
+@pytest.mark.parametrize("B,K,N", [(4096, 768, 256), (4096, 256, 256),
+                                   (1024, 768, 768), (1000, 777, 256)])
+def test_packed_route_fills_the_card(B, K, N):
+    """At the paths' shapes the grid fills an H100's 132 SMs about once:
+    at most one CTA an SM and at least nine in ten SMs busy, so each
+    group's planes are built as few times as the card allows."""
+    r = ops._packed_route(B, N, packing.packed_width(K) % 2 == 0)
+    ctas = r.grid[0] * r.grid[1]
+    assert 0.9 * 132 <= ctas <= 132
+    assert ops._packed_route(B, N, True, sms=66).grid[0] < r.grid[0]
 
 
-@pytest.mark.cuda
-@pytest.mark.parametrize("B,K,N", SHAPES + [(1024, 768, 768),
-                                            (4096, 768, 256), (7, 777, 10),
-                                            (1, 100, 96), (3, 3000, 64)])
-def test_cuda_mac_matches_plain(cuda, B, K, N):
-    x, w, _ = _operands(2 * B + K + N, B, K, N)
-    xt = packing.words_from_np(x).to(cuda)
-    wt = torch.from_numpy(w).to(cuda)
-    ops.reset_launch_counts()
-    got = ops.cim_matmul_packed(xt, wt)
-    assert ops.launch_counts() == {"fused_fire_packed": 0,
-                                   "cim_matmul_packed": 1}
-    assert torch.equal(got, ops.cim_matmul_packed_ref(xt, wt))
+def test_packed_route_is_pure(monkeypatch):
+    """The route needs no library and no card: it is computed from the
+    shape alone, and refuses an empty one."""
+    from repro_torch.kernels import _build
+
+    def no_library(*args, **kwargs):
+        raise AssertionError("the route must not load the kernel library")
+
+    monkeypatch.setattr(_build, "load_library", no_library)
+    assert ops._packed_route(37, 77, False) == ops._packed_route(37, 77, False)
+    for bad in ((0, 10), (1, 0)):
+        with pytest.raises(ValueError):
+            ops._packed_route(*bad, True)

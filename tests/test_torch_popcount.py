@@ -2,9 +2,11 @@
 
 On the CPU the port's plain versions are held bit for bit against the JAX
 package's jnp reference and its Pallas kernels in interpret mode, on inputs
-made with numpy from a seed.  The CUDA kernels against the plain versions
-run only on a card (marker ``cuda``); here they skip.  Every assert is exact
-int32 / uint32 equality."""
+made with numpy from a seed; the tile kernel's route (pure geometry) and
+the card's cascade operands are checked here too.  The CUDA kernels
+against the plain versions are in ``test_torch_popcount_cuda.py`` (no
+JAX, so they run on the card's machine).  Every assert is exact int32 /
+uint32 equality."""
 
 from __future__ import annotations
 
@@ -245,25 +247,31 @@ def test_cascade_rejects_bad_operands():
                          ids=lambda t: ":".join(map(str, t)))
 def test_cascade_tiles_layout(topo):
     """The card's regrouped operands: per tile, per 32-neuron group, a
-    (w + 1) x 32 block of the group's planes (word-major, lane-minor) and
-    its thresholds (zero for the readout), tiles back to back."""
+    (w8 + 1) x 32 block (w8: w rounded up to 8) of the group's planes
+    (word-major; in row j neuron n sits in column n ^ 8 (j // 2 % 4)), zero
+    rows up to w8, and its thresholds (zero for the readout), tiles back to
+    back."""
     _, planes, vth = _cascade_operands(3, topo, 1)
     w_stack, vth_stack = ops.stack_cascade_operands(
         [_t(p) for p in planes], [torch.from_numpy(v) for v in vth], topo)
     tiles = ops.cascade_tiles(w_stack, vth_stack, topo)
     assert tiles.dtype == torch.int32 and tiles.is_contiguous()
+    assert tiles.numel() == ops._tiles_words(topo)
     off = 0
     for t, (n, p) in enumerate(zip(topo[1:], planes)):
         groups, w = -(-n // 32), p.shape[1]
-        blocks = tiles[off: off + groups * (w + 1) * 32].reshape(
-            groups, w + 1, 32)
+        w8 = -(-w // 8) * 8
+        blocks = tiles[off: off + groups * (w8 + 1) * 32].reshape(
+            groups, w8 + 1, 32)
         off += blocks.numel()
-        padded = np.zeros((groups * 32, w), np.uint32)
-        padded[:n] = p
-        np.testing.assert_array_equal(
-            packing.words_to_np(blocks[:, :w].contiguous()),
-            padded.reshape(groups, 32, w).transpose(0, 2, 1))
-        th = blocks[:, w].reshape(-1).numpy()
+        padded = np.zeros((groups * 32, w8), np.uint32)
+        padded[:n, :w] = p
+        want = padded.reshape(groups, 32, w8).transpose(0, 2, 1)
+        got = packing.words_to_np(blocks[:, :w8].contiguous())
+        for j in range(w8):
+            cols = np.arange(32) ^ (8 * ((j >> 1) & 3))
+            np.testing.assert_array_equal(got[:, j, cols], want[:, j])
+        th = blocks[:, w8].reshape(-1).numpy()
         if t + 1 < len(planes):
             np.testing.assert_array_equal(th[:n], vth[t])
         else:
@@ -292,96 +300,6 @@ def test_no_plain_fallback_off_the_cpu():
     ops.esam_layer_popcount(_t(x), _t(planes[0]), torch.from_numpy(vth[0]))
     assert ops.launch_counts() == {"mega_cascade": 0, "popcount_fire": 0,
                                    "popcount_mac": 0}
-
-
-#: (topology, batch, the launcher's route there): its cluster size, whether
-#: every tile's word count is fixed at compile time, the last slice of rows
-#: partly empty, fewer clusters than slices (None: not asserted)
-CUDA_CASCADE_CASES = [
-    (PAPER, 1, (2, True, False, False)),
-    (PAPER, 7, (2, True, False, False)),
-    (PAPER, 128, (2, True, False, False)),
-    (PAPER, 1000, (2, True, False, False)),
-    (PAPER, 4096, (2, True, False, True)),
-    (PAPER, 333, (2, True, True, None)),
-    ((768, 768, 768, 10), 1024, (2, True, False, None)),
-    ((768, 256, 10), 33, (2, True, None, None)),
-    ((100, 64, 96, 33), 45, (2, False, None, None)),
-    ((100, 32, 10), 3, (1, False, None, None)),
-    ((1024, 4096, 10), 8, (4, False, None, None)),
-    ((2048, 4096, 10), 8, (8, False, None, None)),
-    ((4096, 4096, 10), 8, (16, False, None, None)),
-]
-
-
-@pytest.mark.cuda
-@pytest.mark.parametrize("topo,B,route", CUDA_CASCADE_CASES,
-                         ids=lambda v: ":".join(map(str, v))
-                         if isinstance(v, tuple) and len(v) > 4 else str(v))
-def test_cuda_cascade_matches_plain(cuda, topo, B, route):
-    """One mega_cascade launch, bit for bit the plain cascade, on each of
-    the launcher's routes."""
-    x, planes, vth = _cascade_operands(B + len(topo), topo, B)
-    planes_t = tuple(_t(p).to(cuda) for p in planes)
-    vth_t = tuple(torch.from_numpy(v).to(cuda) for v in vth)
-    w_stack, vth_stack = ops.stack_cascade_operands(planes_t, vth_t, topo)
-    tiles = ops.cascade_tiles(w_stack, vth_stack, topo)
-    ops.reset_launch_counts()
-    logits, fired = ops.esam_cascade_popcount(
-        _t(x).to(cuda), w_stack, vth_stack, topology=topo, tiles=tiles)
-    assert ops.launch_counts()["mega_cascade"] == 1
-    ref_logits, ref_fired = ops.esam_cascade_popcount_ref(
-        _t(x).to(cuda), planes_t, vth_t)
-    assert torch.equal(logits, ref_logits)
-    assert all(torch.equal(a, b) for a, b in zip(fired, ref_fired))
-    took = ops._cascade_route(topo, B, torch.cuda.current_device())
-    got = (took.cluster, all(took.fixed_words),
-           took.slices * took.rows > B, took.clusters < took.slices)
-    for g, want in zip(got, route):
-        assert want is None or g == want, (took, route)
-    assert took.fixed_words == tuple(w in (8, 24) for w in
-                                     ops.cascade_geometry(topo)["w_words"])
-
-
-@pytest.mark.cuda
-def test_cuda_cascade_needs_its_tiles(cuda):
-    """On the card the cascade reads the regrouped operands: without them,
-    or with another topology's, it raises instead of computing."""
-    topo = (100, 64, 10)
-    x, planes, vth = _cascade_operands(2, topo, 4)
-    w_stack, vth_stack = ops.stack_cascade_operands(
-        [_t(p).to(cuda) for p in planes],
-        [torch.from_numpy(v).to(cuda) for v in vth], topo)
-    tiles = ops.cascade_tiles(w_stack, vth_stack, topo)
-    for bad in (None, tiles[:-32], tiles.cpu()):
-        with pytest.raises(ValueError, match="cascade_tiles"):
-            ops.esam_cascade_popcount(_t(x).to(cuda), w_stack, vth_stack,
-                                      topology=topo, tiles=bad)
-
-
-#: ragged tile shapes: B 1, 7, 37; N 10, 77, 96; K 100, 777, 40000 (W 4,
-#: 25, 1250)
-RAGGED_TILES = [(1, 100, 10), (7, 777, 77), (37, 40000, 96), (1, 777, 96),
-                (7, 100, 77), (37, 40000, 10)]
-
-
-def _tile_operands(seed, B, K, N, fill="random", stride_pad=0,
-                   device="cpu"):
-    """Spike words [B, W] (on ``device``, a view whose rows lie W +
-    stride_pad words apart, the skipped words all ones) and planes [N, W],
-    as int32 tensors: random, or all-zero / all-one spikes and planes."""
-    rng = np.random.default_rng(seed)
-    if fill == "random":
-        s = rng.random((B, K)) < 0.5
-        w = rng.integers(0, 2, size=(K, N), dtype=np.int8)
-    else:
-        s = np.full((B, K), fill == "ones")
-        w = np.full((K, N), fill == "ones", np.int8)
-    words = packing.packed_width(K)
-    x = np.full((B, words + stride_pad), 0xFFFFFFFF, np.uint32)
-    x[:, :words] = packing.pack_spikes_np(s)
-    return (_t(x).to(device)[:, :words],
-            _t(packing.pack_weight_planes_np(w)).to(device))
 
 
 # ----------------------------------------------------------------------- #
@@ -441,84 +359,3 @@ def test_paired_loads_need_even_aligned_rows(K, stride_pad, offset, want):
     x = full[:, offset: offset + words]
     planes = torch.zeros((32, words), dtype=torch.int32)
     assert ops._paired(x, planes) is want
-
-
-# ----------------------------------------------------------------------- #
-# the CUDA kernels against the plain versions, on the card
-# ----------------------------------------------------------------------- #
-@pytest.fixture
-def cuda():
-    if not torch.cuda.is_available():
-        pytest.skip("needs an NVIDIA GPU (CUDA kernels have no CPU mode)")
-    return torch.device("cuda")
-#: (B, K, N, fill, stride_pad) of the MAC on the card: the CPU shapes, the
-#: ragged ones, all-zero and all-one operands, strided spike rows
-CUDA_MAC_CASES = (
-    [(B, K, N, "random", 0) for B, K, N in MAC_SHAPES + RAGGED_TILES]
-    + [(37, 777, 96, fill, 0) for fill in ("zeros", "ones")]
-    + [(256, 768, 256, "random", pad) for pad in (1, 2)]
-    + [(1024, 768, 768, "random", 0), (4096, 768, 256, "random", 0)])
-
-
-def _assert_route(x, planes, B, N, stride_pad):
-    """The route the wrapper took: paired loads exactly where the words and
-    strides are even, a grid covering the shape."""
-    took = ops._route_for(x, planes)
-    W = x.shape[1]
-    assert took.paired == (W % 2 == 0 and stride_pad % 2 == 0)
-    assert took == ops._fire_route(B, N, took.paired)
-
-
-@pytest.mark.cuda
-@pytest.mark.parametrize("B,K,N,fill,stride_pad", CUDA_MAC_CASES)
-def test_cuda_mac_matches_plain(cuda, B, K, N, fill, stride_pad):
-    x, planes = _tile_operands(B + K + N, B, K, N, fill, stride_pad, cuda)
-    ops.reset_launch_counts()
-    got = ops.cim_popcount_matmul(x, planes)
-    assert ops.launch_counts()["popcount_mac"] == 1
-    _assert_route(x, planes, B, N, stride_pad)
-    want = ops.cim_popcount_ref(x, planes)
-    assert torch.equal(got, want)
-
-
-_I32 = np.iinfo(np.int32)
-#: (B, K, N, pack_output, fill, vth, stride_pad) of the fire on the card:
-#: the CPU shapes and B2's in both output forms, the ragged ones in every
-#: form their width takes, all-zero and all-one operands, thresholds at
-#: the int32 extremes, strided spike rows
-CUDA_FIRE_CASES = (
-    [(B, K, N, pack, "random", "random", 0)
-     for B, K, N in FIRE_SHAPES + [(4096, 768, 256), (1000, 777, 256),
-                                   (5, 40000, 64)]
-     for pack in (True, False)]
-    + [(B, K, N, pack, "random", "random", 0) for B, K, N in RAGGED_TILES
-       for pack in ((True, False) if N % 32 == 0 else (False,))]
-    + [(37, 777, 96, pack, fill, "random", 0) for fill in ("zeros", "ones")
-       for pack in (True, False)]
-    + [(7, 100, 77, False, fill, "random", 0) for fill in ("zeros", "ones")]
-    + [(37, 768, 96, pack, "random", vth, 0) for vth in ("min", "max")
-       for pack in (True, False)]
-    + [(7, 777, 77, False, "random", vth, 0) for vth in ("min", "max")]
-    + [(37, 768, 96, True, "random", "random", pad) for pad in (1, 2)])
-
-
-@pytest.mark.cuda
-@pytest.mark.parametrize("B,K,N,pack_output,fill,vth_fill,stride_pad",
-                         CUDA_FIRE_CASES)
-def test_cuda_fire_matches_plain(cuda, B, K, N, pack_output, fill, vth_fill,
-                                 stride_pad):
-    x, planes = _tile_operands(B + K, B, K, N, fill, stride_pad, cuda)
-    if vth_fill == "random":
-        vth = np.random.default_rng(N).integers(-9, 9, size=(N,),
-                                                dtype=np.int32)
-    else:
-        vth = np.full((N,), _I32.min if vth_fill == "min" else _I32.max,
-                      np.int32)
-    vth = torch.from_numpy(vth).to(cuda)
-    ops.reset_launch_counts()
-    got = ops.esam_layer_popcount(x, planes, vth, pack_output=pack_output)
-    assert ops.launch_counts()["popcount_fire"] == 1
-    _assert_route(x, planes, B, N, stride_pad)
-    want = ops.esam_layer_popcount_ref(x, planes, vth,
-                                       pack_output=pack_output)
-    assert torch.equal(got, want)
