@@ -12,7 +12,7 @@ Phases; any failure raises, so the exit code is non-zero:
    products and the popc unit, with the SM clock (``rate_probe``; the b1
    reading is the rate of the b1 kernels' bounds), and the tensor-core
    instruction (BMMA) in every kernel on the b1 product: B2/B3's, B1's b1
-   instantiation and B9/B9''s (``cuobjdump``, ``sass``);
+   instantiation, B9/B9''s and B10's (``cuobjdump``, ``sass``);
 3. each kernel against its plain PyTorch version on the card, bit for bit,
    at the paths' shapes and more (B2 and B3 at ragged shapes in every
    output mode, on all-zero and all-one operands, at thresholds of -2^31
@@ -22,7 +22,10 @@ Phases; any failure raises, so the exit code is non-zero:
    bits set past K, at K 40000, on weight views whose rows are 16-byte
    aligned or not, each with its route and three bounds; B10 and B11 at
    the bench's shapes, ragged ones and 4096 x 768 -> 256; B10 in four
-   spike dtypes; B11 at threshold equality and int32 wraparound; B1 at
+   spike dtypes at both, at N 10 and 77, K 40000, on spike rows that
+   start 16-byte aligned or not, on all-zero and all-one spikes and at
+   thresholds of -2^31 and 2^31 - 1, each with its route and three
+   bounds; B11 at threshold equality and int32 wraparound; B1 at
    the bench's (768, 768, 768, 10) and on each route of its launcher:
    clusters of 1, 2, 4, 8 and 16 CTAs, word counts fixed at compile time
    and not, a partly empty last slice, more slices than clusters, the
@@ -277,7 +280,8 @@ def probe_rates(card, build) -> dict:
 #: instantiation's SASS must hold BMMA, but the cascade's popc-MAC one
 #: (``mega_cascade_kernel<false>``), reported beside them
 B1_KERNELS = {"cim_popcount": ("popcount_fire_kernel", "mega_cascade_kernel"),
-              "cim_matmul_packed": ("fused_fire_packed_kernel",)}
+              "cim_matmul_packed": ("fused_fire_packed_kernel",),
+              "cim_matmul": ("cim_matmul_kernel",)}
 POPC_CASCADE = "mega_cascade_kernelILb0E"
 
 
@@ -285,7 +289,8 @@ def tile_sass(reports) -> dict:
     """Tensor-core instructions in the SASS of each instantiation of the
     kernels that run their MAC on the b1 product (``B1_KERNELS``: B2/B3's
     ``popcount_fire_kernel``, B1's ``mega_cascade_kernel``, B9/B9''s
-    ``fused_fire_packed_kernel``), from ``cuobjdump -sass`` of the built
+    ``fused_fire_packed_kernel``, B10's ``cim_matmul_kernel`` in every
+    spike width and span), from ``cuobjdump -sass`` of the built
     libraries; raises unless each holds the b1 product (BMMA), the
     cascade's popc instantiation excepted."""
     import re
@@ -1306,19 +1311,39 @@ def _spike_rows(rng, batch: int, n: int, dtype):
 
 
 def check_cim_matmul(card, rng, batch, n_in, n_out, kernels, fire=False,
-                     dtype_name="float32"):
+                     dtype_name="float32", *, view=None, fill="random",
+                     vth_fill="random"):
     """cim_matmul (int32 V) or esam_layer (int8 fire) on unpacked spikes of
-    one dtype vs its plain version; the library yardstick is torch.matmul
-    on the ±1 float32 operands, TF32 off."""
+    one dtype vs its plain version, bit for bit, in one launch, with the
+    route it took; ``view`` (width, first) takes the spikes as columns
+    first.. of a wider tensor whose other columns are all ones (rows
+    16-byte aligned or not: 16-byte or element loads); ``fill`` "zeros" /
+    "ones" sets every spike; ``vth_fill`` "min" / "max" every threshold at
+    -2^31 / 2^31 - 1.  Bounds as B9's (the b1 product's 2 B N K operations;
+    int8 and popc bounds beside); the library yardstick is torch.matmul on
+    the ±1 float32 operands, TF32 off."""
     import torch
 
     from repro_torch.kernels.cim_matmul import ops
 
-    s = _spike_rows(rng, batch, n_in, getattr(torch, dtype_name))
+    width, first = view or (n_in, 0)
+    if fill == "random":
+        spikes = rng.random((batch, width)) < 0.4
+    else:
+        spikes = np.full((batch, width), fill == "ones")
+    spikes[:, :first] = True
+    spikes[:, first + n_in:] = True
+    s = torch.from_numpy(spikes).to(getattr(torch, dtype_name)).cuda()
+    s = s[:, first:first + n_in]
     bits = torch.from_numpy(
         rng.integers(0, 2, size=(n_in, n_out), dtype=np.int8)).cuda()
-    vth = torch.from_numpy(
-        rng.integers(-8, 9, size=(n_out,), dtype=np.int32)).cuda()
+    if vth_fill == "random":
+        vth = rng.integers(-8, 9, size=(n_out,), dtype=np.int32)
+    else:
+        info = np.iinfo(np.int32)
+        vth = np.full((n_out,), info.min if vth_fill == "min" else info.max,
+                      np.int32)
+    vth = torch.from_numpy(vth).cuda()
     name = "esam_layer" if fire else "cim_matmul"
 
     def run():
@@ -1328,28 +1353,39 @@ def check_cim_matmul(card, rng, batch, n_in, n_out, kernels, fire=False,
         return (ops.esam_layer_ref(s, bits, vth) if fire
                 else ops.cim_matmul_ref(s, bits))
 
-    out, ref = run(), plain()
+    ops.reset_launch_counts()
+    out = run()
+    if ops.launch_counts()[name] != 1:
+        raise AssertionError(f"{name} launches {ops.launch_counts()}")
+    ref = plain()
     torch.cuda.synchronize()
     err = _word_err(out, ref)
     if err or out.dtype != ref.dtype or not torch.equal(out, ref):
         raise AssertionError(f"{name} != plain at {batch}x{n_in}->{n_out} "
-                             f"{dtype_name}: max_abs_err={err}")
-    # spikes in their dtype, the bits, V int32 or the int8 fire (+ vth);
-    # the data's work: one multiply-add per active synapse
+                             f"{dtype_name} view={view} {fill} "
+                             f"vth={vth_fill}: max_abs_err={err}")
+    took = ops._route_for(s, n_out)
+    spans, groups = took.grid
+    if (not spans * took.span_rows >= batch > (spans - 1) * took.span_rows
+            or not 0 <= groups * 64 - n_out < 64
+            or took.vec != (s.data_ptr() % 16 == 0
+                            and s.stride(0) * s.element_size() % 16 == 0)):
+        raise AssertionError(f"B10 route {took} at B={batch} N={n_out}")
+    # spikes in their dtype, the int8 weights (the kernel builds the planes
+    # from them), V int32 or the int8 fire (+ vth)
     n_bytes = (s.element_size() * batch * n_in + n_in * n_out
                + (batch * n_out + 4 * n_out if fire else 4 * batch * n_out))
-    active = int((s != 0).sum())
-    bound_ms, bound_by = card.bound(n_bytes, 2 * active * n_out,
-                                    INT8_OPS_PER_S)
     sf, wf = s.to(torch.float32), 2.0 * bits.to(torch.float32) - 1.0
     with tf32_off():
         library_ms = graph_ms(lambda: torch.matmul(sf, wf))
     row = {
         "kernel": name, "shape": f"{batch}x{n_in}->{n_out}",
-        "dtype": dtype_name, "batch": batch, "max_abs_err": err,
+        "dtype": dtype_name, "batch": batch, "view": view, "fill": fill,
+        "vth_fill": vth_fill, "route": took._asdict(), "max_abs_err": err,
         "ms": graph_ms(run), "call_ms": call_ms(run),
-        "plain_ms": graph_ms(plain), "bound_ms": bound_ms,
-        "bound_by": bound_by, "library_ms": library_ms,
+        "plain_ms": _plain_ms(plain, n_in),
+        **_tile_bounds(card, batch, n_in, n_out, n_bytes),
+        "library_ms": library_ms,
     }
     print("kernel_check " + json.dumps(row), flush=True)
     kernels.append(row)
@@ -2413,13 +2449,32 @@ def main() -> int:
                fixed=(True, True, True))
     check_arbiter(card, rng, "arbiter", 16, 4, arbiter_rows)
     matmul_rows, packed_mac_rows, if_rows = [], [], []
+    # B10a and B10b: the bench's shape and 4096 x 768 -> 256 in four spike
+    # widths, ragged shapes, N 10 and 77, K 40000, spike rows that start
+    # 16-byte aligned and that do not (float32 and int8 views), all-zero
+    # and all-one spikes, thresholds at the int32 extremes
     for fire in (False, True):
         for dtype_name in ("float32", "bfloat16", "int8", "bool"):
-            check_cim_matmul(card, rng, 256, 768, 256, matmul_rows,
-                             fire=fire, dtype_name=dtype_name)
-        for batch, n_in, n_out in RAGGED_SHAPES + ((4096, 768, 256),):
+            for batch in (256, 4096):
+                check_cim_matmul(card, rng, batch, 768, 256, matmul_rows,
+                                 fire=fire, dtype_name=dtype_name)
+        for batch, n_in, n_out in RAGGED_SHAPES + (
+                (256, 768, 10), (1000, 768, 77), (37, 40000, 96)):
             check_cim_matmul(card, rng, batch, n_in, n_out, matmul_rows,
                              fire=fire)
+        check_cim_matmul(card, rng, 37, 40000, 77, matmul_rows, fire=fire,
+                         dtype_name="bool")
+        for dtype_name, view in (("float32", (320, 50)),
+                                 ("float32", (320, 64)),
+                                 ("int8", (800, 3)), ("int8", (800, 16))):
+            check_cim_matmul(card, rng, 45, 256, 96, matmul_rows, fire=fire,
+                             dtype_name=dtype_name, view=view)
+        for fill in ("zeros", "ones"):
+            check_cim_matmul(card, rng, 37, 777, 96, matmul_rows, fire=fire,
+                             fill=fill)
+    for vth_fill in ("min", "max"):
+        check_cim_matmul(card, rng, 37, 768, 96, matmul_rows, fire=True,
+                         vth_fill=vth_fill)
     for batch, n_in, n_out in (((BENCH_B, BENCH_K, BENCH_N),) + RAGGED_SHAPES
                                + ((4096, 768, 256), (300, 768, 4096))):
         check_packed_mac(card, rng, batch, n_in, n_out, packed_mac_rows)
@@ -2586,10 +2641,10 @@ def main() -> int:
              pick(packed_mac_rows, bench_shape), bench["cim_matmul_packed"]),
         line("cim_matmul", matmul_src, "cim_matmul/kernel.py:27",
              pick(matmul_rows, "256x768->256", kernel="cim_matmul",
-                  dtype="float32"), bench["cim_matmul"]),
+                  dtype="float32", view=None), bench["cim_matmul"]),
         line("esam_layer", matmul_src, "cim_matmul/kernel.py:47",
              pick(matmul_rows, "256x768->256", kernel="esam_layer",
-                  dtype="float32"), bench["esam_layer"]),
+                  dtype="float32", view=None), bench["esam_layer"]),
         line("if_neuron", "if_neuron/csrc/if_neuron.cu",
              "if_neuron/kernel.py:23",
              pick(if_rows, "8x32x256", fill="random"), bench["if_neuron"]),

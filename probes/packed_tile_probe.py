@@ -4,7 +4,8 @@
     python3 probes/packed_tile_probe.py
 
 No part of the port: it builds copies of
-``src/repro_torch/kernels/cim_matmul_packed/csrc/cim_matmul_packed.cu``,
+``src/repro_torch/kernels/cim_matmul_packed/csrc/cim_matmul_packed.cu`` and
+of the plane build it includes (``src/repro_torch/kernels/csrc/planes.cuh``),
 each with one design choice changed by text substitution, and times the
 fire (packed words out) through the library's C interface at the learning
 prefix's and the kernel bench's shapes, in a CUDA graph:
@@ -35,6 +36,7 @@ import numpy as np
 ROOT = Path(__file__).resolve().parents[1]
 sys.path.insert(0, str(ROOT / "src"))
 SOURCE = ROOT / "src/repro_torch/kernels/cim_matmul_packed/csrc/cim_matmul_packed.cu"
+HEADER = ROOT / "src/repro_torch/kernels/csrc/planes.cuh"
 SHAPES = ((4096, 768, 256), (4096, 256, 256), (1024, 768, 768), (1024, 768, 10))
 
 #: one plane word a ballot a neuron (the design the shuffle transpose
@@ -65,19 +67,20 @@ __device__ __forceinline__ void transpose_word(const uint8_t* stage,
 '''
 
 
-def variants(source: str) -> dict:
-    """name -> (source text, whether its output is checked)."""
+def variants(source: str, header: str) -> dict:
+    """name -> (source text, plane header text, whether its output is
+    checked)."""
     call = "      transpose_word(stage, planes, warp, lane, upper);\n"
     skip = "        if (!busy[i]) continue;   // the whole warp\n"
-    a = source.index("// Bit i of the result: byte i of y is nonzero")
-    b = source.index("// One K step's A fragment")
-    if call not in source or skip not in source:
+    mark = "// Bit i of the result: byte i of y is nonzero"
+    if call not in source or skip not in source or mark not in header:
         raise RuntimeError("the kernel source no longer has the probe's hooks")
     return {
-        "kernel": (source, True),
-        "ballot": (source[:a] + BALLOT + source[b:], True),
-        "no_transpose": (source.replace(call, ""), False),
-        "no_mac": (source.replace(skip, "        continue;\n"), False),
+        "kernel": (source, header, True),
+        "ballot": (source, header[:header.index(mark)] + BALLOT, True),
+        "no_transpose": (source.replace(call, ""), header, False),
+        "no_mac": (source.replace(skip, "        continue;\n"), header,
+                   False),
     }
 
 
@@ -100,9 +103,13 @@ def main() -> int:
     out_dir = _build.build_dir() / "packed_tile_probe"
     out_dir.mkdir(parents=True, exist_ok=True)
     builds = {}
-    for name, (text, checked) in variants(SOURCE.read_text()).items():
-        src, lib = out_dir / f"{name}.cu", out_dir / f"lib{name}.so"
+    for name, (text, header, checked) in variants(
+            SOURCE.read_text(), HEADER.read_text()).items():
+        # the copy's own planes.cuh, beside it, comes before the shared one
+        (out_dir / name).mkdir(exist_ok=True)
+        src, lib = out_dir / name / "kernel.cu", out_dir / f"lib{name}.so"
         src.write_text(text)
+        (out_dir / name / HEADER.name).write_text(header)
         builds[name] = (lib, checked, subprocess.Popen(
             [_build._nvcc(), *_build.NVCC_FLAGS, f"-I{_build.SHARED_INCLUDE}",
              "-o", str(lib), str(src)],

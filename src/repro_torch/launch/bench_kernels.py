@@ -210,7 +210,7 @@ def _single_lanes(dev: torch.device) -> list[Lane]:
         Lane("kernel_cim_matmul_256x768x256",
              lambda: cim_ops.cim_matmul_ref(s, w),
              lambda: cim_ops.cim_matmul(s, w), {"cim_matmul": 1},
-             f"flops={flops};spikes=float32;mac=ballot_popcount;"
+             f"flops={flops};spikes=float32;mac=b1_mma_and_popc;"
              f"{_roofline('dense_mxu', 256, 768, 256)}"),
         Lane("kernel_esam_layer_fused",
              lambda: cim_ops.esam_layer_ref(s, w, vth),

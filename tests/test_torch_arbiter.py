@@ -6,7 +6,7 @@ On the CPU the port's ``priority_grants``, ``grant_cycles``,
 the reference's Pallas kernels in interpret mode and the pure-Python cascade
 of priority encoders, on request vectors made with numpy from a seed (ports
 1-4, all-zero and all-one rows).  The CUDA kernels against their plain
-versions run only on a card (marker ``cuda``); here they skip."""
+versions are in ``test_torch_arbiter_cuda.py``, which imports no JAX."""
 
 from __future__ import annotations
 
@@ -140,39 +140,3 @@ def test_rejects_bad_operands():
                 fn(r, ports=bad)
         with pytest.raises(ValueError):
             fn(r.to("meta"), ports=4)
-
-
-@pytest.fixture
-def cuda():
-    if not torch.cuda.is_available():
-        pytest.skip("needs an NVIDIA GPU (CUDA kernels have no CPU mode)")
-    return torch.device("cuda")
-
-
-@pytest.mark.cuda
-@pytest.mark.parametrize("n", [0, 1, 7, 1000, 8192, 24576])
-@pytest.mark.parametrize("ports", PORTS + [5, 128, 200])
-def test_cuda_kernels_match_plain(cuda, n, ports):
-    for density in DENSITIES:
-        r = torch.from_numpy(_requests(n + ports, (n, 128), density)).to(cuda)
-        for dtype in (torch.bool, torch.uint8):
-            ops.reset_launch_counts()
-            got = ops.port_schedule(r.to(dtype), ports=ports)
-            grants = ops.arbiter(r.to(dtype), ports=ports)
-            assert ops.launch_counts() == {"port_schedule": int(n > 0),
-                                           "arbiter": int(n > 0)}
-            for g, w in zip(got + grants, ops.port_schedule_ref(r, ports)
-                            + ops.arbiter_ref(r, ports)):
-                assert g.dtype == w.dtype and torch.equal(g, w)
-
-
-@pytest.mark.cuda
-@pytest.mark.parametrize("width", [32, 64, 256])
-def test_cuda_kernels_other_widths(cuda, width):
-    r = torch.from_numpy(_requests(width, (77, width), 0.5)).to(cuda)
-    for ports in (1, 3, 4):
-        for g, w in zip(ops.port_schedule(r, ports=ports),
-                        ops.port_schedule_ref(r, ports)):
-            assert torch.equal(g, w)
-        for g, w in zip(ops.arbiter(r, ports=ports), ops.arbiter_ref(r, ports)):
-            assert torch.equal(g, w)

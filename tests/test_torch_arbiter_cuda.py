@@ -1,0 +1,65 @@
+"""repro_torch.kernels.arbiter's CUDA kernels against their plain versions.
+
+Every test here needs an NVIDIA GPU (marker ``cuda``) and skips without
+one.  The file imports no JAX, so it runs on the card's machine, where the
+JAX package is not installed:
+
+    PYTHONPATH=src python -m pytest -q -m cuda tests/test_torch_arbiter_cuda.py
+
+B5 (``port_schedule``) and B8 (``arbiter``) are held bit for bit against
+``port_schedule_ref`` and ``arbiter_ref`` on request rows made with numpy
+from a seed (all-zero and all-one densities, ports 1-4 and past the row
+width, bool and uint8 requests, widths 32-256).  The plain versions are
+held against the reference in ``test_torch_arbiter.py``."""
+
+from __future__ import annotations
+
+import numpy as np
+import pytest
+import torch
+
+from repro_torch.kernels.arbiter import ops
+
+PORTS = [1, 2, 3, 4]
+#: request densities: the degenerate ends and the bulk
+DENSITIES = [0.0, 0.1, 0.5, 1.0]
+
+
+def _requests(seed, shape, density):
+    return np.random.default_rng(seed).random(shape) < density
+
+
+@pytest.fixture
+def cuda():
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU (CUDA kernels have no CPU mode)")
+    return torch.device("cuda")
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n", [0, 1, 7, 1000, 8192, 24576])
+@pytest.mark.parametrize("ports", PORTS + [5, 128, 200])
+def test_cuda_kernels_match_plain(cuda, n, ports):
+    for density in DENSITIES:
+        r = torch.from_numpy(_requests(n + ports, (n, 128), density)).to(cuda)
+        for dtype in (torch.bool, torch.uint8):
+            ops.reset_launch_counts()
+            got = ops.port_schedule(r.to(dtype), ports=ports)
+            grants = ops.arbiter(r.to(dtype), ports=ports)
+            assert ops.launch_counts() == {"port_schedule": int(n > 0),
+                                           "arbiter": int(n > 0)}
+            for g, w in zip(got + grants, ops.port_schedule_ref(r, ports)
+                            + ops.arbiter_ref(r, ports)):
+                assert g.dtype == w.dtype and torch.equal(g, w)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("width", [32, 64, 256])
+def test_cuda_kernels_other_widths(cuda, width):
+    r = torch.from_numpy(_requests(width, (77, width), 0.5)).to(cuda)
+    for ports in (1, 3, 4):
+        for g, w in zip(ops.port_schedule(r, ports=ports),
+                        ops.port_schedule_ref(r, ports)):
+            assert torch.equal(g, w)
+        for g, w in zip(ops.arbiter(r, ports=ports), ops.arbiter_ref(r, ports)):
+            assert torch.equal(g, w)

@@ -11,18 +11,23 @@ import pytest
 from repro_torch.kernels import _build
 
 #: the libraries whose kernels include the shared b1 tile header
-B1_LIBRARIES = ("cim_popcount", "cim_matmul_packed")
+B1_LIBRARIES = ("cim_popcount", "cim_matmul_packed", "cim_matmul")
+#: the libraries whose kernels build weight planes from int8 weights with
+#: the shared plane header
+PLANE_LIBRARIES = ("cim_matmul_packed", "cim_matmul")
 
 
 def test_shared_header_is_in_the_include_directory():
-    """The b1 product's helpers live once, in the shared include directory,
-    and in no library's own csrc/."""
-    assert (_build.SHARED_INCLUDE / "mma.cuh").is_file()
-    for name in _build.LIBRARIES:
-        assert not (_build.KERNELS / name / "csrc" / "mma.cuh").exists()
-    for name in B1_LIBRARIES:
-        src = "".join(p.read_text() for p in _build._sources(name))
-        assert '#include "mma.cuh"' in src
+    """The b1 product's helpers and the plane build live once, in the
+    shared include directory, and in no library's own csrc/."""
+    for header, users in (("mma.cuh", B1_LIBRARIES),
+                          ("planes.cuh", PLANE_LIBRARIES)):
+        assert (_build.SHARED_INCLUDE / header).is_file()
+        for name in _build.LIBRARIES:
+            assert not (_build.KERNELS / name / "csrc" / header).exists()
+        for name in users:
+            src = "".join(p.read_text() for p in _build._sources(name))
+            assert f'#include "{header}"' in src
 
 
 @pytest.mark.parametrize("name", B1_LIBRARIES)
@@ -39,6 +44,19 @@ def test_library_key_covers_the_shared_headers(name, tmp_path, monkeypatch):
     after = _build._paths(name)
     assert after[0] != before[0] and after[1] != before[1]
     assert after[0].parent == before[0].parent == _build.build_dir()
+
+
+@pytest.mark.parametrize("name", PLANE_LIBRARIES)
+def test_library_key_covers_the_plane_header(name, tmp_path, monkeypatch):
+    """An edit to the shared plane build rebuilds both libraries that
+    include it."""
+    shared = tmp_path / "csrc"
+    shutil.copytree(_build.SHARED_INCLUDE, shared)
+    monkeypatch.setattr(_build, "SHARED_INCLUDE", shared)
+    before = _build._paths(name)
+    header = shared / "planes.cuh"
+    header.write_text(header.read_text() + "\n// edited\n")
+    assert _build._paths(name)[0] != before[0]
 
 
 def test_nvcc_gets_the_shared_include_directory(tmp_path, monkeypatch):

@@ -4,9 +4,10 @@ On the CPU the port's ``cim_matmul`` and ``esam_layer`` (their plain
 versions) are held bit for bit against the reference's Pallas kernels in
 interpret mode, at the reference's test shapes and in its four spike dtypes,
 on inputs made with numpy from a seed; ragged shapes, which the TPU kernel's
-block contract refuses, against the reference's jnp oracle.  The CUDA
-kernels against the plain versions run only on a card (marker ``cuda``);
-here they skip.  Every assert is exact."""
+block contract refuses, against the reference's jnp oracle; the kernel's
+route (its grid) on the shapes' arithmetic alone.  The CUDA kernels
+against the plain versions are in ``test_torch_cim_matmul_cuda.py``, which
+imports no JAX.  Every assert is exact."""
 
 from __future__ import annotations
 
@@ -116,38 +117,66 @@ def test_rejects_bad_operands():
 
 
 # ----------------------------------------------------------------------- #
-# the CUDA kernels against the plain versions, on the card
+# the card kernel's grid, from the shape alone
 # ----------------------------------------------------------------------- #
-@pytest.fixture
-def cuda():
-    if not torch.cuda.is_available():
-        pytest.skip("needs an NVIDIA GPU (CUDA kernels have no CPU mode)")
-    return torch.device("cuda")
+#: (B, N): the CPU tests', the bench's, the large and ragged shapes
+ROUTE_SHAPES = [(B, N) for B, _, N in SHAPES + RAGGED] + [
+    (256, 256), (4096, 256), (4096, 10), (1000, 77), (33, 100), (2000, 768),
+    (100_000, 10)]
 
 
-@pytest.mark.cuda
-@pytest.mark.parametrize("B,K,N", SHAPES + RAGGED + [(256, 768, 256),
-                                                    (4096, 768, 256)])
-@pytest.mark.parametrize("tdt", [torch.float32, torch.bfloat16, torch.int8,
-                                 torch.bool, torch.float64])
-def test_cuda_kernels_match_plain(cuda, B, K, N, tdt):
-    s, w, vth = _operands(B + K + N, B, K, N)
-    ts = torch.from_numpy(s).to(tdt).to(cuda)
-    tw, tv = torch.from_numpy(w).to(cuda), torch.from_numpy(vth).to(cuda)
-    ops.reset_launch_counts()
-    got_v, got_f = ops.cim_matmul(ts, tw), ops.esam_layer(ts, tw, tv)
-    assert ops.launch_counts() == {"cim_matmul": 1, "esam_layer": 1}
-    assert torch.equal(got_v, ops.cim_matmul_ref(ts, tw))
-    assert torch.equal(got_f, ops.esam_layer_ref(ts, tw, tv))
+@pytest.mark.parametrize("B,N", ROUTE_SHAPES)
+@pytest.mark.parametrize("spike_bytes", [1, 2, 4, 8])
+def test_matmul_route_covers_the_shape(B, N, spike_bytes):
+    """The grid covers B rows (spans of 1, 2 or 4 row tiles of 16, a K
+    step's spikes at most 16 chunks of 16 bytes a thread, less than a span
+    past B) and N neurons (64 a group)."""
+    r = ops._matmul_route(B, N, spike_bytes, vec=True)
+    spans, groups = r.grid
+    assert r.vec
+    assert r.span_rows in (16, 32, 64)
+    assert r.span_rows // 16 * spike_bytes <= ops._MAX_CHUNKS
+    assert spans * r.span_rows >= B > (spans - 1) * r.span_rows
+    assert groups == -(-N // 64)
 
 
-@pytest.mark.cuda
-def test_cuda_kernel_on_views(cuda):
-    """Spikes as a column slice (strided rows) and weights as one."""
-    s, w, vth = _operands(9, 33, 300, 200)
-    ts = torch.from_numpy(s).float().to(cuda)[:, 50:250]
-    tw = torch.from_numpy(w).to(cuda)[50:250, 7:107]
-    tv = torch.from_numpy(vth[:100]).to(cuda)
-    assert torch.equal(ops.cim_matmul(ts, tw), ops.cim_matmul_ref(ts, tw))
-    assert torch.equal(ops.esam_layer(ts, tw, tv),
-                       ops.esam_layer_ref(ts, tw, tv))
+@pytest.mark.parametrize("B,N,spike_bytes,grid,span_rows", [
+    (256, 256, 4, (16, 4), 16),       # the bench: the shortest span
+    (256, 256, 1, (16, 4), 16),
+    (4096, 256, 4, (64, 4), 64),      # past one CTA an SM: the longest
+    (4096, 256, 1, (64, 4), 64),
+    (4096, 256, 8, (128, 4), 32),     # 8-byte spikes: two tiles at most
+    (4096, 10, 4, (128, 1), 32),      # one group: 128 CTAs of 32 rows
+    (1000, 77, 1, (63, 2), 16),
+])
+def test_matmul_route_fills_the_card(B, N, spike_bytes, grid, span_rows):
+    """On an H100's 132 SMs the span is the shortest whose grid fits the
+    card once, so each group's planes are built as few times as the card
+    allows; where none fits, the longest the spike width allows.  Half as
+    many SMs take longer spans."""
+    r = ops._matmul_route(B, N, spike_bytes, vec=False)
+    assert (r.grid, r.span_rows, r.vec) == (grid, span_rows, False)
+    ctas = r.grid[0] * r.grid[1]
+    longest = 64 if spike_bytes <= 4 else 32
+    assert ctas <= 132 or r.span_rows == longest
+    shorter = -(-B // (r.span_rows // 2)) * r.grid[1]
+    assert r.span_rows == 16 or shorter > 132
+    half = ops._matmul_route(B, N, spike_bytes, False, sms=66)
+    assert half.span_rows >= r.span_rows
+
+
+def test_matmul_route_is_pure(monkeypatch):
+    """The route needs no library and no card: it is computed from the
+    shape alone, and refuses an empty shape or a spike width the kernel
+    has no instantiation for."""
+    from repro_torch.kernels import _build
+
+    def no_library(*args, **kwargs):
+        raise AssertionError("the route must not load the kernel library")
+
+    monkeypatch.setattr(_build, "load_library", no_library)
+    assert (ops._matmul_route(37, 77, 2, True)
+            == ops._matmul_route(37, 77, 2, True))
+    for bad in ((0, 10, 4), (1, 0, 4), (1, 10, 3), (1, 10, 16)):
+        with pytest.raises(ValueError):
+            ops._matmul_route(*bad, True)

@@ -7,8 +7,8 @@ the V_mem trace; ``plan(mode="cycle")`` at cell options 0-4, as a sweep, on
 1-D and leading-shape inputs, with telemetry; ``port_sweep`` +
 ``measured_activity`` + ``system_stats`` and ``reference_activity`` exactly
 (float64); the Table 3 and Fig 8 checks of ``tests/test_esam_system.py`` in
-the port.  The cycle plan on the card against its CPU twin is marked
-``cuda`` and skips here."""
+the port.  The cycle plan on the card against its CPU twin is in
+``test_torch_cycle_cuda.py``, which imports no JAX."""
 
 from __future__ import annotations
 
@@ -306,30 +306,3 @@ def test_simulated_drains_land_on_the_cost_model():
         for tr, ld in zip(sweep[p][1], loads):
             want = np.ceil(ld / max(1, p)).max(axis=1).astype(np.int32)
             np.testing.assert_array_equal(tr.cycles.numpy(), want)
-
-
-@pytest.fixture
-def cuda():
-    if not torch.cuda.is_available():
-        pytest.skip("needs an NVIDIA GPU (CUDA kernels have no CPU mode)")
-    return torch.device("cuda")
-
-
-@pytest.mark.cuda
-def test_cuda_cycle_sweep_matches_cpu(cuda):
-    from repro_torch.kernels.arbiter import ops
-
-    _, net, x = _digit_net_pair()
-    bits, vth, off = net.to_numpy()
-    gpu = EsamNetwork.from_numpy(bits, vth, off, device=cuda)
-    ops.reset_launch_counts()
-    got = gpu.plan(mode="cycle", read_ports=(0, 1, 2, 3, 4),
-                   record_vmem_trace=True)(torch.from_numpy(x).to(cuda))
-    assert ops.launch_counts()["port_schedule"] == 4 * (len(PAPER) - 1)
-    want = net.plan(mode="cycle", read_ports=(0, 1, 2, 3, 4),
-                    record_vmem_trace=True)(torch.from_numpy(x))
-    for p in range(5):
-        assert torch.equal(got.sweep[p]["logits"].cpu(), want.sweep[p]["logits"])
-        for g, w in zip(got.sweep[p]["traces"], want.sweep[p]["traces"]):
-            for a, b in zip(g, w):
-                assert a.dtype == b.dtype and torch.equal(a.cpu(), b)

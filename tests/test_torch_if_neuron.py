@@ -5,8 +5,8 @@ against the reference's Pallas kernel in interpret mode and its jnp
 oracle, on updates made with numpy from a seed: the reference's shapes,
 threshold equality (which fires) and int32 wraparound (which JAX's int32
 adds and the port's ``dtype=torch.int32`` sum share).  The CUDA kernel
-against the plain version runs only on a card (marker ``cuda``); here it
-skips."""
+against the plain version is in ``test_torch_if_neuron_cuda.py``, which
+imports no JAX."""
 
 from __future__ import annotations
 
@@ -81,37 +81,3 @@ def test_rejects_bad_operands():
     with pytest.raises(ValueError):
         ops.if_neuron(tu.to(meta), tv.to(meta))
     assert ops.launch_counts() == {"if_neuron": 0}
-
-
-# ----------------------------------------------------------------------- #
-# the CUDA kernel against the plain version, on the card
-# ----------------------------------------------------------------------- #
-@pytest.fixture
-def cuda():
-    if not torch.cuda.is_available():
-        pytest.skip("needs an NVIDIA GPU (CUDA kernels have no CPU mode)")
-    return torch.device("cuda")
-
-
-@pytest.mark.cuda
-@pytest.mark.parametrize("B,T,N", SHAPES + [(8, 32, 256), (1, 5, 10),
-                                            (7, 3, 100), (4096, 4, 256)])
-def test_cuda_matches_plain(cuda, B, T, N):
-    upd, vth = _operands(B + T + N, B, T, N)
-    tu, tv = torch.from_numpy(upd).to(cuda), torch.from_numpy(vth).to(cuda)
-    ops.reset_launch_counts()
-    got = ops.if_neuron(tu, tv)
-    assert ops.launch_counts() == {"if_neuron": 1}
-    for a, b in zip(got, ops.if_neuron_ref(tu, tv)):
-        assert a.dtype == b.dtype and torch.equal(a, b)
-
-
-@pytest.mark.cuda
-def test_cuda_wraps_and_fires_at_equality(cuda):
-    big = torch.full((8, 4, 128), 2**30 + 3, dtype=torch.int32, device=cuda)
-    zero = torch.zeros((128,), dtype=torch.int32, device=cuda)
-    for a, b in zip(ops.if_neuron(big, zero), ops.if_neuron_ref(big, zero)):
-        assert torch.equal(a, b)
-    ones = torch.ones((8, 3, 128), dtype=torch.int32, device=cuda)
-    spikes, vmem = ops.if_neuron(ones, zero + 3)
-    assert bool(spikes.all()) and bool((vmem == 3).all())

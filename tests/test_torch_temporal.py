@@ -10,8 +10,8 @@ without collect and telemetry; ``temporal_forward`` also at hidden widths
 that are not multiples of 32 and deeper than one scan launch takes), the
 temporal plan (logits, planes and loads
 bit for bit), the temporal cost model, and event-stream serving through
-``SpikeEngine``.  Plus ``cuda``-marked tests of the CUDA LIF step and scan
-against their plain versions, which skip without a card.
+``SpikeEngine``.  The CUDA LIF step and scan against their plain versions
+are in ``test_torch_temporal_cuda.py``, which imports no JAX.
 """
 
 from __future__ import annotations
@@ -707,142 +707,3 @@ def test_launcher_serves_events_on_cpu(capsys):
         np.testing.assert_array_equal(r.logits, plan(r.events).logits.numpy())
     out = capsys.readouterr().out
     assert "steps/s" in out and "pJ/timestep" in out
-
-
-# ----------------------------------------------------------------------- #
-# the CUDA LIF step against its plain version, on the card
-# ----------------------------------------------------------------------- #
-@pytest.fixture
-def cuda():
-    if not torch.cuda.is_available():
-        pytest.skip("needs an NVIDIA GPU (CUDA kernels have no CPU mode)")
-    return torch.device("cuda")
-
-
-@pytest.mark.cuda
-@pytest.mark.parametrize("shape", [(64, 256), (4096, 256), (1, 1), (7, 100)])
-@pytest.mark.parametrize("leak", [0.0, 0.125, 0.3])
-@pytest.mark.parametrize("reset", ["zero", "subtract"])
-@pytest.mark.parametrize("refractory", [0, 2])
-def test_cuda_lif_step_matches_plain(cuda, shape, leak, reset, refractory):
-    B, N = shape
-    vmem, contrib, vth, refrac = _lif_operands(B + N, B, N, refractory)
-    vth[::3] = 2**31 - 1
-    ops = [torch.from_numpy(a).to(cuda) for a in (vmem, contrib, vth, refrac)]
-    kw = dict(leak=leak, reset=reset, refractory=refractory)
-    lif_ops.reset_launch_counts()
-    got = lif_ops.lif_step(*ops, **kw)
-    assert lif_ops.launch_counts() == {"lif_step": 1, "temporal_scan": 0}
-    for g, w in zip(got, lif_step_ref(*ops, **kw)):
-        assert g.dtype == w.dtype and torch.equal(g, w)
-
-
-# ----------------------------------------------------------------------- #
-# the CUDA temporal scan against its plain version, on the card
-# ----------------------------------------------------------------------- #
-PAPER_HIDDEN = (256, 256, 256)
-
-
-def _random_scan_operands(seed, hidden, n_cls, n_steps, batch, device):
-    """Scan operands of random planes: c_in in [-40, 40], full 32-bit plane
-    words, thresholds in [-8, 8] (some at 2^31 - 1)."""
-    rng = np.random.default_rng(seed)
-    n_first = hidden[0] if hidden else n_cls
-    c_in = rng.integers(-40, 41, size=(n_steps, batch, n_first),
-                        dtype=np.int32)
-    widths = list(hidden) + [n_cls]
-    planes = [rng.integers(-2**31, 2**31, size=(widths[i + 1], -(-n // 32)),
-                           dtype=np.int64).astype(np.int32)
-              for i, n in enumerate(hidden)]
-    vth = [rng.integers(-8, 9, size=(n,), dtype=np.int32) for n in hidden]
-    for th in vth:
-        th[rng.random(th.shape) < 0.1] = 2**31 - 1
-    return (torch.from_numpy(c_in).to(device),
-            tuple(torch.from_numpy(w).to(device) for w in planes),
-            tuple(torch.from_numpy(th).to(device) for th in vth))
-
-
-def _assert_scan_equal(got, want):
-    assert got[0].dtype == torch.float32 and torch.equal(got[0], want[0])
-    for g, w in zip(got[1:], want[1:]):
-        assert (g is None) == (w is None)
-        if g is not None:
-            assert len(g) == len(w)
-            assert all(torch.equal(a, b) for a, b in zip(g, w))
-
-
-@pytest.mark.cuda
-@pytest.mark.parametrize("hidden,batch,n_steps", [
-    (PAPER_HIDDEN, 64, 4), (PAPER_HIDDEN, 64, 8), (PAPER_HIDDEN, 64, 16),
-    (PAPER_HIDDEN, 1, 5), (PAPER_HIDDEN, 7, 5), ((), 64, 8), ((256,), 7, 8),
-    ((128, 384), 33, 3), ((31,), 2, 3), ((37, 70, 33), 5, 3),
-    ((129, 255), 64, 3), (DEEP_TOPOLOGY[1:-1], 3, 2)])
-@pytest.mark.parametrize("leak,reset,refractory", [
-    (0.125, "zero", 0), (0.125, "subtract", 2), (0.3, "zero", 2),
-    (0.0, "subtract", 0), (0.7, "subtract", 3)])
-def test_cuda_temporal_scan_matches_plain(cuda, hidden, batch, n_steps, leak,
-                                          reset, refractory):
-    """The kernel against its plain version: the paper's and ragged rounds,
-    hidden widths that are not multiples of 32 (telemetry where the widths
-    are row groups of 128), and a stack deeper than one launch takes (two
-    launches with a popcount_mac between)."""
-    from repro_torch.kernels.cim_popcount import ops as pop_ops
-
-    ops = _random_scan_operands(batch + n_steps + len(hidden), hidden, 10,
-                                n_steps, batch, cuda)
-    kw = dict(leak=leak, reset=reset, refractory=refractory, collect=True,
-              telemetry=all(n % 128 == 0 for n in hidden))
-    want = lif_ops.temporal_scan_ref(*ops, **kw)
-    lif_ops.reset_launch_counts()
-    pop_ops.reset_launch_counts()
-    _assert_scan_equal(lif_ops.temporal_scan(*ops, **kw), want)
-    launches = -(-len(hidden) // lif_ops.SCAN_MAX_HIDDEN) if hidden else 1
-    assert lif_ops.launch_counts() == {"lif_step": 0,
-                                       "temporal_scan": launches}
-    assert pop_ops.launch_counts()["popcount_mac"] == launches - 1
-    bare = lif_ops.temporal_scan(*ops, leak=leak, reset=reset,
-                                 refractory=refractory)
-    assert bare[1] is None and bare[2] is None
-    assert torch.equal(bare[0], want[0])
-
-
-@pytest.mark.cuda
-@pytest.mark.parametrize("hidden,batch,n_steps,planes_smem,state_smem", [
-    ((2048, 2048), 9, 4, False, True),      # planes past shared memory
-    ((16384, 16384), 2, 2, False, False),   # state past it as well
-])
-def test_cuda_temporal_scan_past_shared_memory(cuda, hidden, batch, n_steps,
-                                               planes_smem, state_smem):
-    route = lif_ops._scan_route(torch.cuda.current_device(), hidden, 10)
-    assert route[:2] == (planes_smem, state_smem)
-    ops = _random_scan_operands(11, hidden, 10, n_steps, batch, cuda)
-    kw = dict(leak=0.125, reset="zero", refractory=2, collect=True,
-              telemetry=True)
-    _assert_scan_equal(lif_ops.temporal_scan(*ops, **kw),
-                       lif_ops.temporal_scan_ref(*ops, **kw))
-
-
-@pytest.mark.cuda
-def test_cuda_temporal_plan_is_one_mac_and_one_scan(cuda):
-    """On the card the temporal plan is one popcount_mac (tile 0) and one
-    temporal_scan a call, with the CPU plan's logits, planes and loads."""
-    from repro_torch.kernels.cim_popcount import ops as pop_ops
-
-    topo = (768,) + PAPER_HIDDEN + (10,)
-    _, net = _pair(topo, 12)
-    gpu = EsamNetwork.from_numpy(*net.to_numpy(), device=cuda)
-    cfg = TemporalConfig(n_steps=6, leak=0.125, reset="subtract",
-                         refractory=2)
-    ev = _events(13, 6, 64, topo[0])
-    want = net.plan(mode="temporal", temporal=cfg, collect=True,
-                    telemetry=True)(ev)
-    plan = gpu.plan(mode="temporal", temporal=cfg, collect=True,
-                    telemetry=True)
-    lif_ops.reset_launch_counts()
-    pop_ops.reset_launch_counts()
-    got = plan(ev)
-    assert lif_ops.launch_counts() == {"lif_step": 0, "temporal_scan": 1}
-    assert pop_ops.launch_counts()["popcount_mac"] == 1
-    assert torch.equal(got.logits.cpu(), want.logits)
-    for g, w in zip(got.planes + got.loads, want.planes + want.loads):
-        assert torch.equal(g.cpu(), w)
