@@ -7,10 +7,12 @@ Phases; any failure raises, so the exit code is non-zero:
 
 1. the card's name and power limit (``nvidia-smi``), torch and CUDA versions;
 2. build the CUDA kernels from ``src/repro_torch/kernels/*/csrc`` (one
-   ``nvcc`` per library, and one for ``probes/rate_probe.cu``, all
-   started together); then the issue rates of the b1 and int8 tensor-core
-   products and the popc unit, with the SM clock (``rate_probe``; the b1
-   reading is the rate of the b1 kernels' bounds), and the tensor-core
+   ``nvcc`` per library, and one each for ``probes/rate_probe.cu`` and
+   ``probes/launch_floor.cu``, all started together); then the issue rates
+   of the b1 and int8 tensor-core products and the popc unit, with the SM
+   clock (``rate_probe``; the b1 reading is the rate of the b1 kernels'
+   bounds), what one launch of an empty kernel and of a one-load kernel
+   costs in a CUDA graph (``launch_floor``), and the tensor-core
    instruction (BMMA) in every kernel on the b1 product: B2/B3's, B1's b1
    instantiation, B9/B9''s and B10's (``cuobjdump``, ``sass``);
 3. each kernel against its plain PyTorch version on the card, bit for bit,
@@ -37,7 +39,14 @@ Phases; any failure raises, so the exit code is non-zero:
    draws the uniforms itself, and the chain) at 4096 x 256 -> 10 and ragged
    and wide readouts, with ties, offsets, an out-of-range label and a key
    past 2^31, on every route of the chain (``epoch_sass``: its ptxas
-   registers and spills and its REDUX and POPC a route); the
+   registers and spills and its REDUX and POPC a route); the matrix-RNG
+   epoch's three kernels (``stdp_update_keys``, ``stdp_update_masks`` and
+   the chain) each against its plain version at the scan path's 64 and 4096
+   x 256 -> 10 (timed: the key walk's serial floor, clocks a chain step, the
+   epoch against its bound) and at labels outside [0, n_out), a tied
+   readout, p of 0 and 1, 0 and 1 samples and every route of the chain; B8
+   bit for bit at W 32, 128 and 1024, ports 1, 2, 4, 5 and 8, random,
+   all-on and all-off requests and G 1, 16 and 1000; the
    event round's ``temporal_scan`` at the event path's T 4, 8 and 16 and
    B 64, at B 1 and 7, with 0 and 1 hidden tiles, per reset mode with
    refractory 2, and on each of its three routes: planes and state in
@@ -62,8 +71,11 @@ Phases; any failure raises, so the exit code is non-zero:
    ``learning.online_learning_epoch`` through the packed prefix
    (``fused_fire_packed``, one ``stdp_epoch_masks`` and one
    ``stdp_column_epoch``) and
-   ``online_learning_epoch_scan`` with the matrix RNG (``stdp_update``),
-   each against its CPU twin;
+   ``online_learning_epoch_scan`` with the matrix RNG (one
+   ``stdp_update_epoch``: ``stdp_update_keys``, ``stdp_update_masks`` and
+   ``stdp_update_chain``, no ``stdp_update``) at 64 and 4096 samples, each
+   against its CPU twin (``scan_epoch`` lines: wall, device time,
+   launches);
 7. the cycle plane: the quickstart twin (``repro_torch.launch.quickstart``:
    BNN -> SNN -> packed plan -> cycle plan at 4 ports -> Fig 8) at the paper
    topology, one ``port_schedule`` launch per tile; the measured Fig 8 sweep
@@ -91,8 +103,9 @@ Phases; any failure raises, so the exit code is non-zero:
    launch counter is set to 0 just before and held to the calls the bench
    reports just after (the bench times the plain versions by name, so none
    is forbidden here; every other phase forbids them all);
-10. one JSON line of the kernels (16: the 13 Pallas kernels' ports, the
-    epoch's two kernels and the event round's scan), then the result line.
+10. one JSON line of the kernels (19: the 13 Pallas kernels' ports, the
+    column-event epoch's two kernels, the matrix-RNG epoch's three and the
+    event round's scan), then the result line.
 
 It needs a CUDA device and exits non-zero without one.
 """
@@ -129,7 +142,8 @@ BUCKET = 128                   # the engine's max_batch: one round's batch
 #: the learning path: the port's twin of examples/online_learning.py
 LEARN_TRAIN, LEARN_EVAL, LEARN_EPOCHS = 4096, 1024, 6
 LEARN_P_POT, LEARN_P_DEP = 0.2, 0.1
-#: samples of the matrix-RNG scan path (two stdp_update launches each)
+#: samples of the matrix-RNG scan path's short run (its long run takes
+#: LEARN_TRAIN); each run is one stdp_update_epoch, three launches
 SCAN_SAMPLES = 64
 
 #: the event path: round size (the launcher's max_batch), leak and the LIF
@@ -196,21 +210,72 @@ RATE_PROBES = ((0, "mma_b1_m16n8k256_and_popc", 16 * 8 * 256),
                (2, "popc_b32", 32))
 PROBE_ITERS = 4096
 PROBE_SOURCE = ROOT / "probes" / "rate_probe.cu"
+#: the launch floor's probe: an empty kernel and a one-load kernel
+FLOOR_SOURCE = ROOT / "probes" / "launch_floor.cu"
 
 
-def start_probe_build():
-    """Start nvcc on the rate probe, which is no part of the port's kernel
-    libraries; returns (process, library path) for ``probe_rates``."""
+def start_probe_build(source=PROBE_SOURCE):
+    """Start nvcc on a probe under ``probes/``, which is no part of the
+    port's kernel libraries; returns (process, library path, source) for
+    ``probe_library``."""
     from repro_torch.kernels import _build
 
-    out = _build.build_dir() / "librate_probe.so"
+    out = _build.build_dir() / f"lib{source.stem}.so"
     out.parent.mkdir(parents=True, exist_ok=True)
     proc = subprocess.Popen(
         [_build._nvcc(), *_build.NVCC_FLAGS, f"-I{_build.SHARED_INCLUDE}",
          "-o", str(out),
-         str(PROBE_SOURCE)],
+         str(source)],
         stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
-    return proc, out
+    return proc, out, source
+
+
+def probe_library(build):
+    """Wait for a probe's nvcc; its library, loaded (raises if it failed)."""
+    import ctypes
+
+    proc, path, source = build
+    text, _ = proc.communicate()
+    if proc.returncode != 0:
+        raise RuntimeError(f"nvcc failed on {source.name}:\n{text}")
+    return ctypes.CDLL(str(path))
+
+
+def launch_floor(build) -> dict:
+    """What one launch costs on this card, whatever the kernel
+    (``probes/launch_floor.cu``): an empty kernel and one that loads one
+    word and stores it, each timed in a CUDA graph (``graph_ms``, as every
+    kernel here is) and from Python (``call_ms``).  Printed as a
+    ``launch_floor`` line."""
+    import ctypes
+
+    import torch
+
+    from repro_torch.kernels.common import stream_ptr
+
+    lib = probe_library(build)
+    vp = ctypes.c_void_p
+    lib.launch_floor.argtypes = [ctypes.c_int, vp, vp, vp]
+    lib.launch_floor.restype = ctypes.c_int
+    dev = torch.device("cuda", torch.cuda.current_device())
+    x = torch.full((1,), 41, dtype=torch.int32, device=dev)
+    y = torch.zeros_like(x)
+
+    def run(which):
+        err = lib.launch_floor(which, x.data_ptr(), y.data_ptr(),
+                               stream_ptr(dev))
+        if err:
+            raise RuntimeError(f"launch_floor {which} failed: {err}")
+
+    run(1)
+    if int(y) != 42:
+        raise AssertionError(f"launch_floor's load kernel stored {int(y)}")
+    out = {"empty_ms": graph_ms(lambda: run(0)),
+           "one_load_ms": graph_ms(lambda: run(1)),
+           "empty_call_ms": call_ms(lambda: run(0)),
+           "one_load_call_ms": call_ms(lambda: run(1))}
+    print("launch_floor " + json.dumps(out), flush=True)
+    return out
 
 
 def probe_rates(card, build) -> dict:
@@ -226,11 +291,7 @@ def probe_rates(card, build) -> dict:
 
     from repro_torch.kernels.common import stream_ptr
 
-    proc, path = build
-    text, _ = proc.communicate()
-    if proc.returncode != 0:
-        raise RuntimeError(f"nvcc failed on {PROBE_SOURCE.name}:\n{text}")
-    lib = ctypes.CDLL(str(path))
+    lib = probe_library(build)
     vp, i32 = ctypes.c_void_p, ctypes.c_int
     lib.cim_popcount_rate_probe.argtypes = [i32, i32, i32, vp, vp, vp]
     lib.cim_popcount_rate_probe.restype = i32
@@ -1010,9 +1071,10 @@ def check_column_epoch(card, rng, n_out, n_in, n, masks_rows, chain_rows, *,
 
 def epoch_sass(report) -> dict:
     """Per instantiation of the chain kernel (``column_epoch_kernel<WMAX,
-    R>``): ``ptxas`` registers and spill bytes, and the SASS count of REDUX
-    and POPC (``cuobjdump``).  Raises unless each register route holds
-    exactly one REDUX (the argmax's max) and none spills."""
+    R, PerRow>``: the column events' chain, and with ``/row`` the
+    matrix-RNG epoch's): ``ptxas`` registers and spill bytes, and the SASS
+    count of REDUX and POPC (``cuobjdump``).  Raises unless each register
+    route holds exactly one REDUX (the argmax's max) and none spills."""
     import re
 
     from repro_torch.kernels import _build
@@ -1037,16 +1099,17 @@ def epoch_sass(report) -> dict:
         fn = section.split(maxsplit=1)[0]
         if "column_epoch_kernel" not in fn:
             continue
-        m = re.search(r"column_epoch_kernelILi(\d+)ELi(\d+)E", fn)
-        wmax, rows = int(m.group(1)), int(m.group(2))
+        m = re.search(r"column_epoch_kernelILi(\d+)ELi(\d+)ELb(\d)E", fn)
+        wmax, rows, per_row = (int(g) for g in m.groups())
         ops_ = re.findall(r"\b((?:REDUX|POPC)[.A-Z0-9_]*)", section)
         row = {op: ops_.count(op) for op in sorted(set(ops_))}
         row.update(regs.get(fn, {}))
-        found[f"{wmax}x{rows}"] = row
+        found[f"{wmax}x{rows}" + ("/row" if per_row else "")] = row
         redux = sum(v for k, v in row.items() if k.startswith("REDUX"))
         if wmax and (redux != 1 or row.get("spill_bytes")):
-            raise AssertionError(f"column_epoch_kernel<{wmax},{rows}>: {row}")
-    if len(found) != 6:
+            raise AssertionError(f"column_epoch_kernel<{wmax},{rows},"
+                                 f"{per_row}>: {row}")
+    if len(found) != 12:
         raise AssertionError(f"column_epoch_kernel instantiations: {found}")
     print("epoch_sass " + json.dumps(found), flush=True)
     return found
@@ -1086,28 +1149,195 @@ def check_stdp_update(card, rng, n_out, n_in, kernels):
     kernels.append(row)
 
 
-def _requests(rng, n: int, fill: str):
-    """{0,1} request rows [n, 128] on the card: random at p=0.5, or all
+def _once_ms(fn):
+    """(wall ms, result) of one synchronised ``fn()`` on the card, for plain
+    versions too long to capture in a graph."""
+    import torch
+
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    result = fn()
+    torch.cuda.synchronize()
+    return (time.perf_counter() - t0) * 1e3, result
+
+
+def _update_draws(pre, labels, n_out) -> tuple[int, int]:
+    """(draws the matrix-RNG masks kernel makes, those a wrong sample's
+    updates read): every sample's 5 key derivations, the teacher row at
+    every input and each other row where the trace is 1; a sample's updates
+    read the teacher row's and the winner row's (2 keys, the teacher's
+    inputs, the trace's ones)."""
+    valid = ((labels >= 0) & (labels < n_out)).long()
+    npre = pre.sum(-1).long()
+    n_in = pre.shape[1]
+    masks = 5 * len(labels) + int((valid * n_in
+                                   + (n_out - valid) * npre).sum())
+    rule = int((2 + valid * n_in + npre).sum())
+    return masks, rule
+
+
+def check_update_epoch(card, rng, n_out, n_in, n, rows, *, route,
+                       tied=False, bad=(-1,), probs=(LEARN_P_POT, LEARN_P_DEP),
+                       timed=False):
+    """The matrix-RNG epoch's three kernels against their plain versions on
+    the card: ``stdp_update_keys`` against ``stdp_update_keys_ref``,
+    ``stdp_update_masks`` slot for slot against ``stdp_update_masks_ref``,
+    and the whole ``stdp_update_epoch`` (bits and update count) against
+    ``stdp_update_epoch_ref`` (the per-sample loop, on the card too) under
+    ``PRNGKey(n + n_out)``; labels outside [0, n_out) (``bad``) at samples
+    1, 4, 7, ...; ``tied``: every readout row the same.  The route is
+    asserted against ``ops._epoch_route``.  ``timed``: rows for the key
+    walk (its serial floor, clocks a step), the masks and the chain (clocks
+    a step), and the epoch's three launches together against its bound."""
+    import torch
+
+    from repro_torch.core import prng
+    from repro_torch.kernels.stdp import ops
+
+    bits = rng.integers(0, 2, size=(n_out, n_in), dtype=np.int8)
+    if tied:
+        bits[:] = bits[:1]
+    bits_t = torch.from_numpy(bits).cuda()
+    pre = torch.from_numpy(rng.random((n, n_in)) < 0.45).cuda()
+    labels = rng.integers(0, n_out, size=(n,))
+    for i, label in enumerate(bad):
+        if 1 + 3 * i < n:
+            labels[1 + 3 * i] = label
+    labels = torch.from_numpy(labels).cuda()
+    key = prng.PRNGKey(n + n_out).cuda()
+    p_pot, p_dep = probs
+    p = dict(p_pot=p_pot, p_dep=p_dep)
+    shape = f"{n}x{n_in}->{n_out}"
+    if ops._epoch_route(n_out, n_in) != route:
+        raise AssertionError(f"epoch route {ops._epoch_route(n_out, n_in)} "
+                             f"at [{n_out}, {n_in}], want {route}")
+    keys = ops.stdp_update_keys(key, n)
+    want_keys = ops.stdp_update_keys_ref(key, n)
+    slots = ops.stdp_update_masks(pre, labels, keys, n_out, **p)
+    want_slots = ops.stdp_update_masks_ref(pre, labels, want_keys, n_out,
+                                           p_pot, p_dep)
+    if not torch.equal(keys, want_keys):
+        raise AssertionError(f"stdp_update_keys != plain at n={n}")
+    if not torch.equal(slots, want_slots):
+        raise AssertionError(f"stdp_update_masks != plain at {shape} "
+                             f"p={probs}")
+    got = bits_t.clone()
+    count = ops.stdp_update_epoch(got, pre, labels, key, **p)
+    plain_ms, (want, want_count) = _once_ms(
+        lambda: ops.stdp_update_epoch_ref(bits_t, pre, labels, key, p_pot,
+                                          p_dep))
+    err = _word_err(got, want)
+    if not torch.equal(got, want) or int(count) != int(want_count):
+        raise AssertionError(
+            f"stdp_update_epoch != plain at {shape} tied={tied} bad={bad} "
+            f"p={probs}: {int(count)} vs {int(want_count)} updates")
+    if not timed:
+        return
+    n_wrong = int(want_count) // 2
+    masks_draws, rule_draws = _update_draws(pre, labels, n_out)
+    shift = ops._update_shift(ops._library(), n_out, n_in, bits_t.device)
+    work = bits_t.clone()
+
+    # the key walk: the key read, the keys written; a threefry a step at the
+    # int32 rate; its time is samples x one threefry's latency (the floor)
+    k_stamps = torch.zeros(2, dtype=torch.int64, device="cuda")
+    ops.stdp_update_keys(key, n, k_stamps)
+    ks = k_stamps.tolist()
+    k_bound, k_by = card.bound(16 + 8 * n, n * DRAW_INT32_OPS,
+                               card.int32_per_s)
+    k_row = {
+        "kernel": "stdp_update_keys", "shape": shape, "max_abs_err":
+        int((keys != want_keys).sum()),
+        "ms": graph_ms(lambda: ops.stdp_update_keys(key, n), calls=3,
+                       replays=5),
+        "call_ms": call_ms(lambda: ops.stdp_update_keys(key, n), calls=5),
+        "clocks_per_step": (ks[1] - ks[0]) / max(n, 1),
+        "plain_ms": _once_ms(lambda: ops.stdp_update_keys_ref(key, n))[0],
+        "bound_ms": k_bound, "bound_by": k_by, "library_ms": None,
+    }
+    # the masks: traces, labels and keys read, the slots written; every
+    # draw the kernel makes at the int32 rate
+    m_bytes = n * n_in + n * labels.element_size() + 8 * n + slots.numel() * 4
+    m_bound, m_by = card.bound(m_bytes, masks_draws * DRAW_INT32_OPS,
+                               card.int32_per_s)
+    m_row = {
+        "kernel": "stdp_update_masks", "shape": shape, "max_abs_err":
+        int((slots != want_slots).sum()), "draws": masks_draws,
+        "ms": graph_ms(lambda: ops.stdp_update_masks(pre, labels, keys,
+                                                     n_out, **p)),
+        "call_ms": call_ms(lambda: ops.stdp_update_masks(pre, labels, keys,
+                                                         n_out, **p)),
+        "plain_ms": graph_ms(lambda: ops.stdp_update_masks_ref(
+            pre, labels, keys, n_out, p_pot, p_dep), calls=3, replays=3),
+        "bound_ms": m_bound, "bound_by": m_by, "library_ms": None,
+    }
+    # the chain: slots read, the readout read and written, the count; an
+    # AND+popc pair a readout bit a sample at the b1 rate
+    c_stamps = torch.zeros(4, dtype=torch.int64, device="cuda")
+    ops._update_chain(bits_t.clone(), slots, shift, c_stamps)
+    cs = c_stamps.tolist()
+    c_bytes = slots.numel() * 4 + 2 * n_out * n_in + 4
+    c_bound, c_by = card.bound(c_bytes, 2 * n * n_out * n_in,
+                               card.b1_ops_per_s)
+    # the epoch as one function: the masks' draws at the int32 rate or the
+    # chain's bytes, whichever is larger; and, beside it, the draws a wrong
+    # sample's updates read, with the key walk
+    e_bound, e_by = card.bound(c_bytes, masks_draws * DRAW_INT32_OPS,
+                               card.int32_per_s)
+    rule_bound, rule_by = card.bound(
+        n * n_in + n * labels.element_size() + 16 + 2 * n_out * n_in + 4,
+        (n + n_wrong / max(n, 1) * rule_draws) * DRAW_INT32_OPS,
+        card.int32_per_s)
+    epoch_ms = graph_ms(lambda: ops.stdp_update_epoch(work, pre, labels, key,
+                                                      **p),
+                        calls=3, replays=5)
+    c_row = {
+        "kernel": "stdp_update_chain", "shape": shape, "tied": tied,
+        "route": route, "shift": shift, "max_abs_err": err,
+        "ms": graph_ms(lambda: ops._update_chain(work, slots, shift),
+                       calls=3, replays=5),
+        "epoch_ms": epoch_ms,
+        "epoch_call_ms": call_ms(lambda: ops.stdp_update_epoch(
+            work, pre, labels, key, **p), calls=5),
+        "key_floor_ms": k_row["ms"],
+        "key_clocks_per_step": k_row["clocks_per_step"],
+        "us_per_sample": epoch_ms * 1e3 / n,
+        "clocks_per_step": (cs[2] - cs[1]) / max(n, 1),
+        "setup_clocks": cs[1] - cs[0], "writeback_clocks": cs[3] - cs[2],
+        "wrong": n_wrong, "plain_ms": plain_ms,
+        "bound_ms": c_bound, "bound_by": c_by,
+        "epoch_bound_ms": e_bound, "epoch_bound_by": e_by,
+        "rule_bound_ms": rule_bound, "rule_bound_by": rule_by,
+        "library_ms": None,
+    }
+    for row in (k_row, m_row, c_row):
+        print("kernel_check " + json.dumps(row), flush=True)
+        rows.append(row)
+
+
+def _requests(rng, n: int, fill: str, width: int = ROW_GROUP):
+    """{0,1} request rows [n, width] on the card: random at p=0.5, or all
     zeros, or all ones."""
     import torch
 
     if fill == "zeros":
-        return torch.zeros((n, ROW_GROUP), dtype=torch.bool, device="cuda")
+        return torch.zeros((n, width), dtype=torch.bool, device="cuda")
     if fill == "ones":
-        return torch.ones((n, ROW_GROUP), dtype=torch.bool, device="cuda")
-    return torch.from_numpy(rng.random((n, ROW_GROUP)) < 0.5).cuda()
+        return torch.ones((n, width), dtype=torch.bool, device="cuda")
+    return torch.from_numpy(rng.random((n, width)) < 0.5).cuda()
 
 
-def check_arbiter(card, rng, name, n, ports, kernels, fill="random"):
+def check_arbiter(card, rng, name, n, ports, kernels, fill="random",
+                  width=ROW_GROUP, timed=True):
     """port_schedule or arbiter vs its plain version on the card, bit for
-    bit (values and dtypes), timed against its bound."""
+    bit (values and dtypes), timed against its bound (``timed``)."""
     import torch
 
     from repro_torch.kernels.arbiter import ops
 
     fn, ref = ((ops.port_schedule, ops.port_schedule_ref)
                if name == "port_schedule" else (ops.arbiter, ops.arbiter_ref))
-    r = _requests(rng, n, fill)
+    r = _requests(rng, n, fill, width)
 
     def run():
         return fn(r, ports=ports)
@@ -1117,18 +1347,20 @@ def check_arbiter(card, rng, name, n, ports, kernels, fill="random"):
     err = max(_word_err(a, b) for a, b in zip(got, want))
     if err or not all(a.dtype == b.dtype and torch.equal(a, b)
                       for a, b in zip(got, want)):
-        raise AssertionError(f"{name} != plain at [{n}, {ROW_GROUP}] "
+        raise AssertionError(f"{name} != plain at [{n}, {width}] "
                              f"p={ports} {fill}: max_abs_err={err}")
+    if not timed:
+        return
     # each request byte read once, each output written once; two popcs a
     # lane and 32-lane sub-block (its rank and its sub-block's total)
-    lanes = n * ROW_GROUP
+    lanes = n * width
     if name == "port_schedule":
-        n_bytes = lanes + 4 * lanes + 4 * n * -(-ROW_GROUP // ports)
+        n_bytes = lanes + 4 * lanes + 4 * n * -(-width // ports)
     else:
         n_bytes = lanes + ports * lanes + lanes + n * ports
     bound_ms, bound_by = card.bound(n_bytes, 2 * lanes)
     row = {
-        "kernel": name, "shape": f"{n}x{ROW_GROUP}", "ports": ports,
+        "kernel": name, "shape": f"{n}x{width}", "ports": ports,
         "fill": fill, "max_abs_err": err,
         "ms": graph_ms(run), "call_ms": call_ms(run),
         "plain_ms": graph_ms(lambda: ref(r, ports)),
@@ -1545,7 +1777,8 @@ class PlainForbidden:
         ("repro_torch.kernels.stdp.ops",
          ("stdp_column_epoch_ref", "stdp_epoch_masks_ref",
           "column_event_uniforms", "stdp_column_event_ref",
-          "stdp_update_ref")),
+          "stdp_update_ref", "stdp_update_epoch_ref", "stdp_update_keys_ref",
+          "stdp_update_masks_ref")),
         ("repro_torch.kernels.arbiter.ops",
          ("port_schedule_ref", "arbiter_ref")),
     )
@@ -1729,6 +1962,32 @@ def time_epochs(x, y, xe, ye, learned) -> list[dict]:
     return times
 
 
+def profiled(fn) -> dict:
+    """``fn()`` once more under torch.profiler: the device time of every
+    kernel it launched, their number and the busy share of that wall
+    (profiler overhead included)."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        wall_s = time.perf_counter() - t0
+    on_device = [e for e in prof.key_averages()
+                 if e.device_type == torch.autograd.DeviceType.CUDA]
+    device_s = sum(e.self_device_time_total for e in on_device) / 1e6
+    top = sorted(on_device, key=lambda e: -e.self_device_time_total)[:6]
+    return {"device_s": device_s, "profiled_wall_s": wall_s,
+            "device_busy_share": device_s / wall_s,
+            "device_launches": sum(e.count for e in on_device),
+            "top": [{"name": e.key[:60], "count": e.count,
+                     "device_ms": e.self_device_time_total / 1e3}
+                    for e in top]}
+
+
 def profile_learning(net, pre, y, n: int = LEARN_TRAIN) -> None:
     """Where a learning epoch's time goes: ``column_event_epoch`` on ``n``
     samples under torch.profiler; device time, busy share of the same wall,
@@ -1822,27 +2081,51 @@ def learning_phase() -> dict:
           f"(CPU twin {out['cpu'][2]:.3f} s), launches {counts_epoch}, "
           "identical to the CPU twin", flush=True)
 
-    # the full-matrix plane with the matrix RNG (stdp_update)
-    for device in ("cuda", "cpu"):
-        net = paper_network(device)
-        pre = learning.last_hidden_spikes(net.weight_bits, net.vth,
-                                          x[:SCAN_SAMPLES])
-        with PlainForbidden() if device == "cuda" else nullcontext() as guard:
-            bits, n = learning.online_learning_epoch_scan(
-                net.weight_bits, net.vth, None, y[:SCAN_SAMPLES],
-                prng.PRNGKey(11), p_pot=LEARN_P_POT, p_dep=LEARN_P_DEP,
-                pre_spikes=pre, rng_scheme="matrix")
-            n = int(n)
-        out[device] = (bits.cpu(), n, 0.0, guard)
-    if not torch.equal(out["cuda"][0], out["cpu"][0]) or (
-            out["cuda"][1] != out["cpu"][1]):
-        raise AssertionError("online_learning_epoch_scan differs card vs CPU")
-    guard = out["cuda"][3]
-    guard.expect("scan path", {"stdp_update": 2 * SCAN_SAMPLES})
-    counts_scan = guard.counts
-    print(f"scan path (matrix RNG): {SCAN_SAMPLES} samples, {out['cuda'][1]} "
-          f"column updates, launches {counts_scan}, identical to the CPU twin",
-          flush=True)
+    # the full-matrix plane with the matrix RNG: one stdp_update_epoch, at
+    # SCAN_SAMPLES and LEARN_TRAIN samples, each against its CPU twin
+    counts_scan = {}
+    for n in (SCAN_SAMPLES, LEARN_TRAIN):
+        for device in ("cuda", "cpu"):
+            net = paper_network(device)
+            pre = learning.last_hidden_spikes(net.weight_bits, net.vth, x[:n])
+
+            def scan():
+                bits, upd = learning.online_learning_epoch_scan(
+                    net.weight_bits, net.vth, None, y[:n], prng.PRNGKey(11),
+                    p_pot=LEARN_P_POT, p_dep=LEARN_P_DEP, pre_spikes=pre,
+                    rng_scheme="matrix")
+                return bits, int(upd)
+
+            with (PlainForbidden() if device == "cuda"
+                  else nullcontext()) as guard:
+                t0 = time.perf_counter()
+                bits, upd = scan()
+                wall = time.perf_counter() - t0
+            walls = [wall]
+            if device == "cuda":
+                for _ in range(3):
+                    t0 = time.perf_counter()
+                    scan()
+                    walls.append(time.perf_counter() - t0)
+                prof = profiled(scan)
+            out[device] = (bits.cpu(), upd, walls, guard)
+        if not torch.equal(out["cuda"][0], out["cpu"][0]) or (
+                out["cuda"][1] != out["cpu"][1]):
+            raise AssertionError(f"online_learning_epoch_scan differs card "
+                                 f"vs CPU at {n} samples")
+        guard = out["cuda"][3]
+        guard.expect("scan path", {"stdp_update_keys": 1,
+                                   "stdp_update_masks": 1,
+                                   "stdp_update_chain": 1})
+        for k, v in guard.counts.items():
+            counts_scan[k] = counts_scan.get(k, 0) + v
+        print("scan_epoch " + json.dumps({
+            "samples": n, "column_updates": out["cuda"][1],
+            "wall_s": out["cuda"][2], "cpu_twin_wall_s": out["cpu"][2][0],
+            "launches": {k: v for k, v in guard.counts.items() if v},
+            **prof}), flush=True)
+    print(f"scan path (matrix RNG): {SCAN_SAMPLES} and {LEARN_TRAIN} samples, "
+          f"launches {counts_scan}, identical to the CPU twin", flush=True)
 
     net = paper_network("cuda")
     pre = learning.last_hidden_spikes(net.weight_bits, net.vth, x)
@@ -2262,10 +2545,11 @@ def main() -> int:
           f"popc bound rate {card.popc_per_s:.4g}/s, "
           f"memory bound rate {HBM_BYTES_PER_S:.4g} B/s", flush=True)
 
-    # 2. build: one nvcc per library, and one for the rate probe, all
-    # started together
+    # 2. build: one nvcc per library, and one for each probe, all started
+    # together
     t0 = time.perf_counter()
     probe_build = start_probe_build()
+    floor_build = start_probe_build(FLOOR_SOURCE)
     reports = _build.build_all()
     print(f"build: {len(reports)} libraries in "
           f"{time.perf_counter() - t0:.2f} s wall", flush=True)
@@ -2278,6 +2562,7 @@ def main() -> int:
     # the exact MAC datapaths' issue rates (probes/rate_probe.cu), and the
     # one B2/B3 uses in the built kernel
     probe_rates(card, probe_build)
+    launch_floor(floor_build)
     tile_sass(reports)
     epoch_sass(next(r for r in reports if r.name == "stdp"))
 
@@ -2333,7 +2618,7 @@ def main() -> int:
         mega_geometries(rng, topology, batch)
     check_mac(card, rng, BUCKET, 768, 10, mac_rows, paired=True)
     check_mac(card, rng, 37, 100, 77, mac_rows)
-    fire_rows, packed_rows, event_rows, update_rows = [], [], [], []
+    fire_rows, packed_rows, event_rows, single_rows = [], [], [], []
     for check, rows in ((check_fire, fire_rows),
                         (check_packed_fire, packed_rows)):
         check(card, rng, LEARN_TRAIN, 768, 256, rows)
@@ -2366,7 +2651,7 @@ def main() -> int:
                    paired=stride_pad == 2)
     for n_out, n_in in ((10, 256), (256, 768)):
         check_column_event(card, rng, n_out, n_in, event_rows)
-        check_stdp_update(card, rng, n_out, n_in, update_rows)
+        check_stdp_update(card, rng, n_out, n_in, single_rows)
     # the epoch's two kernels: the learning path's shape and ragged and
     # wide readouts, tied and offset, then a key past 2^31 and every other
     # route of the chain ((words a row, rows a lane) in registers; (0, 0):
@@ -2390,6 +2675,30 @@ def main() -> int:
                                (40, 256, (8, 2)), (65, 100, (0, 0))):
         check_column_epoch(card, rng, n_out, n_in, 300, masks_rows,
                            epoch_rows, route=route, offset=True)
+    # the matrix-RNG epoch's three kernels: the scan path's shapes (timed),
+    # then labels outside [0, n_out), a tied readout, p of 0 and 1, 0 and 1
+    # samples, and every route of the chain, the ring at 16, 4 and 1 slots
+    # a copy ((256, 768): one wide slot a copy)
+    update_rows = []
+    for n in (SCAN_SAMPLES, LEARN_TRAIN):
+        check_update_epoch(card, rng, 10, 256, n, update_rows, route=(8, 1),
+                           bad=(-1, 10, 20), timed=True)
+    check_update_epoch(card, rng, 10, 256, 300, update_rows, route=(8, 1),
+                       tied=True)
+    for probs in ((LEARN_P_POT, 0.0), (0.0, LEARN_P_DEP), (1.0, 1.0)):
+        check_update_epoch(card, rng, 10, 256, 100, update_rows, route=(8, 1),
+                           probs=probs)
+    for n in (0, 1):
+        check_update_epoch(card, rng, 10, 256, n, update_rows, route=(8, 1))
+    for n_out, n_in, n, route in ((33, 70, 200, (8, 2)),
+                                  (65, 70, 100, (0, 0)),
+                                  (10, 300, 100, (16, 1)),
+                                  (10, 768, 100, (32, 1)),
+                                  (40, 256, 100, (8, 2)),
+                                  (64, 768, 50, (0, 0)),
+                                  (256, 768, 40, (0, 0))):
+        check_update_epoch(card, rng, n_out, n_in, n, update_rows,
+                           route=route, bad=(-1, n_out, 2 * n_out))
     arbiter_rows = []
     for name in ("port_schedule", "arbiter"):
         for n in (SWEEP_DIGITS * 6, 8192):
@@ -2448,6 +2757,16 @@ def main() -> int:
     check_mega(card, rng, BENCH_CASCADE, BENCH_B, mega_rows, cluster=2,
                fixed=(True, True, True))
     check_arbiter(card, rng, "arbiter", 16, 4, arbiter_rows)
+    # B8 bit for bit over widths, ports, fills and group counts; the bench's
+    # shape is timed above
+    grid = [(w, ports, fill, n) for w in (32, 128, 1024)
+            for ports in (1, 2, 4, 5, 8)
+            for fill in ("random", "ones", "zeros") for n in (1, 16, 1000)]
+    for width, ports, fill, n in grid:
+        check_arbiter(card, rng, "arbiter", n, ports, arbiter_rows,
+                      fill=fill, width=width, timed=False)
+    print(f"arbiter: {len(grid)} cases (W 32/128/1024, ports 1/2/4/5/8, "
+          "random/ones/zeros, G 1/16/1000) bit for bit", flush=True)
     matmul_rows, packed_mac_rows, if_rows = [], [], []
     # B10a and B10b: the bench's shape and 4096 x 768 -> 256 in four spike
     # widths, ragged shapes, N 10 and 77, K 40000, spike rows that start
@@ -2612,7 +2931,19 @@ def main() -> int:
         line("stdp_column_event", stdp_src, "stdp/kernel.py:75",
              pick(event_rows, "10x256"), bench["stdp_column_event"]),
         line("stdp_update", stdp_src, "stdp/kernel.py:26",
-             pick(update_rows, "10x256"), learn["scan"]["stdp_update"]),
+             pick(single_rows, "10x256"), bench["stdp_update"]),
+        line("stdp_update_keys", stdp_src, "stdp/kernel.py:26",
+             pick(update_rows, f"{LEARN_TRAIN}x256->10",
+                  kernel="stdp_update_keys"),
+             learn["scan"]["stdp_update_keys"]),
+        line("stdp_update_masks", stdp_src, "stdp/kernel.py:26",
+             pick(update_rows, f"{LEARN_TRAIN}x256->10",
+                  kernel="stdp_update_masks"),
+             learn["scan"]["stdp_update_masks"]),
+        line("stdp_update_chain", stdp_src, "stdp/kernel.py:26",
+             pick(update_rows, f"{LEARN_TRAIN}x256->10",
+                  kernel="stdp_update_chain"),
+             learn["scan"]["stdp_update_chain"]),
         line("fused_fire_packed", packed_src,
              "cim_matmul_packed/kernel.py:66", pick(packed_rows, prefix_shape),
              learn["epoch"]["fused_fire_packed"]),

@@ -20,7 +20,10 @@ call that takes the key.  On the card it is two launches an epoch:
 threefry bits) and packs the rule's masks, then one warp runs every
 sample's readout, argmax and column writes with the readout in its
 registers.  On the CPU it is the draw through ``core/prng.py`` and the
-plain version, a loop over samples.
+plain version, a loop over samples.  The reference's baseline scan with
+the matrix RNG (``online_learning_epoch_scan``) is likewise one
+``kernels/stdp.stdp_update_epoch`` call that takes the key: three launches
+an epoch on the card (the key chain, the draws, the chain of samples).
 """
 
 from __future__ import annotations
@@ -248,11 +251,16 @@ def online_learning_epoch_scan(
     """The per-sample full-matrix rewrite: the reference's baseline plane.
 
     * ``rng_scheme="matrix"``: two full ``[n_in, n_out]`` uniform matrices
-      per sample from a ``split`` chain, through ``stdp_update`` (the
-      ``stdp_update`` kernel on the card);
+      per sample from a ``split`` chain and each sample's ``stdp_update``
+      pair, as one ``stdp_update_epoch`` call on the transposed readout
+      (three launches on the card, the draws inside them; the per-sample
+      loop ``stdp_update_epoch_ref`` on the CPU);
     * ``rng_scheme="column"``: the column scheme of ``column_event_uniforms``
       broadcast across columns — the same bits as
       :func:`online_learning_epoch` under the same key.
+
+    Returns (new last-layer bits ``[n_in, n_out]``, number of column updates
+    as an int32 device scalar).
     """
     if rng_scheme not in RNG_SCHEMES:
         raise ValueError(f"rng_scheme {rng_scheme!r} not in {RNG_SCHEMES}")
@@ -266,14 +274,21 @@ def online_learning_epoch_scan(
         for w, th in zip(network_bits[:-1], vth[:-1]):
             s, _ = tile_mod.functional_tile(w, s, th)
     labels = torch.as_tensor(labels).to(dev)
+    if labels.dtype not in (torch.int32, torch.int64):
+        labels = labels.long()
     key = key.to(dev)
+    if rng_scheme == "matrix":
+        bits_t = bits.T.to(torch.int8).clone(
+            memory_format=torch.contiguous_format)
+        upd = stdp_ops.stdp_update_epoch(bits_t, s, labels, key,
+                                         p_pot=float(p_pot),
+                                         p_dep=float(p_dep))
+        return bits_t.T.to(bits.dtype), upd
     n = s.shape[0]
-    if rng_scheme == "column":
-        u_pot, u_dep_t, u_dep_w = column_event_uniforms(
-            key, torch.arange(n, device=dev), n_in)
+    u_pot, u_dep_t, u_dep_w = column_event_uniforms(
+        key, torch.arange(n, device=dev), n_in)
     cls = torch.arange(n_out, device=dev)
     upd = torch.zeros((), dtype=torch.int32, device=dev)
-    k = key
     for i in range(n):
         s_i, y_i = s[i], labels[i]
         _, vmem = tile_mod.functional_tile(bits, s_i, vth[-1])
@@ -281,16 +296,11 @@ def online_learning_epoch_scan(
         wrong = pred != y_i
         post_pot = (cls == y_i) & wrong
         post_dep = (cls == pred) & wrong
-        if rng_scheme == "matrix":
-            k, k1, k2 = prng.split(k, 3)
-            bits = stdp_update(bits, s_i, post_pot, k1, p_pot, p_dep)
-            bits = stdp_update(bits, ~s_i, post_dep, k2, 0.0, p_dep)
-        else:
-            bits = stdp_update_from_uniforms(
-                bits, s_i, post_pot, u_pot[i][:, None], u_dep_t[i][:, None],
-                p_pot, p_dep)
-            bits = stdp_update_from_uniforms(
-                bits, ~s_i, post_dep, u_dep_w[i][:, None],
-                u_dep_w[i][:, None], 0.0, p_dep)
+        bits = stdp_update_from_uniforms(
+            bits, s_i, post_pot, u_pot[i][:, None], u_dep_t[i][:, None],
+            p_pot, p_dep)
+        bits = stdp_update_from_uniforms(
+            bits, ~s_i, post_dep, u_dep_w[i][:, None],
+            u_dep_w[i][:, None], 0.0, p_dep)
         upd = upd + 2 * wrong.to(torch.int32)
     return bits, upd

@@ -117,6 +117,8 @@ def arbiter(requests: torch.Tensor, *, ports: int):
     if g == 0:
         return grants, remaining, valid
     requests = requests.contiguous()
+    if requests.data_ptr() % 4:   # the kernel loads requests 4 bytes at once
+        requests = requests.clone()
     kl = _build.load_library("arbiter", _declare)
     with torch.cuda.device(dev):
         err = kl.lib.arbiter_grants(

@@ -39,7 +39,7 @@
 // row o + 32 when n_out > 32); readouts past the register budget (more
 // than 64 rows, 1024 inputs, or 512 inputs at 33-64 rows) keep bit planes
 // in shared memory (row stride odd: 32 rows are 32 banks), a template
-// parameter of the same kernel.  The warp fetches its own slots, kBatch at
+// parameter of the same kernel.  The warp fetches its own slots, 16 at
 // a time by TMA bulk copies on mbarriers, and loads the next sample's trace
 // while this sample's readout runs.  One step: popc of trace & row words,
 // one rounded offset add (__fadd_rn), the argmax as one __reduce_max_sync
@@ -49,6 +49,23 @@
 // [0, N_out) is wrapped once if negative and clamped for the teacher row,
 // as the reference's interpret-mode block index is, and always counts as
 // wrong.  The bits and the count go back once at the end.
+//
+// The matrix-RNG epoch (stdp_update's path: the reference's
+// online_learning_epoch_scan(rng_scheme="matrix"), one lax.scan at
+// src/repro/core/esam/learning.py:312 whose body draws two full
+// [n_in, n_out] uniform matrices for each of its two stdp_update calls) is
+// three launches.  stdp_update_keys walks the split chain on one thread:
+// k_{i+1} = threefry(k_i, (0, 0)) is strictly serial, so its time is
+// samples x the latency of one threefry, a floor no design of the later
+// launches moves.  stdp_update_masks draws, one warp a (sample, row) pair
+// over the whole card, every uniform the rule can read: the teacher row y at every input
+// (potentiate where the trace is 1, depress where it is 0) and, for every
+// other row o, the winner's depress draw where the trace is 1 (the winner is
+// known only in the chain), at the reference's flat index a * n_out + o of
+// its [n_in, n_out] matrices.  The chain is column_epoch_kernel with
+// PerRow: each lane owns its rows' depress masks, a label outside
+// [0, n_out) has no teacher row (one_hot gives none) and is always wrong,
+// there is no offset, and the count is the reference's 2 a wrong sample.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -110,7 +127,7 @@ stdp_update_kernel(const int8_t* __restrict__ bits, int8_t* __restrict__ out,
 constexpr int kMaskWarps = 8;        // samples a block of stdp_epoch_masks
 constexpr int kEpochThreads = 256;   // stage and write back; warp 0: the chain
 constexpr int kEpochWarps = kEpochThreads / 32;
-constexpr int kBatch = 16;           // slots one bulk copy fetches
+constexpr int kBatchShift = 4;      // 16 slots one bulk copy fetches
 constexpr int kBufs = 4;             // batches the chain's ring holds
 
 // One slot, in words: a header (the trace's popcount, the teacher row as
@@ -126,14 +143,24 @@ __host__ __device__ inline int field_words(int W) {
 }
 __host__ __device__ inline int slot_words(int W) { return 4 + 4 * field_words(W); }
 
-// The chain block's shared memory: the ring of slots, one mbarrier a batch,
-// the readout's planes [n_out][W | 1], the offsets.
-__host__ __device__ inline size_t ring_words(int W) {
-  return (size_t)kBufs * kBatch * slot_words(W);
+// The matrix-RNG epoch's slot: the header (the trace's popcount, then the
+// label twice, ~0u when out of range: no teacher row, always wrong, 0), the
+// trace, the teacher's potentiate mask, then a depress mask a row: the
+// teacher's (trace 0) at row y, the winner's (trace 1) at every other row.
+__host__ __device__ inline int update_slot_words(int W, int n_out) {
+  return 4 + (2 + n_out) * field_words(W);
 }
-size_t epoch_smem_bytes(int n_out, int n_in) {
+
+// The chain block's shared memory: the ring of slots (kBufs batches of
+// 2^shift), one mbarrier a batch, the readout's planes [n_out][W | 1], the
+// offsets.
+__host__ __device__ inline size_t ring_words(int SW, int shift) {
+  return ((size_t)kBufs << shift) * SW;
+}
+size_t chain_smem_bytes(int n_out, int n_in, int SW, int shift) {
   const int W = epoch_words(n_in);
-  return 4 * (ring_words(W) + 2 * kBufs + (size_t)n_out * (W | 1) + n_out);
+  return 4 * (ring_words(SW, shift) + 2 * kBufs + (size_t)n_out * (W | 1) +
+              n_out);
 }
 
 __device__ __forceinline__ void mix(uint32_t& x0, uint32_t& x1, int r) {
@@ -240,7 +267,109 @@ epoch_masks_kernel(uint32_t* __restrict__ slots,
   }
 }
 
-// ---- the chain's fetch: a ring of kBufs batches of kBatch slots -------- //
+// ---- the matrix-RNG epoch: stdp_update_keys, stdp_update_masks ------- //
+
+// The scan's key chain on one thread: keys[i] = k_i with k_0 = key and
+// k_{i+1} = split(k_i, 3)[0] = threefry(k_i, (0, 0)).  Strictly serial:
+// samples x the latency of one threefry.  stamps (or null): clock64 at its
+// start and end.
+__global__ void update_keys_kernel(uint2* __restrict__ keys, int n,
+                                   const long long* __restrict__ key,
+                                   long long* stamps) {
+  if (threadIdx.x) return;
+  const long long t0 = clock64();
+  uint2 k = make_uint2((uint32_t)key[0], (uint32_t)key[1]);
+  for (int i = 0; i < n; ++i) {
+    keys[i] = k;
+    k = threefry2x32(k.x, k.y, 0u, 0u);
+  }
+  if (stamps) {
+    stamps[0] = t0;
+    stamps[1] = clock64();
+  }
+}
+
+// A lane's four words' values as lane l < 4 stores them (word w0 + l).
+__device__ __forceinline__ uint32_t pick4(const uint32_t (&v)[4], int l) {
+  return l == 0 ? v[0] : l == 1 ? v[1] : l == 2 ? v[2] : v[3];
+}
+
+// One warp a (sample i, row o) pair, so that a short epoch still spreads
+// over the card: from k_i, the teacher row derives k1 = split(k_i, 3)[1]
+// and its potentiate and depress keys split(k1)[0] and [1]; any other row
+// k2 = split(k_i, 3)[2] and the winner's depress key split(k2)[1] (its
+// potentiate draw is never read: p_pot 0).  Row o's draw at input j reads
+// counter (0, j * n_out + o), the flat index of the reference's
+// [n_in, n_out] uniform matrix: the teacher row at every input, another
+// row where the trace is 1 (and not at all in a chunk of four trace words
+// that are all empty); the draws of a chunk are independent.  Row 0's warp
+// also writes the header and the trace, and the potentiate field where
+// there is no teacher (zero).
+__global__ void __launch_bounds__(kMaskWarps * 32)
+update_masks_kernel(uint32_t* __restrict__ slots,
+                    const uint8_t* __restrict__ pre, long long ldp, int n,
+                    int n_in, int n_out, const void* labels, int label_bytes,
+                    const uint2* __restrict__ keys, uint32_t t_pot,
+                    uint32_t t_dep) {
+  const int lane = threadIdx.x & 31;
+  const long long pair = (long long)blockIdx.x * kMaskWarps + (threadIdx.x >> 5);
+  if (pair >= (long long)n * n_out) return;   // the whole warp
+  const int i = (int)(pair / n_out), o = (int)(pair - (long long)i * n_out);
+  const int W = epoch_words(n_in), F = field_words(W);
+  uint32_t* sl = slots + (size_t)i * update_slot_words(W, n_out);
+  const uint8_t* row = pre + (long long)i * ldp;
+  const long long y = label_bytes == 8 ? static_cast<const long long*>(labels)[i]
+                                       : static_cast<const int32_t*>(labels)[i];
+  const bool teacher = y == o;
+  // the row's keys: lane 0 the potentiate key (teacher only), lane 1 the
+  // depress key
+  const uint2 ki = keys[i];
+  const uint2 kr = threefry2x32(ki.x, ki.y, 0u, teacher ? 1u : 2u);
+  const uint2 kq = threefry2x32(kr.x, kr.y, 0u, lane == 0 && teacher ? 0u : 1u);
+  const uint32_t ppx = __shfl_sync(~0u, kq.x, 0), ppy = __shfl_sync(~0u, kq.y, 0);
+  const uint32_t pdx = __shfl_sync(~0u, kq.x, 1), pdy = __shfl_sync(~0u, kq.y, 1);
+  int npre = 0;
+  for (int w0 = 0; w0 < F; w0 += kMaskChunk) {   // F is a multiple of 4
+    bool t[kMaskChunk];
+    uint32_t tr[kMaskChunk], dep[kMaskChunk], pot[kMaskChunk];
+#pragma unroll
+    for (int k = 0; k < kMaskChunk; ++k) {
+      const int j = 32 * (w0 + k) + lane;
+      t[k] = j < n_in && row[j] != 0;
+      tr[k] = __ballot_sync(~0u, t[k]);
+      npre += __popc(tr[k]);
+    }
+    bool c[kMaskChunk] = {false, false, false, false};
+    if (teacher || (tr[0] | tr[1] | tr[2] | tr[3])) {
+#pragma unroll
+      for (int k = 0; k < kMaskChunk; ++k) {
+        const uint32_t j = 32u * (uint32_t)(w0 + k) + (uint32_t)lane;
+        const bool up = teacher && t[k];
+        const uint32_t f = draw23(up ? ppx : pdx, up ? ppy : pdy,
+                                  (int)(j * (uint32_t)n_out + (uint32_t)o));
+        c[k] = (int)j < n_in && f < (up ? t_pot : t_dep);
+      }
+    }
+#pragma unroll
+    for (int k = 0; k < kMaskChunk; ++k) {
+      dep[k] = __ballot_sync(~0u, c[k] && teacher != t[k]);
+      pot[k] = __ballot_sync(~0u, c[k] && teacher && t[k]);
+    }
+    if (lane < kMaskChunk) {
+      sl[4 + (2 + o) * F + w0 + lane] = pick4(dep, lane);
+      if (teacher || (o == 0 && (y < 0 || y >= n_out)))
+        sl[4 + F + w0 + lane] = pick4(pot, lane);
+      if (o == 0) sl[4 + w0 + lane] = pick4(tr, lane);
+    }
+  }
+  if (o == 0 && lane == 0) {
+    const uint32_t label = (y < 0 || y >= n_out) ? ~0u : (uint32_t)y;
+    *reinterpret_cast<uint4*>(sl) =
+        make_uint4((uint32_t)npre, label, label, 0u);
+  }
+}
+
+// ---- the chain's fetch: a ring of kBufs batches of slots -------------- //
 
 __device__ __forceinline__ unsigned smem_addr(const void* p) {
   return (unsigned)__cvta_generic_to_shared(p);
@@ -287,44 +416,48 @@ __device__ __forceinline__ void bulk_load(void* dst, const void* src,
 }
 
 // The slots of the epoch, fetched by the chain warp itself: batch b
-// (samples kBatch b, ...) goes to buffer b % kBufs as one bulk copy issued
+// (samples 2^shift b, ...) goes to buffer b % kBufs as one bulk copy issued
 // by lane 0 and completing on that buffer's mbarrier; a buffer is refilled
-// once the warp has read its batch.  One wait and one copy every kBatch
-// samples: a cp.async a sample cost ~170 clocks a step on the card.
+// once the warp has read its batch.  One wait and one copy every batch
+// (16 slots, fewer where the slots are wide): a cp.async a sample cost
+// ~170 clocks a step on the card.
 struct Ring {
-  uint32_t* buf;         // [kBufs * kBatch][SW]
+  uint32_t* buf;         // [kBufs << shift][SW]
   uint64_t* bars;        // [kBufs]
   const uint32_t* src;   // the slots in device memory
-  int SW, n;
+  int SW, n, shift;      // words a slot, samples, log2 of slots a batch
 
   __device__ const uint32_t* slot(int i) const {
-    return buf + (size_t)(i % (kBufs * kBatch)) * SW;
+    return buf + (size_t)(i & ((kBufs << shift) - 1)) * SW;
   }
   __device__ void issue(int b) const {   // one lane
-    const int s0 = b * kBatch;
+    const int s0 = b << shift;
     if (s0 >= n) return;
-    const unsigned bytes = 4u * (unsigned)(min(kBatch, n - s0) * SW);
+    const unsigned bytes = 4u * (unsigned)(min(1 << shift, n - s0) * SW);
     uint64_t* bar = bars + b % kBufs;
     mbar_expect(bar, bytes);
-    bulk_load(buf + (size_t)(b % kBufs) * kBatch * SW, src + (size_t)s0 * SW,
-              bytes, bar);
+    bulk_load(buf + ((size_t)(b % kBufs) << shift) * SW,
+              src + (size_t)s0 * SW, bytes, bar);
   }
   __device__ void start() const {   // one lane: the first kBufs batches
     for (int b = 0; b < kBufs; ++b) mbar_init(bars + b, 1);
     asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
     for (int b = 0; b < kBufs; ++b) issue(b);
   }
-  __device__ void wait(int b) const {
+  // Wait for the batch holding sample i when i starts one.
+  __device__ void wait_for(int i) const {
+    if (i & ((1 << shift) - 1)) return;
+    const int b = i >> shift;
     mbar_wait(bars + b % kBufs, (unsigned)(b / kBufs) & 1u);
   }
   // After sample i is read: when it ends a batch, refill that buffer (the
   // warp's reads ordered before the copy's writes).
   __device__ void release(int i, int lane) const {
-    if ((i + 1) % kBatch) return;
+    if ((i + 1) & ((1 << shift) - 1)) return;
     __syncwarp();
     if (lane == 0) {
       asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
-      issue((i + 1) / kBatch - 1 + kBufs);
+      issue(((i + 1) >> shift) - 1 + kBufs);
     }
   }
 };
@@ -354,15 +487,18 @@ __device__ __forceinline__ void load_field(const uint32_t* p,
 // k < R, words [0, WMAX) each (zero past W); a row past n_out has offset
 // -inf, below every real row.  Per step: the next sample's header and
 // trace, loaded off the chain; popc of trace & row words, the offset add,
-// the key, one __reduce_max_sync of the keys, the sample's masks (every
-// lane, broadcast) while it is in flight, __ballot_sync / __ffs for the
-// lowest row holding the max, and the owners' writes (old & ~dep) | pot.
+// the key, one __reduce_max_sync of the keys, the sample's masks while it is
+// in flight, __ballot_sync / __ffs for the lowest row holding the max, and
+// the owners' writes (old & ~dep) | pot.  PerRow (the matrix-RNG epoch):
+// each lane loads its own rows' depress masks and the teacher's potentiate
+// mask; else (the column events) every lane loads the teacher's two masks
+// and the winner's one, broadcast.
 // Clocks a step on an H100 at 256 -> 10 (probes/epoch_chain_probe.py,
 // one-warp copies of this loop): 536 with a cp.async a sample, 417 with
 // batched bulk copies, 362 with the 2-op key; this kernel 381.  Slower:
 // the b1 tensor-core product in the popc's place (487), two lanes a row
 // (563).  Where the loads sit moves a step by +-40 clocks between builds.
-template <int WMAX, int R>
+template <int WMAX, int R, bool PerRow>
 __device__ int chain_registers(const Ring& ring, uint32_t* planes,
                                const float* off, int n_out, int W, int n) {
   const int lane = threadIdx.x & 31, S = W | 1;
@@ -379,7 +515,7 @@ __device__ int chain_registers(const Ring& ring, uint32_t* planes,
   }
   if (lane == 0) ring.start();
   __syncwarp();
-  if (n > 0) ring.wait(0);
+  if (n > 0) ring.wait_for(0);
   uint4 hdr = *reinterpret_cast<const uint4*>(ring.slot(0));
   uint32_t tr[WMAX];
   load_field<WMAX>(ring.slot(0) + 4, tr);
@@ -388,7 +524,7 @@ __device__ int chain_registers(const Ring& ring, uint32_t* planes,
     const uint32_t* sl = ring.slot(i);
     // the next sample's header and trace (stale past n)
     const int i1 = i + 1;
-    if (i1 % kBatch == 0 && i1 < n) ring.wait(i1 / kBatch);
+    if (i1 < n) ring.wait_for(i1);
     const uint4 nhdr = *reinterpret_cast<const uint4*>(ring.slot(i1));
     uint32_t ntr[WMAX];
     load_field<WMAX>(ring.slot(i1) + 4, ntr);
@@ -406,10 +542,17 @@ __device__ int chain_registers(const Ring& ring, uint32_t* planes,
     // this sample's masks, issued while the reduction is in flight (the
     // compiler would hoist them above the readout)
     asm volatile("" ::: "memory");
-    uint32_t tpot[WMAX], tdep[WMAX], wdep[WMAX];
+    uint32_t tpot[WMAX], tdep[WMAX], dep[PerRow ? R : 1][WMAX];
     load_field<WMAX>(sl + 4 + F, tpot);
-    load_field<WMAX>(sl + 4 + 2 * F, tdep);
-    load_field<WMAX>(sl + 4 + 3 * F, wdep);
+    if constexpr (PerRow) {
+#pragma unroll
+      for (int k = 0; k < R; ++k)
+        load_field<WMAX>(sl + 4 + (2 + min(lane + 32 * k, n_out - 1)) * F,
+                         dep[k]);
+    } else {
+      load_field<WMAX>(sl + 4 + 2 * F, tdep);
+      load_field<WMAX>(sl + 4 + 3 * F, dep[0]);
+    }
     int arg = -1;   // rows 32 k, ... in order
 #pragma unroll
     for (int k = 0; k < R; ++k) {
@@ -421,10 +564,11 @@ __device__ int chain_registers(const Ring& ring, uint32_t* planes,
 #pragma unroll
       for (int k = 0; k < R; ++k) {
         const int row = lane + 32 * k;
+        const uint32_t* wdep = dep[PerRow ? k : 0];
         if (row == (int)hdr.y) {
 #pragma unroll
           for (int w = 0; w < WMAX; ++w)
-            pl[k][w] = (pl[k][w] & ~tdep[w]) | tpot[w];
+            pl[k][w] = (pl[k][w] & ~(PerRow ? wdep[w] : tdep[w])) | tpot[w];
         }
         if (row == arg) {
 #pragma unroll
@@ -448,7 +592,9 @@ __device__ int chain_registers(const Ring& ring, uint32_t* planes,
 }
 
 // The chain with the readout as bit planes in shared memory (any width that
-// fits): lane o's rows o, o + 32, ..., popc of trace & row words.
+// fits): lane o's rows o, o + 32, ..., popc of trace & row words.  A teacher
+// row outside [0, n_out) (the matrix-RNG epoch's bad label) is not written.
+template <bool PerRow>
 __device__ int chain_shared(const Ring& ring, uint32_t* planes,
                             const float* off, int n_out, int W, int n) {
   const int lane = threadIdx.x & 31, S = W | 1, F = field_words(W);
@@ -456,7 +602,7 @@ __device__ int chain_shared(const Ring& ring, uint32_t* planes,
   __syncwarp();
   int wrong = 0;
   for (int i = 0; i < n; ++i) {
-    if (i % kBatch == 0) ring.wait(i / kBatch);
+    ring.wait_for(i);
     const uint32_t* sl = ring.slot(i);
     const uint32_t* tr = sl + 4;
     uint32_t best = 0u, brow = ~0u;
@@ -474,11 +620,16 @@ __device__ int chain_shared(const Ring& ring, uint32_t* planes,
     const uint32_t top = __reduce_max_sync(~0u, best);
     const int arg = (int)__reduce_min_sync(~0u, best == top ? brow : ~0u);
     if ((uint32_t)arg != sl[2]) {   // wrong: the teacher row, then the winner
-      uint32_t* teach = planes + (size_t)sl[1] * S;
+      const uint32_t y = sl[1];
+      const bool teach = y < (uint32_t)n_out;
+      const uint32_t* pot = sl + 4 + F;
+      const uint32_t* tdep = sl + 4 + (PerRow ? (2 + (teach ? y : 0)) : 2) * F;
+      const uint32_t* wdep = sl + 4 + (PerRow ? 2 + arg : 3) * F;
+      uint32_t* trow = planes + (size_t)(teach ? y : 0) * S;
       uint32_t* win = planes + (size_t)arg * S;
       for (int w = lane; w < W; w += 32) {
-        teach[w] = (teach[w] & ~sl[4 + 2 * F + w]) | sl[4 + F + w];
-        win[w] &= ~sl[4 + 3 * F + w];
+        if (teach) trow[w] = (trow[w] & ~tdep[w]) | pot[w];
+        win[w] &= ~wdep[w];
       }
       ++wrong;
     }
@@ -489,20 +640,25 @@ __device__ int chain_shared(const Ring& ring, uint32_t* planes,
 }
 
 // WMAX > 0: the readout in registers, WMAX words a row and R rows a lane;
-// WMAX == 0: in shared memory.  stamps (or null): clock64 at the start, at
-// the chain's start and end, after the write-back.
-template <int WMAX, int R>
+// WMAX == 0: in shared memory.  PerRow: the matrix-RNG epoch's slots
+// (update_slot_words), and *wrong_out gets the reference's update count, 2
+// a wrong sample; else the column events' (slot_words), and the wrong
+// samples.  SW: words a slot; shift: log2 of slots a bulk copy.  stamps (or
+// null): clock64 at the start, at the chain's start and end, after the
+// write-back.
+template <int WMAX, int R, bool PerRow>
 __global__ void __launch_bounds__(kEpochThreads, 1)
 column_epoch_kernel(int8_t* __restrict__ bits, int n_out, int n_in,
                     long long ld, const uint32_t* __restrict__ slots, int n,
-                    const float* __restrict__ offset,
+                    int SW, int shift, const float* __restrict__ offset,
                     int32_t* __restrict__ wrong_out, long long* stamps) {
   extern __shared__ __align__(16) uint32_t smem[];
   const long long t0 = clock64();
   const int W = epoch_words(n_in), S = W | 1;
-  const Ring ring{smem, reinterpret_cast<uint64_t*>(smem + ring_words(W)),
-                  slots, slot_words(W), n};
-  uint32_t* planes = smem + ring_words(W) + 2 * kBufs;       // [n_out][S]
+  const Ring ring{smem,
+                  reinterpret_cast<uint64_t*>(smem + ring_words(SW, shift)),
+                  slots, SW, n, shift};
+  uint32_t* planes = smem + ring_words(SW, shift) + 2 * kBufs;   // [n_out][S]
   float* off = reinterpret_cast<float*>(planes + (size_t)n_out * S);
   const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
 
@@ -530,12 +686,12 @@ column_epoch_kernel(int8_t* __restrict__ bits, int n_out, int n_in,
     const long long t1 = clock64();
     int wrong;
     if constexpr (WMAX > 0)
-      wrong = chain_registers<WMAX, R>(ring, planes, off, n_out, W, n);
+      wrong = chain_registers<WMAX, R, PerRow>(ring, planes, off, n_out, W, n);
     else
-      wrong = chain_shared(ring, planes, off, n_out, W, n);
+      wrong = chain_shared<PerRow>(ring, planes, off, n_out, W, n);
     const long long t2 = clock64();
     if (lane == 0) {
-      *wrong_out = wrong;
+      *wrong_out = PerRow ? 2 * wrong : wrong;
       if (stamps) {
         stamps[0] = t0;
         stamps[1] = t1;
@@ -552,19 +708,47 @@ column_epoch_kernel(int8_t* __restrict__ bits, int n_out, int n_in,
   if (stamps && threadIdx.x == 0) stamps[3] = clock64();
 }
 
-template <int WMAX, int R>
-int launch_epoch(size_t smem, cudaStream_t stream, int8_t* bits, int n_out,
-                 int n_in, long long ld, const uint32_t* slots, int n,
-                 const float* offset, int32_t* wrong, long long* stamps) {
-  auto kernel = column_epoch_kernel<WMAX, R>;
+template <int WMAX, int R, bool PerRow>
+int launch_chain(size_t smem, cudaStream_t stream, int8_t* bits, int n_out,
+                 int n_in, long long ld, const uint32_t* slots, int n, int SW,
+                 int shift, const float* offset, int32_t* wrong,
+                 long long* stamps) {
+  auto kernel = column_epoch_kernel<WMAX, R, PerRow>;
   if (smem > 48 * 1024) {
     const cudaError_t err = cudaFuncSetAttribute(
         kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
     if (err != cudaSuccess) return (int)err;
   }
   kernel<<<1, kEpochThreads, smem, stream>>>(bits, n_out, n_in, ld, slots, n,
-                                             offset, wrong, stamps);
+                                             SW, shift, offset, wrong, stamps);
   return (int)cudaGetLastError();
+}
+
+// The chain on one of its routes: (wmax, rows) in registers, (0, 0) in
+// shared memory.
+template <bool PerRow>
+int launch_chain_route(int wmax, int rows, cudaStream_t st, int8_t* b,
+                       int n_out, int n_in, long long ld,
+                       const uint32_t* sl, int n, int SW, int shift,
+                       const float* off, int32_t* wr, long long* ts) {
+  if (n_out < 1 || n_in < 1 || n < 0 || shift < 0 || shift > kBatchShift)
+    return (int)cudaErrorInvalidValue;
+  if (wmax != 0 && (field_words(epoch_words(n_in)) != wmax ||
+                    (n_out + 31) / 32 != rows))
+    return (int)cudaErrorInvalidValue;
+  const size_t smem = chain_smem_bytes(n_out, n_in, SW, shift);
+#define STDP_CHAIN_ROUTE(WM, R)                                           \
+  if (wmax == WM && rows == R)                                            \
+    return launch_chain<WM, R, PerRow>(smem, st, b, n_out, n_in, ld, sl, n, \
+                                       SW, shift, off, wr, ts);
+  STDP_CHAIN_ROUTE(8, 1)
+  STDP_CHAIN_ROUTE(16, 1)
+  STDP_CHAIN_ROUTE(32, 1)
+  STDP_CHAIN_ROUTE(8, 2)
+  STDP_CHAIN_ROUTE(16, 2)
+  STDP_CHAIN_ROUTE(0, 0)
+#undef STDP_CHAIN_ROUTE
+  return (int)cudaErrorInvalidValue;
 }
 
 }  // namespace
@@ -607,7 +791,16 @@ int stdp_update(const void* bits, void* out, int n_out, int n_in,
 
 // Dynamic shared memory the one block of stdp_column_epoch needs.
 long long stdp_column_epoch_smem_bytes(int n_out, int n_in) {
-  return (long long)epoch_smem_bytes(n_out, n_in);
+  return (long long)chain_smem_bytes(n_out, n_in,
+                                     slot_words(epoch_words(n_in)),
+                                     kBatchShift);
+}
+
+// Dynamic shared memory the one block of stdp_update_chain needs when a bulk
+// copy fetches 2^shift slots.
+long long stdp_update_chain_smem_bytes(int n_out, int n_in, int shift) {
+  return (long long)chain_smem_bytes(
+      n_out, n_in, update_slot_words(epoch_words(n_in), n_out), shift);
 }
 
 // Largest dynamic shared memory a block may opt in to on `device`, or -1.
@@ -648,29 +841,56 @@ int stdp_epoch_masks(void* slots, const void* pre, long long ldp, int n,
 int stdp_column_epoch(void* bits, int n_out, int n_in, long long ld,
                       const void* slots, int n, const void* offset, int wmax,
                       int rows, void* wrong, void* stamps, void* stream) {
-  if (n_out < 1 || n_in < 1 || n < 0) return (int)cudaErrorInvalidValue;
-  if (wmax != 0 && (field_words(epoch_words(n_in)) != wmax ||
-                    (n_out + 31) / 32 != rows))
+  return launch_chain_route<false>(
+      wmax, rows, (cudaStream_t)stream, (int8_t*)bits, n_out, n_in, ld,
+      (const uint32_t*)slots, n, slot_words(epoch_words(n_in)), kBatchShift,
+      (const float*)offset, (int32_t*)wrong, (long long*)stamps);
+}
+
+// The matrix-RNG epoch's key chain: keys uint32[n, 2] = k_0 .. k_{n-1} from
+// key int64[2]; stamps int64[2] or null.  One thread.  Returns
+// cudaGetLastError() (0 without a launch when n is 0).
+int stdp_update_keys(void* keys, int n, const void* key, void* stamps,
+                     void* stream) {
+  if (n < 0) return (int)cudaErrorInvalidValue;
+  if (n == 0) return 0;
+  update_keys_kernel<<<1, 32, 0, (cudaStream_t)stream>>>(
+      (uint2*)keys, n, (const long long*)key, (long long*)stamps);
+  return (int)cudaGetLastError();
+}
+
+// The matrix-RNG epoch's slots, one a sample: slots uint32[n, 4 + (2 +
+// n_out) F] (ref.update_slot_words); pre, labels, t_pot and t_dep as for
+// stdp_epoch_masks; keys uint32[n, 2] from stdp_update_keys.  Returns
+// cudaGetLastError() (0 without a launch when n is 0).
+int stdp_update_masks(void* slots, const void* pre, long long ldp, int n,
+                      int n_in, int n_out, const void* labels,
+                      int label_bytes, const void* keys, unsigned t_pot,
+                      unsigned t_dep, void* stream) {
+  if (n_out < 1 || n_in < 1 || n < 0 || (label_bytes != 4 && label_bytes != 8))
     return (int)cudaErrorInvalidValue;
-  const size_t smem = epoch_smem_bytes(n_out, n_in);
-  const cudaStream_t st = (cudaStream_t)stream;
-  int8_t* b = (int8_t*)bits;
-  const uint32_t* sl = (const uint32_t*)slots;
-  const float* off = (const float*)offset;
-  int32_t* wr = (int32_t*)wrong;
-  long long* ts = (long long*)stamps;
-#define STDP_EPOCH_ROUTE(WM, R)                                         \
-  if (wmax == WM && rows == R)                                          \
-    return launch_epoch<WM, R>(smem, st, b, n_out, n_in, ld, sl, n, off, \
-                               wr, ts);
-  STDP_EPOCH_ROUTE(8, 1)
-  STDP_EPOCH_ROUTE(16, 1)
-  STDP_EPOCH_ROUTE(32, 1)
-  STDP_EPOCH_ROUTE(8, 2)
-  STDP_EPOCH_ROUTE(16, 2)
-  STDP_EPOCH_ROUTE(0, 0)
-#undef STDP_EPOCH_ROUTE
-  return (int)cudaErrorInvalidValue;
+  if (n == 0) return 0;
+  const long long pairs = (long long)n * n_out;
+  if ((pairs + kMaskWarps - 1) / kMaskWarps > 0x7fffffffll)
+    return (int)cudaErrorInvalidValue;
+  const int grid = (int)((pairs + kMaskWarps - 1) / kMaskWarps);
+  update_masks_kernel<<<grid, kMaskWarps * 32, 0, (cudaStream_t)stream>>>(
+      (uint32_t*)slots, (const uint8_t*)pre, ldp, n, n_in, n_out, labels,
+      label_bytes, (const uint2*)keys, t_pot, t_dep);
+  return (int)cudaGetLastError();
+}
+
+// The matrix-RNG epoch's chain over stdp_update_masks' slots, in place, in
+// ONE block, 2^shift slots a bulk copy (0 <= shift <= 4); routes as for
+// stdp_column_epoch; no offset.  *count gets the reference's update count
+// (2 a wrong sample).  Returns cudaGetLastError().
+int stdp_update_chain(void* bits, int n_out, int n_in, long long ld,
+                      const void* slots, int n, int shift, int wmax, int rows,
+                      void* count, void* stamps, void* stream) {
+  return launch_chain_route<true>(
+      wmax, rows, (cudaStream_t)stream, (int8_t*)bits, n_out, n_in, ld,
+      (const uint32_t*)slots, n, update_slot_words(epoch_words(n_in), n_out),
+      shift, nullptr, (int32_t*)count, (long long*)stamps);
 }
 
 const char* stdp_error_string(int err) {

@@ -5,6 +5,11 @@ epoch of column events from a key, in two launches on the card:
 ``stdp_epoch_masks`` draws the epoch's uniforms itself (the reference's
 threefry bits) and packs the rule's masks, then one warp runs the chain with
 the readout in its registers.
+``stdp_update_epoch`` is the reference's matrix-RNG scan (every sample's
+``stdp_update`` pair under a ``split`` chain) as one epoch from a key, in
+three launches on the card: ``stdp_update_keys`` walks the key chain,
+``stdp_update_masks`` draws every uniform the rule can read, and the same
+one-warp chain runs the samples.
 ``stdp_column_event`` is one learning neuron's row of the transposed
 layout, written in place, with the row index and the gate in device memory.
 ``stdp_update`` is the full-matrix rule behind ``learning.stdp_update``.
@@ -30,8 +35,12 @@ from repro_torch.kernels.stdp.ref import (  # noqa: F401  (re-export)
     stdp_column_epoch_ref,
     stdp_column_event_ref,
     stdp_epoch_masks_ref,
+    stdp_update_epoch_ref,
+    stdp_update_keys_ref,
+    stdp_update_masks_ref,
     stdp_update_ref,
     uniform_threshold,
+    update_slot_words,
 )
 
 __all__ = [
@@ -39,17 +48,25 @@ __all__ = [
     "stdp_epoch_masks",
     "stdp_column_event",
     "stdp_update",
+    "stdp_update_epoch",
+    "stdp_update_keys",
+    "stdp_update_masks",
     "stdp_column_epoch_ref",
     "stdp_epoch_masks_ref",
     "stdp_column_event_ref",
     "stdp_update_ref",
+    "stdp_update_epoch_ref",
+    "stdp_update_keys_ref",
+    "stdp_update_masks_ref",
     "launch_counts",
     "reset_launch_counts",
 ]
 
 #: kernel launches since the last reset, per kernel
 _LAUNCHES = {"stdp_epoch_masks": 0, "stdp_column_epoch": 0,
-             "stdp_column_event": 0, "stdp_update": 0}
+             "stdp_column_event": 0, "stdp_update": 0,
+             "stdp_update_keys": 0, "stdp_update_masks": 0,
+             "stdp_update_chain": 0}
 
 _BYTE_TYPES = (torch.bool, torch.int8, torch.uint8)
 
@@ -82,6 +99,17 @@ def _declare(lib: ctypes.CDLL) -> None:
     lib.stdp_column_epoch_smem_bytes.restype = i64
     lib.stdp_max_shared_optin.argtypes = [i32]
     lib.stdp_max_shared_optin.restype = i64
+    lib.stdp_update_keys.argtypes = [vp, i32, vp, vp, vp]
+    lib.stdp_update_keys.restype = i32
+    lib.stdp_update_masks.argtypes = [
+        vp, vp, i64, i32, i32, i32, vp, i32, vp, ctypes.c_uint,
+        ctypes.c_uint, vp]
+    lib.stdp_update_masks.restype = i32
+    lib.stdp_update_chain.argtypes = [
+        vp, i32, i32, i64, vp, i32, i32, i32, i32, vp, vp, vp]
+    lib.stdp_update_chain.restype = i32
+    lib.stdp_update_chain_smem_bytes.argtypes = [i32, i32, i32]
+    lib.stdp_update_chain_smem_bytes.restype = i64
 
 
 def _library() -> _build.KernelLibrary:
@@ -235,6 +263,156 @@ def stdp_column_epoch(
                              p_dep=p_dep)
     off = None if out_offset is None else out_offset.contiguous()
     return _epoch_chain(bits_t, slots, off)
+
+
+def stdp_update_keys(key: torch.Tensor, n: int,
+                     stamps: torch.Tensor | None = None) -> torch.Tensor:
+    """The matrix-RNG scan's key chain (see ``stdp_update_keys_ref``):
+    int32 words ``[n, 2]``.  On the card one launch of one thread, the key
+    read in device memory; ``stamps`` (int64[2], or None) gets its clock64
+    at the start and the end."""
+    if tuple(key.shape) != (2,) or key.dtype != torch.int64:
+        raise ValueError(f"key must be an int64[2] key, got "
+                         f"{key.dtype}{list(key.shape)}")
+    if n < 0:
+        raise ValueError(f"n must be >= 0, got {n}")
+    if on_cpu(key):
+        return stdp_update_keys_ref(key, n)
+    dev = check_cuda_operands({"key": key})
+    keys = torch.empty((n, 2), dtype=torch.int32, device=dev)
+    if n == 0:
+        return keys
+    key = key.contiguous()
+    kl = _library()
+    with torch.cuda.device(dev):
+        err = kl.lib.stdp_update_keys(
+            keys.data_ptr(), n, key.data_ptr(),
+            None if stamps is None else stamps.data_ptr(), stream_ptr(dev))
+    _build.check(kl, err, "stdp_update_keys launch")
+    _LAUNCHES["stdp_update_keys"] += 1
+    return keys
+
+
+def stdp_update_masks(
+    pre: torch.Tensor,      # {0,1}[n, N_in] pre-synaptic traces
+    labels: torch.Tensor,   # int32/int64 [n] teacher classes
+    keys: torch.Tensor,     # int32 words [n, 2]: stdp_update_keys
+    n_out: int,
+    *,
+    p_pot: float,
+    p_dep: float,
+) -> torch.Tensor:
+    """The matrix-RNG epoch's draws and rule masks, one slot a sample (see
+    ``stdp_update_masks_ref``): int32 ``[n, update_slot_words(N_in,
+    N_out)]``.  On the card one launch, one warp a (sample, row) pair, that
+    derives the row's keys and draws the reference's threefry bits itself."""
+    if pre.dim() != 2:
+        raise ValueError(f"pre must be [n, N_in], got {tuple(pre.shape)}")
+    n, n_in = pre.shape
+    _check_vec("labels", labels, n)
+    if labels.dtype not in (torch.int32, torch.int64):
+        raise TypeError(f"labels must be int32 or int64, got {labels.dtype}")
+    if tuple(keys.shape) != (n, 2) or keys.dtype != torch.int32:
+        raise ValueError(f"keys must be int32[{n}, 2], got "
+                         f"{keys.dtype}{list(keys.shape)}")
+    if n_out < 1:
+        raise ValueError(f"n_out must be positive, got {n_out}")
+    if on_cpu(pre, labels, keys):
+        return stdp_update_masks_ref(pre, labels, keys, n_out, p_pot, p_dep)
+    dev = check_cuda_operands({"pre": pre, "labels": labels, "keys": keys})
+    pre, labels, keys = _byte_mask(pre), labels.contiguous(), keys.contiguous()
+    slots = torch.empty((n, update_slot_words(n_in, n_out)),
+                        dtype=torch.int32, device=dev)
+    if n == 0:
+        return slots
+    kl = _library()
+    with torch.cuda.device(dev):
+        err = kl.lib.stdp_update_masks(
+            slots.data_ptr(), pre.data_ptr(), pre.stride(0), n, n_in, n_out,
+            labels.data_ptr(), labels.element_size(), keys.data_ptr(),
+            uniform_threshold(p_pot), uniform_threshold(p_dep),
+            stream_ptr(dev))
+    _build.check(kl, err, "stdp_update_masks launch")
+    _LAUNCHES["stdp_update_masks"] += 1
+    return slots
+
+
+def _update_shift(kl: _build.KernelLibrary, n_out: int, n_in: int,
+                  dev: torch.device) -> int:
+    """log2 of the slots one bulk copy of the matrix-RNG chain fetches: 16
+    where the ring fits the block's shared memory, fewer for wide slots;
+    raises ``ValueError`` when not even one a copy fits."""
+    limit = kl.lib.stdp_max_shared_optin(dev.index)
+    for shift in range(4, -1, -1):
+        smem = kl.lib.stdp_update_chain_smem_bytes(n_out, n_in, shift)
+        if 0 <= limit and smem <= limit:
+            return shift
+    raise ValueError(
+        f"a [{n_out}, {n_in}] readout and its matrix-RNG slots need {smem} B "
+        f"of shared memory in the epoch kernel's one block; the card allows "
+        f"{limit} B per block (cudaDevAttrMaxSharedMemoryPerBlockOptin)")
+
+
+def _update_chain(bits_t: torch.Tensor, slots: torch.Tensor, shift: int,
+                  stamps: torch.Tensor | None = None) -> torch.Tensor:
+    """The matrix-RNG epoch's chain on the card over ``stdp_update_masks``'
+    slots, in place; returns the update count (int32 device scalar).
+    ``stamps`` as for ``_epoch_chain``."""
+    n_out, n_in = bits_t.shape
+    dev = bits_t.device
+    kl = _library()
+    wmax, rows = _epoch_route(n_out, n_in)
+    count = torch.empty((), dtype=torch.int32, device=dev)
+    with torch.cuda.device(dev):
+        err = kl.lib.stdp_update_chain(
+            bits_t.data_ptr(), n_out, n_in, bits_t.stride(0),
+            slots.data_ptr(), slots.shape[0], shift, wmax, rows,
+            count.data_ptr(), None if stamps is None else stamps.data_ptr(),
+            stream_ptr(dev))
+    _build.check(kl, err, "stdp_update_chain launch")
+    _LAUNCHES["stdp_update_chain"] += 1
+    return count
+
+
+def stdp_update_epoch(
+    bits_t: torch.Tensor,   # {0,1} int8 [N_out, N_in], updated in place
+    pre: torch.Tensor,      # {0,1}[n, N_in] pre-synaptic traces
+    labels: torch.Tensor,   # int32/int64 [n] teacher classes
+    key: torch.Tensor,      # int64[2] the epoch's key
+    *,
+    p_pot: float,
+    p_dep: float,
+) -> torch.Tensor:
+    """The reference's matrix-RNG scan over ``n`` samples on ``bits_t``, in
+    place, with its draws (see ``stdp_update_epoch_ref``); returns the
+    update count (2 a wrong sample) as an int32 scalar on the device.  On
+    the CPU: ``stdp_update_epoch_ref``.  On the card three launches and no
+    host sync (none when n is 0): ``stdp_update_keys``,
+    ``stdp_update_masks``, then the chain on one warp with the readout in
+    its registers (``_epoch_route``) or in shared memory; a readout too
+    large for one block raises ``ValueError`` before any launch."""
+    if bits_t.dim() != 2:
+        raise ValueError(f"bits_t must be [N_out, N_in], got "
+                         f"{tuple(bits_t.shape)}")
+    n_out, n_in = bits_t.shape
+    _check_epoch_operands(pre, labels, key, n_in)
+    operands = {"bits_t": bits_t, "pre": pre, "labels": labels, "key": key}
+    if on_cpu(*operands.values()):
+        new, count = stdp_update_epoch_ref(bits_t, pre, labels, key, p_pot,
+                                           p_dep)
+        bits_t.copy_(new)
+        return count
+    dev = check_cuda_operands(operands)
+    if bits_t.dtype != torch.int8 or bits_t.stride(1) != 1:
+        raise ValueError("bits_t must be int8 with contiguous rows")
+    shift = _update_shift(_library(), n_out, n_in, dev)
+    n = pre.shape[0]
+    if n == 0:
+        return torch.zeros((), dtype=torch.int32, device=dev)
+    keys = stdp_update_keys(key, n)
+    slots = stdp_update_masks(pre, labels, keys, n_out, p_pot=p_pot,
+                              p_dep=p_dep)
+    return _update_chain(bits_t, slots, shift)
 
 
 def stdp_column_event(

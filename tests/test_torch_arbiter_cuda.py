@@ -9,7 +9,10 @@ JAX package is not installed:
 B5 (``port_schedule``) and B8 (``arbiter``) are held bit for bit against
 ``port_schedule_ref`` and ``arbiter_ref`` on request rows made with numpy
 from a seed (all-zero and all-one densities, ports 1-4 and past the row
-width, bool and uint8 requests, widths 32-256).  The plain versions are
+width, bool and uint8 requests, widths 32-256; B8 over widths 32, 128
+and 1024, ports 1, 2, 4, 5 and 8, random, all-on and all-off requests and
+1, 16 and 1000 groups, and on a request tensor that is not 4-byte
+aligned).  The plain versions are
 held against the reference in ``test_torch_arbiter.py``."""
 
 from __future__ import annotations
@@ -63,3 +66,31 @@ def test_cuda_kernels_other_widths(cuda, width):
             assert torch.equal(g, w)
         for g, w in zip(ops.arbiter(r, ports=ports), ops.arbiter_ref(r, ports)):
             assert torch.equal(g, w)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("width", [32, 128, 1024])
+@pytest.mark.parametrize("ports", [1, 2, 4, 5, 8])
+@pytest.mark.parametrize("n", [1, 16, 1000])
+def test_cuda_arbiter_widths_ports_and_fills(cuda, width, ports, n):
+    """B8 bit for bit (values and dtypes) at each width, port count and
+    group count, on random, all-on and all-off requests."""
+    for density in (0.5, 1.0, 0.0):
+        r = torch.from_numpy(_requests(width + ports + n, (n, width),
+                                       density)).to(cuda)
+        ops.reset_launch_counts()
+        got = ops.arbiter(r, ports=ports)
+        assert ops.launch_counts()["arbiter"] == 1
+        for g, w in zip(got, ops.arbiter_ref(r, ports)):
+            assert g.dtype == w.dtype and torch.equal(g, w)
+
+
+@pytest.mark.cuda
+def test_cuda_arbiter_unaligned_requests(cuda):
+    """Requests that start off a 4-byte boundary (a view into a larger
+    buffer) give the same grants."""
+    flat = torch.from_numpy(_requests(5, (16 * 128 + 1,), 0.5)).to(cuda)
+    r = flat[1:].view(16, 128)
+    assert r.data_ptr() % 4
+    for g, w in zip(ops.arbiter(r, ports=4), ops.arbiter_ref(r, 4)):
+        assert torch.equal(g, w)

@@ -244,6 +244,74 @@ def test_online_learning_epoch_scan(scheme, topo):
     assert int(got_n) == int(want_n)
 
 
+#: (readout n_in, n_out, samples, p_pot, p_dep, labels outside [0, n_out),
+#: tied readout): the matrix-RNG scan's edges
+SCAN_CASES = [
+    (70, 10, 16, 0.3, 0.15, (-1, 10, 20), False),
+    (70, 10, 16, 0.3, 0.15, (), True),
+    (70, 33, 12, 0.3, 0.15, (-1, 33, 66), False),
+    (70, 65, 10, 0.3, 0.15, (-1, 65, 130), True),
+    (40, 10, 12, 0.3, 0.0, (-1,), False),
+    (40, 10, 12, 0.0, 0.2, (10,), False),
+    (40, 10, 12, 1.0, 1.0, (20,), False),
+    (70, 10, 0, 0.3, 0.15, (), False),
+    (70, 10, 1, 0.3, 0.15, (), False),
+]
+
+
+@pytest.mark.parametrize("n_in,n_out,n,p_pot,p_dep,bad,tied", SCAN_CASES)
+def test_online_learning_epoch_scan_matrix_cases(n_in, n_out, n, p_pot, p_dep,
+                                                 bad, tied):
+    """The matrix-RNG scan (``stdp_update_epoch`` on the CPU) against the
+    reference's, bits and count: labels -1, n_out and 2 n_out (no teacher
+    row, always wrong, the winner still depressed), a tied readout (every
+    V_mem ties: the lowest row wins), n_in not a multiple of 32, n_out
+    past 32 and 64, p of 0 and 1, 0 and 1 samples."""
+    bits, vth = _net((n_in, n_out), n_in + n_out, tied=tied)
+    x, y = _data(n + 5, n, n_in, n_out)
+    for i, label in enumerate(bad):
+        y[1 + 3 * i] = label
+    want_b, want_n = jl.online_learning_epoch_scan(
+        _j(bits), _j(vth), jnp.asarray(x), jnp.asarray(y),
+        jax.random.PRNGKey(n_out), p_pot=p_pot, p_dep=p_dep,
+        rng_scheme="matrix")
+    got_b, got_n = learning.online_learning_epoch_scan(
+        _t(bits), _t(vth), torch.from_numpy(x), torch.from_numpy(y),
+        prng.PRNGKey(n_out), p_pot=p_pot, p_dep=p_dep, rng_scheme="matrix")
+    np.testing.assert_array_equal(got_b.numpy(), np.asarray(want_b))
+    assert int(got_n) == int(want_n)
+    if n > 1 and bad:
+        assert int(got_n) > 0
+
+
+@pytest.mark.parametrize("n_out,n", [(10, 6), (33, 4)])
+def test_update_epoch_ref_equals_unrolled_keyed_updates(n_out, n):
+    """``stdp_update_epoch_ref`` is the scan written out: per sample the
+    readout's first argmax, ``k, k1, k2 = split(k, 3)``, then the keyed
+    ``learning.stdp_update`` for the teacher and for the wrong winner."""
+    bits, _ = _net((70, n_out), n)
+    x, y = _data(n, n, 70, n_out)
+    y[2] = -1
+    pre, labels = torch.from_numpy(x), torch.from_numpy(y)
+    w = torch.from_numpy(bits[-1])
+    rows = torch.arange(n_out)
+    k, n_wrong = prng.PRNGKey(21), 0
+    for i in range(n):
+        pred = learning.readout_vmem(w.T, pre[i]).argmax()
+        wrong = pred != labels[i]
+        n_wrong += int(wrong)
+        k, k1, k2 = prng.split(k, 3)
+        w = learning.stdp_update(w, pre[i], (rows == labels[i]) & wrong, k1,
+                                 0.3, 0.2)
+        w = learning.stdp_update(w, ~pre[i], (rows == pred) & wrong, k2, 0.0,
+                                 0.2)
+    got, count = learning.stdp_ops.stdp_update_epoch_ref(
+        torch.from_numpy(bits[-1]).T.contiguous(), pre, labels,
+        prng.PRNGKey(21), 0.3, 0.2)
+    assert torch.equal(got.T, w)
+    assert int(count) == 2 * n_wrong and n_wrong > 0
+
+
 def test_scan_column_scheme_equals_fused_epoch_in_the_port():
     bits, vth = _net((70, 32, 32, 10), 14)
     x, y = _data(15, 30, 70, 10)

@@ -73,10 +73,12 @@ def test_cuda_epochs_match_cpu(cuda, topo):
     cpu, gpu = out["cpu"], out[str(cuda)]
     assert torch.equal(cpu[0], gpu[0]) and cpu[1] == gpu[1]
     assert torch.equal(cpu[2], gpu[2]) and cpu[3] == gpu[3]
-    # the epoch is two launches, the draw inside the first; no per-sample
-    # events
+    # the epoch is two launches, the draw inside the first, and the
+    # matrix-RNG scan three; no per-sample events or stdp_update
     assert gpu[4] == {"stdp_epoch_masks": 1, "stdp_column_epoch": 1,
-                      "stdp_column_event": 0, "stdp_update": 40}
+                      "stdp_column_event": 0, "stdp_update": 0,
+                      "stdp_update_keys": 1, "stdp_update_masks": 1,
+                      "stdp_update_chain": 1}
     hidden_packed = all(n % 32 == 0 for n in topo[1:-1])
     assert gpu[5] == {"fused_fire_packed":
                       len(topo) - 2 if hidden_packed else 0,

@@ -10,10 +10,12 @@ wrapper on the CPU are held bit for bit against the reference's
 tied logits, int32 and int64 labels, p of 0 and 1, ragged widths, an
 out-of-range label, keys with words past 2^31); the epoch's masks plain
 version against the reference's draws; the kernel's integer compare of a
-draw against p at its edge.  The wrappers' in-place writes, launch counts
-and checks are tested too.  The CUDA kernels against the plain versions
-are in ``test_torch_stdp_cuda.py``, which imports no JAX so that it runs on
-the card's machine."""
+draw against p at its edge.  The matrix-RNG epoch's key chain and slots
+(what its card kernels write) are held against the reference's own
+``jax.random.split`` chain and ``[n_in, n_out]`` uniform matrices.  The
+wrappers' in-place writes, launch counts and checks are tested too.  The
+CUDA kernels against the plain versions are in ``test_torch_stdp_cuda.py``,
+which imports no JAX so that it runs on the card's machine."""
 
 from __future__ import annotations
 
@@ -79,7 +81,10 @@ def test_column_event_wrapper_writes_in_place_on_the_cpu():
         assert ops.launch_counts() == {"stdp_epoch_masks": 0,
                                        "stdp_column_epoch": 0,
                                        "stdp_column_event": 0,
-                                       "stdp_update": 0}
+                                       "stdp_update": 0,
+                                       "stdp_update_keys": 0,
+                                       "stdp_update_masks": 0,
+                                       "stdp_update_chain": 0}
         want = jops.stdp_column_event_ref(
             jnp.asarray(bits_t), jnp.asarray(4), jnp.asarray(apply),
             jnp.asarray(~pre), jnp.asarray(u_pot), jnp.asarray(u_dep),
@@ -396,3 +401,118 @@ def test_column_epoch_wrapper_checks_shapes_and_devices():
         ops.stdp_column_epoch(bits_t, pre, labels, key, off.to(meta), **kw)
     with pytest.raises(ValueError, match="different devices"):
         ops.stdp_epoch_masks(pre, labels, key.to(meta), 4, **kw)
+
+
+# ----------------------------------------------------------------------- #
+# the matrix-RNG epoch: its key chain and slots against the reference's
+# split chain and uniform matrices
+# ----------------------------------------------------------------------- #
+@pytest.mark.parametrize("key", KEYS)
+@pytest.mark.parametrize("n", [0, 1, 9])
+def test_update_keys_plain_matches_reference_chain(key, n):
+    """``stdp_update_keys_ref`` row i is k_i of the reference's scan
+    (``k, k1, k2 = jax.random.split(k, 3)`` a sample), as uint32 words; the
+    CPU wrapper returns it without a launch."""
+    k = jnp.asarray(np.array(key, dtype=np.uint32))
+    want = []
+    for _ in range(n):
+        want.append(np.asarray(k))
+        k = jax.random.split(k, 3)[0]
+    t = torch.tensor(np.array(key, dtype=np.int64))
+    ops.reset_launch_counts()
+    got = ops.stdp_update_keys(t, n)
+    assert ops.launch_counts()["stdp_update_keys"] == 0
+    assert got.dtype == torch.int32 and got.shape == (n, 2)
+    assert torch.equal(got, ops.stdp_update_keys_ref(t, n))
+    np.testing.assert_array_equal(got.numpy().view(np.uint32),
+                                  np.array(want, np.uint32).reshape(n, 2))
+
+
+@pytest.mark.parametrize("n_out,n_in,n", [(10, 256, 7), (33, 70, 4),
+                                          (65, 33, 3), (3, 1, 4)])
+@pytest.mark.parametrize("p_pot,p_dep", [(0.3, 0.2), (0.0, 1.0), (1.0, 0.0)])
+def test_update_masks_plain_matches_reference_draws(n_out, n_in, n, p_pot,
+                                                    p_dep):
+    """``stdp_update_masks_ref`` (what the card's masks kernel writes)
+    against the reference's draws, packed with numpy: sample i's ``k1, k2``
+    from ``split(k_i, 3)``, the teacher's ``[n_in, n_out]`` uniforms under
+    ``split(k1)`` and the winner's depress uniforms under ``split(k2)[1]``;
+    header, trace, the teacher row's potentiate mask, a depress mask a row
+    (the teacher's at the label's row), zero past the trace; labels -1 and
+    n_out have no teacher row.  The CPU wrapper returns it without a
+    launch."""
+    rng = np.random.default_rng(n_in + n_out)
+    pre = rng.random((n, n_in)) < 0.45
+    labels = rng.integers(0, n_out, size=(n,))
+    labels[0], labels[-1] = -1, n_out
+    keys = ops.stdp_update_keys_ref(prng.PRNGKey(n_out), n)
+    ops.reset_launch_counts()
+    got = ops.stdp_update_masks(torch.from_numpy(pre),
+                                torch.from_numpy(labels), keys, n_out,
+                                p_pot=p_pot, p_dep=p_dep)
+    assert ops.launch_counts()["stdp_update_masks"] == 0
+    assert got.dtype == torch.int32
+    assert got.shape == (n, ops.update_slot_words(n_in, n_out))
+    field = (got.shape[1] - 4) // (2 + n_out)
+
+    def packed(m):
+        w = packing_np.pack_spikes_np(m[None])[0].view(np.int32)
+        return np.pad(w, (0, field - w.size))
+
+    for i in range(n):
+        k_i = jnp.asarray(keys[i].numpy().view(np.uint32))
+        _, k1, k2 = jax.random.split(k_i, 3)
+        kp, kd = jax.random.split(k1)
+        u_pot = np.asarray(jax.random.uniform(kp, (n_in, n_out)))
+        u_dep = np.asarray(jax.random.uniform(kd, (n_in, n_out)))
+        u_win = np.asarray(jax.random.uniform(jax.random.split(k2)[1],
+                                              (n_in, n_out)))
+        p, y = pre[i], int(labels[i])
+        teach = 0 <= y < n_out
+        pot = p & (u_pot[:, y] < np.float32(p_pot)) if teach else 0 * p
+        dep = [~p & (u_dep[:, o] < np.float32(p_dep)) if o == y
+               else p & (u_win[:, o] < np.float32(p_dep))
+               for o in range(n_out)]
+        label = y if teach else -1
+        want = np.concatenate([[int(p.sum()), label, label, 0], packed(p),
+                               packed(pot != 0), *map(packed, dep)])
+        np.testing.assert_array_equal(got[i].numpy(), want)
+
+
+def test_update_epoch_wrapper_checks_shapes_and_devices():
+    bits_t, pre, labels = (
+        torch.from_numpy(a) for a in _epoch_operands(3, 4, 32, 6)[:3])
+    key = prng.PRNGKey(1)
+    kw = dict(p_pot=0.1, p_dep=0.1)
+    bad = [
+        ((bits_t[0], pre, labels, key), ValueError),         # 1-d readout
+        ((bits_t, pre[:, :31], labels, key), ValueError),    # n_in
+        ((bits_t, pre, labels[:5], key), ValueError),        # n labels
+        ((bits_t, pre, labels.float(), key), TypeError),     # label dtype
+        ((bits_t, pre, labels, key[None]), ValueError),      # key shape
+        ((bits_t, pre, labels, key.int()), ValueError),      # key dtype
+    ]
+    for args, err in bad:
+        with pytest.raises(err):
+            ops.stdp_update_epoch(*args, **kw)
+    keys = ops.stdp_update_keys(key, 6)
+    with pytest.raises(ValueError):
+        ops.stdp_update_masks(pre, labels, keys, 0, **kw)
+    with pytest.raises(ValueError):
+        ops.stdp_update_masks(pre, labels, keys[:5], 4, **kw)
+    with pytest.raises(ValueError):
+        ops.stdp_update_keys(key, -1)
+    meta = torch.device("meta")
+    with pytest.raises(ValueError, match="different devices"):
+        ops.stdp_update_epoch(bits_t.to(meta), pre, labels, key, **kw)
+    with pytest.raises(ValueError, match="different devices"):
+        ops.stdp_update_masks(pre, labels, keys.to(meta), 4, **kw)
+    # the CPU op runs the plain loop in place, with no launch
+    ops.reset_launch_counts()
+    work = bits_t.clone()
+    count = ops.stdp_update_epoch(work, pre, labels, key, **kw)
+    want, want_count = ops.stdp_update_epoch_ref(bits_t, pre, labels, key,
+                                                 0.1, 0.1)
+    assert torch.equal(work, want) and int(count) == int(want_count)
+    assert count.dtype == torch.int32 and count.dim() == 0
+    assert not any(ops.launch_counts().values())

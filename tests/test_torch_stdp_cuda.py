@@ -13,8 +13,13 @@ masks kernel slot for slot against ``stdp_epoch_masks_ref`` (keys past
 the kernel's integer compare shows), the whole epoch against
 ``stdp_column_epoch_ref`` on the same draws, on both of the chain's routes
 (the readout as tensor-core fragments in registers; in shared memory).
-The plain versions are held against the reference in
-``test_torch_stdp.py``."""
+The matrix-RNG epoch's three kernels (``stdp_update_keys``,
+``stdp_update_masks``, the chain) each against its plain version, and the
+whole ``stdp_update_epoch`` against ``stdp_update_epoch_ref`` (labels
+outside [0, n_out), ties, ragged and wide readouts, p of 0 and 1, 0, 1 and
+4096 samples), with its launch counts and its capacity error.  The plain
+versions are held against the reference in ``test_torch_stdp.py`` and
+``test_torch_learning.py``."""
 
 from __future__ import annotations
 
@@ -151,7 +156,10 @@ def test_cuda_column_epoch_matches_plain(cuda, n_out, n_in, n, tied, offset):
                                   p_pot=0.2, p_dep=0.1)
     assert ops.launch_counts() == {"stdp_epoch_masks": 1,
                                    "stdp_column_epoch": 1,
-                                   "stdp_column_event": 0, "stdp_update": 0}
+                                   "stdp_column_event": 0, "stdp_update": 0,
+                                   "stdp_update_keys": 0,
+                                   "stdp_update_masks": 0,
+                                   "stdp_update_chain": 0}
     u = ops.column_event_uniforms(key, torch.arange(n, device=cuda), n_in)
     want, want_wrong = ops.stdp_column_epoch_ref(bits_t, pre, labels, *u,
                                                  off, 0.2, 0.1)
@@ -207,3 +215,73 @@ def test_cuda_column_epoch_capacity(cuda):
             bits_t, torch.ones((1, n_in), dtype=torch.bool, device=cuda),
             torch.zeros((1,), dtype=torch.int32, device=cuda),
             prng.PRNGKey(0, device=cuda), p_pot=0.2, p_dep=0.1)
+
+
+#: (n_out, n_in, samples, p_pot, p_dep, labels outside [0, n_out), tied):
+#: the matrix-RNG epoch's cases (the chain's routes: (10, 70) and (10, 256)
+#: one row a lane in registers, (33, 70) two, (65, 70) and (256, 768) in
+#: shared memory, the last with one slot a bulk copy)
+UPDATE_CASES = [
+    (10, 70, 16, 0.3, 0.15, (-1, 10, 20), False),
+    (10, 70, 16, 0.3, 0.15, (), True),
+    (33, 70, 12, 0.3, 0.15, (-1, 33, 66), False),
+    (65, 70, 10, 0.3, 0.15, (-1, 65, 130), True),
+    (10, 40, 12, 0.3, 0.0, (-1,), False),
+    (10, 40, 12, 0.0, 0.2, (10,), False),
+    (10, 40, 12, 1.0, 1.0, (20,), False),
+    (10, 70, 0, 0.3, 0.15, (), False),
+    (10, 70, 1, 0.3, 0.15, (), False),
+    (10, 256, 4096, 0.2, 0.1, (-1, 10, 20), False),
+    (256, 768, 40, 0.2, 0.1, (-1, 256), False),
+]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n_out,n_in,n,p_pot,p_dep,bad,tied", UPDATE_CASES)
+def test_cuda_update_epoch_matches_plain(cuda, n_out, n_in, n, p_pot, p_dep,
+                                         bad, tied):
+    """The matrix-RNG epoch's three launches against the per-sample plain
+    loop under the same key, bits and update count; each kernel against
+    its own plain version on the way (keys, then slots)."""
+    bits_t, pre, labels, _ = _epoch_operands(n_in + n_out, n_out, n_in, n,
+                                             tied=tied)
+    for i, label in enumerate(bad):
+        labels[1 + 3 * i] = label
+    bits_t, pre, labels = (torch.from_numpy(a).to(cuda)
+                           for a in (bits_t, pre, labels))
+    key = prng.PRNGKey(n + 1, device=cuda)
+    ops.reset_launch_counts()
+    got = bits_t.clone()
+    count = ops.stdp_update_epoch(got, pre, labels, key, p_pot=p_pot,
+                                  p_dep=p_dep)
+    launched = int(n > 0)
+    assert ops.launch_counts() == {
+        "stdp_epoch_masks": 0, "stdp_column_epoch": 0,
+        "stdp_column_event": 0, "stdp_update": 0,
+        "stdp_update_keys": launched, "stdp_update_masks": launched,
+        "stdp_update_chain": launched}
+    want, want_count = ops.stdp_update_epoch_ref(bits_t, pre, labels, key,
+                                                 p_pot, p_dep)
+    assert torch.equal(got, want) and int(count) == int(want_count)
+    assert count.dtype == torch.int32 and count.device == got.device
+    keys = ops.stdp_update_keys(key, n)
+    assert torch.equal(keys, ops.stdp_update_keys_ref(key, n))
+    assert torch.equal(
+        ops.stdp_update_masks(pre, labels, keys, n_out, p_pot=p_pot,
+                              p_dep=p_dep),
+        ops.stdp_update_masks_ref(pre, labels, keys, n_out, p_pot, p_dep))
+
+
+@pytest.mark.cuda
+def test_cuda_update_epoch_capacity(cuda):
+    """A readout whose matrix-RNG slots do not fit one block raises before
+    any launch."""
+    n_out, n_in = 2048, 1024
+    bits_t = torch.zeros((n_out, n_in), dtype=torch.int8, device=cuda)
+    ops.reset_launch_counts()
+    with pytest.raises(ValueError, match="shared memory"):
+        ops.stdp_update_epoch(
+            bits_t, torch.ones((1, n_in), dtype=torch.bool, device=cuda),
+            torch.zeros((1,), dtype=torch.int32, device=cuda),
+            prng.PRNGKey(0, device=cuda), p_pot=0.2, p_dep=0.1)
+    assert not any(ops.launch_counts().values())
