@@ -27,7 +27,11 @@ Phases; any failure raises, so the exit code is non-zero:
    spike dtypes at both, at N 10 and 77, K 40000, on spike rows that
    start 16-byte aligned or not, on all-zero and all-one spikes and at
    thresholds of -2^31 and 2^31 - 1, each with its route and three
-   bounds; B11 at threshold equality and int32 wraparound; B1 at
+   bounds; B11 with its route (4 neurons a 16-byte load, or one) at N
+   % 4 != 0, T 0, 1 and 37, past one wave of the card, on update views
+   at an offset and a threshold view, at threshold equality and under int32
+   wraparound on both loads, with ``sum_ms`` (the rounds' sum alone as one
+   PyTorch call); B1 at
    the bench's (768, 768, 768, 10) and on each route of its launcher:
    clusters of 1, 2, 4, 8 and 16 CTAs, word counts fixed at compile time
    and not, a partly empty last slice, more slices than clusters, the
@@ -35,7 +39,9 @@ Phases; any failure raises, so the exit code is non-zero:
    launcher does not pick at B 128, 256 and 1024 (``mega_geometry``
    lines: the other MAC, clusters of 8, a CTA an SM);
    the single column event at rows inside and
-   outside [0, n_out); the epoch's two kernels (``stdp_epoch_masks``, which
+   outside [0, n_out), gated on and off, on each of its routes (4-input
+   or byte and float loads), on row strided matrices and on trace and
+   uniform views at an offset; the epoch's two kernels (``stdp_epoch_masks``, which
    draws the uniforms itself, and the chain) at 4096 x 256 -> 10 and ragged
    and wide readouts, with ties, offsets, an out-of-range label and a key
    past 2^31, on every route of the chain (``epoch_sass``: its ptxas
@@ -112,6 +118,7 @@ It needs a CUDA device and exits non-zero without one.
 
 from __future__ import annotations
 
+import dataclasses
 import json
 import subprocess
 import sys
@@ -883,38 +890,56 @@ def _stdp_operands(rng, n_out, n_in, u_shape):
     return bits_t, pre, u_pot, u_dep
 
 
-def check_column_event(card, rng, n_out, n_in, kernels):
+def check_column_event(card, rng, n_out, n_in, kernels, *, pad=0,
+                       shift=False):
     """stdp_column_event (one row, in place, index and gate on the device)
     vs its plain version: the teacher event and the wrong-winner event
     (p_pot 0, inverted trace), gated on and off, at a row inside and at the
     rows n_out, -1 and -n_out-1 (wrapped once if negative, then clamped),
-    int64 and int32 indices."""
+    int64 and int32 indices, with the route it took (4-input loads or
+    byte and float loads).  ``pad``: the matrix is a
+    view of rows ``pad`` bytes longer (row stride past n_in), whose bytes
+    past n_in must not change; ``shift``: trace and uniforms are views one
+    element past an aligned start (byte and float loads).  With the gate
+    off no byte of the storage may change."""
     import torch
 
     from repro_torch.kernels.stdp import ops
 
     bits_t, pre, u_pot, u_dep = _stdp_operands(rng, n_out, n_in, (n_in,))
+    store = torch.full((n_out, n_in + pad), 7, dtype=torch.int8,
+                       device="cuda")
+    store[:, :n_in] = bits_t
+    if shift:
+        pre, u_pot, u_dep = (torch.cat([t[:1], t])[1:]
+                             for t in (pre.to(torch.uint8), u_pot, u_dep))
+    route = ops._event_route(n_out, n_in, ops._event_vec(
+        store[:, :n_in], ops._byte_mask(pre), u_pot, u_dep))
     err = 0
     for c, dtype in [(c, d) for c in (n_out // 2, n_out, -1, -n_out - 1)
                      for d in (torch.int64, torch.int32)]:
         idx = torch.tensor(c, dtype=dtype, device="cuda")
         for apply in (True, False):
             gate = torch.tensor(apply, device="cuda")
-            for trace, p_pot in ((pre, LEARN_P_POT), (~pre, 0.0)):
+            for trace, p_pot in ((pre, LEARN_P_POT), (pre == 0, 0.0)):
+                work = store.clone()
                 got = ops.stdp_column_event(
-                    bits_t.clone(), idx, gate, trace, u_pot, u_dep,
+                    work[:, :n_in], idx, gate, trace, u_pot, u_dep,
                     p_pot=p_pot, p_dep=LEARN_P_DEP)
                 want = ops.stdp_column_event_ref(
                     bits_t, idx, gate, trace, u_pot, u_dep, p_pot,
                     LEARN_P_DEP)
                 err = max(err, _word_err(got, want))
-                if not torch.equal(got, want):
+                if (not torch.equal(got, want)
+                        or not torch.equal(work[:, n_in:], store[:, n_in:])
+                        or not (apply or torch.equal(work, store))):
                     raise AssertionError(
                         f"stdp_column_event != plain at [{n_out}, {n_in}] "
-                        f"row={c} {dtype} apply={apply} p_pot={p_pot}")
+                        f"pad={pad} shift={shift} row={c} {dtype} "
+                        f"apply={apply} p_pot={p_pot} route={route}")
     col = torch.tensor(n_out // 2, device="cuda")
     gate = torch.tensor(True, device="cuda")
-    work = bits_t.clone()
+    work = store.clone()[:, :n_in]
 
     def run():
         return ops.stdp_column_event(work, col, gate, pre, u_pot, u_dep,
@@ -925,6 +950,7 @@ def check_column_event(card, rng, n_out, n_in, kernels):
     bound_ms, bound_by = card.bound(n_bytes, 4 * n_in, F32_OPS_PER_S)
     row = {
         "kernel": "stdp_column_event", "shape": f"{n_out}x{n_in}",
+        "pad": pad, "shift": shift, "vec": route.vec, "grid": route.grid,
         "max_abs_err": err, "ms": graph_ms(run), "call_ms": call_ms(run),
         "plain_ms": graph_ms(lambda: ops.stdp_column_event_ref(
             bits_t, col, gate, pre, u_pot, u_dep, LEARN_P_POT, LEARN_P_DEP)),
@@ -1666,10 +1692,14 @@ def check_packed_mac(card, rng, batch, n_in, n_out, kernels, tail=False):
     kernels.append(row)
 
 
-def check_if_neuron(card, rng, batch, rounds, n, kernels, fill="random"):
-    """if_neuron vs its plain version: random updates, every membrane
-    exactly at its threshold (equality fires), or updates near 2^30 whose
-    int32 sum wraps."""
+def check_if_neuron(card, rng, batch, rounds, n, kernels, fill="random",
+                    view=None):
+    """if_neuron vs its plain version, with the route it took: random
+    updates, every membrane exactly at its threshold (equality fires), or
+    updates near 2^30 whose int32 sum wraps.  ``view`` "row": the updates
+    are ``big[1:]`` of one more row (16-byte aligned only where T * N % 4
+    == 0); "word": a view 4 bytes past an aligned start; "vth": the
+    thresholds 12 bytes past one (both take the one-neuron loads)."""
     import torch
 
     from repro_torch.kernels.if_neuron import ops
@@ -1686,6 +1716,14 @@ def check_if_neuron(card, rng, batch, rounds, n, kernels, fill="random"):
         vth = rng.integers(-2**31, 2**31 - 1, size=(n,),
                            dtype=np.int64).astype(np.int32)
     upd, vth = torch.from_numpy(upd).cuda(), torch.from_numpy(vth).cuda()
+    if view == "row":
+        upd = torch.cat([upd[:1], upd])[1:]
+    elif view == "word":
+        flat = upd.reshape(-1)
+        upd = torch.cat([flat[:1], flat])[1:].view(batch, rounds, n)
+    elif view == "vth":
+        vth = torch.cat([vth[:3], vth])[3:]
+    route = ops._route_for(upd, vth)
 
     def run():
         return ops.if_neuron(upd, vth)
@@ -1696,7 +1734,8 @@ def check_if_neuron(card, rng, batch, rounds, n, kernels, fill="random"):
     if err or not all(a.dtype == b.dtype and torch.equal(a, b)
                       for a, b in zip(got, want)):
         raise AssertionError(f"if_neuron != plain at [{batch}, {rounds}, "
-                             f"{n}] {fill}: max_abs_err={err}")
+                             f"{n}] {fill} view={view} {route}: "
+                             f"max_abs_err={err}")
     if fill == "equal" and not bool(got[0].all()):
         raise AssertionError("if_neuron: V_mem == vth did not fire")
     if fill == "wrap":
@@ -1713,7 +1752,8 @@ def check_if_neuron(card, rng, batch, rounds, n, kernels, fill="random"):
                                     elems * rounds + elems, F32_OPS_PER_S)
     row = {
         "kernel": "if_neuron", "shape": f"{batch}x{rounds}x{n}",
-        "fill": fill, "max_abs_err": err, "fired": int(got[0].sum()),
+        "fill": fill, "view": view, "route": dataclasses.asdict(route),
+        "max_abs_err": err, "fired": int(got[0].sum()),
         "ms": graph_ms(run), "call_ms": call_ms(run),
         "plain_ms": graph_ms(lambda: ops.if_neuron_ref(upd, vth)),
         "bound_ms": bound_ms, "bound_by": bound_by, "library_ms": None,
@@ -2652,6 +2692,16 @@ def main() -> int:
     for n_out, n_in in ((10, 256), (256, 768)):
         check_column_event(card, rng, n_out, n_in, event_rows)
         check_stdp_update(card, rng, n_out, n_in, single_rows)
+    # the single event's routes: the bench's 128 x 256, byte loads at
+    # n_in 511 and 99; row strides past n_in (ld % 4 == 0 keeps the 4-input
+    # loads); trace and uniforms one element past an aligned start
+    for n_out, n_in in ((128, 256), (33, 511), (7, 99)):
+        check_column_event(card, rng, n_out, n_in, event_rows)
+    for n_out, n_in, pad in ((10, 256, 4), (10, 256, 3), (200, 256, 4),
+                             (200, 256, 1)):
+        check_column_event(card, rng, n_out, n_in, event_rows, pad=pad)
+    for n_out, n_in in ((10, 256), (256, 768)):
+        check_column_event(card, rng, n_out, n_in, event_rows, shift=True)
     # the epoch's two kernels: the learning path's shape and ragged and
     # wide readouts, tied and offset, then a key past 2^31 and every other
     # route of the chain ((words a row, rows a lane) in registers; (0, 0):
@@ -2815,11 +2865,23 @@ def main() -> int:
                               (64, (96, 32), True), (77, (77, 0), False)):
         check_packed_fire(card, rng, 77, 333, n_out, packed_rows,
                           pack_output=pack, tail=True, view=view)
+    # B11 at the bench's and a streaming shape, then on both paths (4
+    # neurons a load; one where N % 4 != 0 or an operand is not 16-byte
+    # aligned), at T 0, 1 and past a span, past one wave of the card, on
+    # views at an offset, at equality and under wraparound
     for batch, rounds, n in ((8, 32, 256), (1, 5, 10), (7, 3, 100),
-                             (4096, 32, 256)):
+                             (4096, 32, 256), (8, 32, 99), (8, 0, 256),
+                             (8, 1, 256), (8, 37, 256), (6, 37, 99),
+                             (3000, 3, 256), (2000, 2, 99)):
         check_if_neuron(card, rng, batch, rounds, n, if_rows)
+    for batch, rounds, n, view in ((8, 37, 99, "row"), (8, 32, 99, "row"),
+                                   (8, 37, 256, "row"), (8, 32, 256, "word"),
+                                   (8, 32, 256, "vth")):
+        check_if_neuron(card, rng, batch, rounds, n, if_rows, view=view)
     check_if_neuron(card, rng, 8, 3, 128, if_rows, fill="equal")
     check_if_neuron(card, rng, 8, 4, 128, if_rows, fill="wrap")
+    check_if_neuron(card, rng, 8, 37, 256, if_rows, fill="wrap")
+    check_if_neuron(card, rng, 8, 37, 99, if_rows, fill="wrap")
 
     lap("3 kernels vs plain")
 
@@ -2929,7 +2991,8 @@ def main() -> int:
                   offset=True, special=False, key=[0, LEARN_TRAIN]),
              learn["train"]["stdp_column_epoch"]),
         line("stdp_column_event", stdp_src, "stdp/kernel.py:75",
-             pick(event_rows, "10x256"), bench["stdp_column_event"]),
+             pick(event_rows, "10x256", pad=0, shift=False),
+             bench["stdp_column_event"]),
         line("stdp_update", stdp_src, "stdp/kernel.py:26",
              pick(single_rows, "10x256"), bench["stdp_update"]),
         line("stdp_update_keys", stdp_src, "stdp/kernel.py:26",
@@ -2978,7 +3041,8 @@ def main() -> int:
                   dtype="float32", view=None), bench["esam_layer"]),
         line("if_neuron", "if_neuron/csrc/if_neuron.cu",
              "if_neuron/kernel.py:23",
-             pick(if_rows, "8x32x256", fill="random"), bench["if_neuron"]),
+             pick(if_rows, "8x32x256", fill="random", view=None),
+             bench["if_neuron"]),
     ]}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -20,7 +20,22 @@
 // and gated by an `apply` flag that both live in device memory and are read
 // inside the kernel: the counterpart of the reference's scalar-prefetched
 // row index and aliased output buffer.  Its bound is a few ns (one row of
-// N_in * 10 bytes); it is launch-bound by nature.
+// N_in * 10 bytes).  On an NVIDIA H100 80GB HBM3 (700 W; chip_smoke.py) an
+// empty kernel takes 1.17-1.24 us in a CUDA graph and one that loads a word
+// and stores it 1.51-1.55 (probes/launch_floor.cu; PERF.md, section 6); the
+// one-block kernel that loaded `apply`, then `col`, then the row, each load
+// waiting on the one before, took 1.84-1.88 at [10, 256]: ~0.3 us above the
+// one-load kernel.  This design took 1.77-1.78 at [256, 768] and 1.69-1.74
+// at the kernel bench's [128, 256] in runs whose one-load kernel took
+// 1.46-1.55 (same card and limit; PERF.md, section 6): ~0.2 of its own,
+// one dependent round trip.
+// Design: a thread takes 4 inputs; every load that does not depend on
+// another (apply, col, the trace, both uniforms as 16-byte loads where
+// aligned) is issued at once, and the masks are computed while they land.
+// The event row's bytes are the one load that waits (on col, and only
+// where apply holds): two round trips, one fewer than before.  The index is
+// a volatile load: the compiler sank a plain one past the exit that
+// precedes its only use, a round trip more.
 //
 // stdp_update is the same rule over the full matrix, masked by `post` per
 // row: elementwise, one thread per synapse, bound by its ~10 bytes per
@@ -81,29 +96,110 @@ __device__ __forceinline__ int8_t rule(int8_t old, bool pre, float u_pot,
   return old;
 }
 
-__device__ __forceinline__ long long load_index(const void* p, int bytes) {
-  return bytes == 8 ? *static_cast<const long long*>(p)
-                    : (long long)*static_cast<const int32_t*>(p);
+// ---- the single column event ------------------------------------------- //
+
+constexpr int kEventThreads = 64;
+constexpr int kEventInputs = 4;          // inputs a thread
+
+// The rule on 4 inputs as byte masks: `set` where the byte becomes
+// pot ? 1 : 0, `one` the bytes that become 1.
+struct EventMasks {
+  uint32_t set, one;
+};
+
+__device__ __forceinline__ EventMasks event_masks(const uint8_t (&pre)[4],
+                                                  const float (&up)[4],
+                                                  const float (&ud)[4],
+                                                  float p_pot, float p_dep) {
+  EventMasks m{0u, 0u};
+#pragma unroll
+  for (int j = 0; j < 4; ++j) {
+    const bool pot = pre[j] != 0 && up[j] < p_pot;
+    const bool dep = pre[j] == 0 && ud[j] < p_dep;
+    m.set |= (pot || dep ? 0xFFu : 0u) << (8 * j);
+    m.one |= (pot ? 1u : 0u) << (8 * j);
+  }
+  return m;
 }
 
-// One block of kThreads walks the event row; a row index out of [0, n_out)
-// is wrapped once if negative and clamped, as the reference's
-// interpret-mode block index is.
-__global__ void __launch_bounds__(kThreads)
+// A row index out of [0, n_out) is wrapped once if negative and clamped, as
+// the reference's interpret-mode block index is.
+__device__ __forceinline__ long long event_row(long long c, int n_out) {
+  if (c < 0) c += n_out;
+  return c < 0 ? 0 : (c >= n_out ? n_out - 1 : c);
+}
+
+// A volatile global load: issued where it stands, so the compiler cannot
+// sink the row index past the gate's exit into the branch that uses it.
+__device__ __forceinline__ uint32_t load_now_u32(const void* p) {
+  uint32_t v;
+  asm volatile("ld.volatile.global.u32 %0, [%1];" : "=r"(v) : "l"(p));
+  return v;
+}
+
+__device__ __forceinline__ long long load_now_s64(const void* p) {
+  long long v;
+  asm volatile("ld.volatile.global.s64 %0, [%1];" : "=l"(v) : "l"(p));
+  return v;
+}
+
+// Block (kEventThreads); blockIdx.x * blockDim.x + threadIdx.x is the
+// thread's group of 4 inputs.  kVec: n_in % 4 == 0, the row bytes and the
+// trace 4-byte aligned, the uniforms 16-byte aligned (one load each); else
+// byte and float loads at addresses clamped into the row.  kCol64: col is
+// int64, else int32 (a template parameter, so its load is not predicated
+// apart from the others).  No branch stands between the loads.
+template <bool kVec, bool kCol64>
+__global__ void __launch_bounds__(kEventThreads)
 column_event_kernel(int8_t* __restrict__ bits, int n_out, int n_in,
-                    long long ld, const void* col, int col_bytes,
+                    long long ld, const void* col,
                     const bool* apply, const uint8_t* __restrict__ pre,
                     const float* __restrict__ u_pot,
                     const float* __restrict__ u_dep, float p_pot,
                     float p_dep) {
-  if (!*apply) return;
-  long long c = load_index(col, col_bytes);
-  if (c < 0) c += n_out;
-  c = c < 0 ? 0 : (c >= n_out ? n_out - 1 : c);
-  int8_t* row = bits + c * ld;
-  for (int i = threadIdx.x; i < n_in; i += blockDim.x)
-    row[i] = rule(row[i], pre[i] != 0, __ldg(u_pot + i), __ldg(u_dep + i),
-                  p_pot, p_dep);
+  const int i0 = (blockIdx.x * blockDim.x + threadIdx.x) * kEventInputs;
+  if (i0 >= n_in) return;
+
+  // every load that waits on no other, at once
+  const long long c_raw = kCol64 ? load_now_s64(col)
+                                 : (int32_t)load_now_u32(col);
+  const bool on = *apply;
+  uint8_t tr[4];
+  float up[4], ud[4];
+  if (kVec) {
+    const uint32_t t4 = *reinterpret_cast<const uint32_t*>(pre + i0);
+    const float4 p4 = __ldg(reinterpret_cast<const float4*>(u_pot + i0));
+    const float4 d4 = __ldg(reinterpret_cast<const float4*>(u_dep + i0));
+#pragma unroll
+    for (int j = 0; j < 4; ++j) tr[j] = (uint8_t)(t4 >> (8 * j));
+    up[0] = p4.x; up[1] = p4.y; up[2] = p4.z; up[3] = p4.w;
+    ud[0] = d4.x; ud[1] = d4.y; ud[2] = d4.z; ud[3] = d4.w;
+  } else {
+#pragma unroll
+    for (int j = 0; j < 4; ++j) {
+      const int i = min(i0 + j, n_in - 1);
+      tr[j] = pre[i];
+      up[j] = __ldg(u_pot + i);
+      ud[j] = __ldg(u_dep + i);
+    }
+  }
+  const EventMasks m = event_masks(tr, up, ud, p_pot, p_dep);
+  if (!on) return;
+  // the one load that waits: the event row's bytes, after col
+  int8_t* row = bits + event_row(c_raw, n_out) * ld + i0;
+  if (kVec) {
+    const uint32_t old = *reinterpret_cast<const uint32_t*>(row);
+    *reinterpret_cast<uint32_t*>(row) = (old & ~m.set) | m.one;
+    return;
+  }
+  uint32_t old = 0u;  // every byte loaded before the first store
+#pragma unroll
+  for (int j = 0; j < 4; ++j)
+    old |= (uint32_t)(uint8_t)row[min(j, n_in - 1 - i0)] << (8 * j);
+  const uint32_t now = (old & ~m.set) | m.one;
+#pragma unroll
+  for (int j = 0; j < 4; ++j)
+    if (i0 + j < n_in) row[j] = (int8_t)(now >> (8 * j));
 }
 
 __global__ void __launch_bounds__(kThreads)
@@ -757,19 +853,38 @@ extern "C" {
 
 // In-place event on row *col of bits int8[n_out, n_in] (row stride ld),
 // when *apply.  col: int32 or int64 (col_bytes 4 or 8); apply: bool;
-// pre: uint8[n_in]; u_pot, u_dep: float32[n_in].
+// pre: uint8[n_in]; u_pot, u_dep: float32[n_in].  The route ops._event_route
+// gives: vec (4-input loads) and `grid` blocks of kEventThreads along the
+// row's groups of 4 inputs.
 // Returns cudaGetLastError().
 int stdp_column_event(void* bits, int n_out, int n_in, long long ld,
                       const void* col, int col_bytes, const void* apply,
                       const void* pre, const void* u_pot,
                       const void* u_dep, float p_pot, float p_dep,
-                      void* stream) {
+                      int vec, int grid, void* stream) {
   if (n_out < 1 || n_in < 1 || (col_bytes != 4 && col_bytes != 8))
     return (int)cudaErrorInvalidValue;
-  column_event_kernel<<<1, kThreads, 0, (cudaStream_t)stream>>>(
-      (int8_t*)bits, n_out, n_in, ld, col, col_bytes, (const bool*)apply,
-      (const uint8_t*)pre, (const float*)u_pot, (const float*)u_dep, p_pot,
-      p_dep);
+  if (vec && (n_in % 4 || (n_out > 1 && ld % 4) || (uintptr_t)bits % 4 ||
+              (uintptr_t)pre % 4 || (uintptr_t)u_pot % 16 ||
+              (uintptr_t)u_dep % 16))
+    return (int)cudaErrorMisalignedAddress;
+  const long long chunks = (n_in + kEventInputs - 1) / kEventInputs;
+  if ((long long)grid * kEventThreads < chunks)
+    return (int)cudaErrorInvalidValue;
+  const cudaStream_t st = (cudaStream_t)stream;
+#define STDP_EVENT_ROUTE(V, C)                                              \
+  if ((vec != 0) == V && (col_bytes == 8) == C)                             \
+    column_event_kernel<V, C><<<grid, kEventThreads, 0, st>>>(              \
+        (int8_t*)bits, n_out, n_in, ld, col, (const bool*)apply,            \
+        (const uint8_t*)pre, (const float*)u_pot, (const float*)u_dep,     \
+        p_pot, p_dep);                                                      \
+  else
+  STDP_EVENT_ROUTE(true, true)
+  STDP_EVENT_ROUTE(true, false)
+  STDP_EVENT_ROUTE(false, true)
+  STDP_EVENT_ROUTE(false, false)
+  return (int)cudaErrorInvalidValue;
+#undef STDP_EVENT_ROUTE
   return (int)cudaGetLastError();
 }
 

@@ -22,12 +22,18 @@ raises.  Launches are counted (:func:`launch_counts`).
 from __future__ import annotations
 
 import ctypes
+import dataclasses
 
 import torch
 
 from repro_torch.core import packing
 from repro_torch.kernels import _build
-from repro_torch.kernels.common import check_cuda_operands, on_cpu, stream_ptr
+from repro_torch.kernels.common import (
+    cdiv,
+    check_cuda_operands,
+    on_cpu,
+    stream_ptr,
+)
 from repro_torch.kernels.stdp.ref import (  # noqa: F401  (re-export)
     column_event_uniforms,
     epoch_slot_words,
@@ -70,6 +76,21 @@ _LAUNCHES = {"stdp_epoch_masks": 0, "stdp_column_epoch": 0,
 
 _BYTE_TYPES = (torch.bool, torch.int8, torch.uint8)
 
+#: the single event's threads a block and inputs a thread (the kernel's
+#: kEventThreads, kEventInputs)
+_EVENT_THREADS = 64
+_EVENT_INPUTS = 4
+
+
+@dataclasses.dataclass(frozen=True)
+class EventRoute:
+    """The single event's geometry: ``vec`` (4-input loads) or byte and
+    float loads; ``grid`` blocks of ``_EVENT_THREADS`` along a row's groups
+    of 4 inputs."""
+
+    vec: bool
+    grid: int
+
 
 def launch_counts() -> dict[str, int]:
     """Kernel launches per kernel since the last :func:`reset_launch_counts`."""
@@ -84,7 +105,7 @@ def reset_launch_counts() -> None:
 def _declare(lib: ctypes.CDLL) -> None:
     vp, i32, i64, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong, ctypes.c_float
     lib.stdp_column_event.argtypes = [
-        vp, i32, i32, i64, vp, i32, vp, vp, vp, vp, f, f, vp]
+        vp, i32, i32, i64, vp, i32, vp, vp, vp, vp, f, f, i32, i32, vp]
     lib.stdp_column_event.restype = i32
     lib.stdp_update.argtypes = [vp, vp, i32, i32, vp, vp, vp, vp, f, f, vp]
     lib.stdp_update.restype = i32
@@ -114,6 +135,26 @@ def _declare(lib: ctypes.CDLL) -> None:
 
 def _library() -> _build.KernelLibrary:
     return _build.load_library("stdp", _declare)
+
+
+def _event_route(n_out: int, n_in: int, vec: bool) -> EventRoute:
+    """The single event's route for an ``[n_out, n_in]`` matrix: a thread
+    a group of 4 inputs of the event row, loaded after its index.  Pure: no
+    library call."""
+    if min(n_out, n_in) < 1:
+        raise ValueError(f"no route for [{n_out}, {n_in}]")
+    return EventRoute(
+        vec=vec, grid=cdiv(cdiv(n_in, _EVENT_INPUTS), _EVENT_THREADS))
+
+
+def _event_vec(bits_t, pre, u_pot, u_dep) -> bool:
+    """Whether the event's operands take 4-input loads: n_in % 4 == 0, row
+    bytes (every row start) and the trace 4-byte aligned, the uniforms
+    16-byte aligned."""
+    return (bits_t.shape[1] % 4 == 0
+            and (bits_t.shape[0] == 1 or bits_t.stride(0) % 4 == 0)
+            and bits_t.data_ptr() % 4 == 0 and pre.data_ptr() % 4 == 0
+            and u_pot.data_ptr() % 16 == 0 and u_dep.data_ptr() % 16 == 0)
 
 
 def _byte_mask(t: torch.Tensor) -> torch.Tensor:
@@ -455,13 +496,14 @@ def stdp_column_event(
         raise TypeError(f"col must be int32 or int64, got {col.dtype}")
     pre = _byte_mask(pre)
     u_pot, u_dep = u_pot.contiguous(), u_dep.contiguous()
+    route = _event_route(n_out, n_in, _event_vec(bits_t, pre, u_pot, u_dep))
     kl = _library()
     with torch.cuda.device(dev):
         err = kl.lib.stdp_column_event(
             bits_t.data_ptr(), n_out, n_in, bits_t.stride(0), col.data_ptr(),
             col.element_size(), apply.data_ptr(), pre.data_ptr(),
             u_pot.data_ptr(), u_dep.data_ptr(), f32(p_pot), f32(p_dep),
-            stream_ptr(dev))
+            int(route.vec), route.grid, stream_ptr(dev))
     _build.check(kl, err, "stdp_column_event launch")
     _LAUNCHES["stdp_column_event"] += 1
     return bits_t

@@ -223,7 +223,7 @@ def _single_lanes(dev: torch.device) -> list[Lane]:
         Lane("kernel_if_neuron_8x32x256",
              lambda: if_ops.if_neuron_ref(upd, vth_if),
              lambda: if_ops.if_neuron(upd, vth_if), {"if_neuron": 1},
-             "vmem=register;rounds=in_order_uint32"),
+             "vmem=register;rounds=split_uint32_shfl_sum"),
         Lane("kernel_stdp_128x256",
              lambda: stdp_ops.stdp_update_ref(bits, pre, post, u1, u2,
                                               P_POT, P_DEP),
@@ -237,7 +237,7 @@ def _single_lanes(dev: torch.device) -> list[Lane]:
                  work, col, apply, pre_b, uv1, uv2, p_pot=P_POT,
                  p_dep=P_DEP),
              {"stdp_column_event": 1},
-             "grid=event_row_only;write=in_place;"
+             "route=event_row_after_index;write=in_place;"
              "rng_draws_per_event=n_in_not_n_in_x_n_out"),
     ]
 

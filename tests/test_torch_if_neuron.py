@@ -81,3 +81,85 @@ def test_rejects_bad_operands():
     with pytest.raises(ValueError):
         ops.if_neuron(tu.to(meta), tv.to(meta))
     assert ops.launch_counts() == {"if_neuron": 0}
+
+
+def _rounds(route, y: int, T: int) -> list[int]:
+    """The rounds slot ``y`` of a unit adds, as the kernel's loop walks
+    them: spans y, y + slots, ... of ``ops._SPAN`` rounds, each cut at T."""
+    span = ops._SPAN
+    return [t0 + s for t0 in range(y * span, T, route.slots * span)
+            for s in range(span) if t0 + s < T]
+
+
+#: (B, N, vec): the reference's, the bench's and the chip checks' shapes
+ROUTE_SHAPES = [(8, 128, True), (16, 256, True), (8, 256, True),
+                (4096, 256, True), (1, 10, False), (7, 100, True),
+                (8, 99, False), (3000, 256, True), (2000, 99, False)]
+
+
+@pytest.mark.parametrize("T", range(71))
+def test_if_route_spans_cover_every_round_once(T):
+    """The span slots of a unit, walked as the kernel walks them, add every
+    round of [0, T) exactly once."""
+    for B, N, vec in ROUTE_SHAPES:
+        r = ops._if_route(B, T, N, vec)
+        rounds = sorted(t for y in range(r.slots) for t in _rounds(r, y, T))
+        assert rounds == list(range(T)), (B, N, vec, r)
+        span = ops._SPAN
+        assert all(len(_rounds(r, y, T)) <= span * -(-T // (span * r.slots))
+                   for y in range(r.slots))
+
+
+@pytest.mark.parametrize("B,N,vec", ROUTE_SHAPES)
+@pytest.mark.parametrize("T", [0, 1, 3, 4, 5, 32, 37, 1000])
+def test_if_route_covers_the_units(B, N, vec, T):
+    """The grid covers every unit (4 neurons, or one) with less than a
+    block past it; a warp is 32 lanes of units x span slots, a block at most
+    256 threads, and one slot takes every round where they fit one span."""
+    r = ops._if_route(B, T, N, vec)
+    units = B * (N // 4 if vec else N)
+    per_block = r.uw * r.warps
+    assert r.grid * per_block >= units > (r.grid - 1) * per_block
+    assert r.uw * r.slots == 32 and r.uw & (r.uw - 1) == 0
+    assert 32 * r.warps <= ops._MAX_THREADS
+    assert r.vec == vec
+    assert r.slots == 1 if T <= ops._SPAN else r.slots > 1
+
+
+@pytest.mark.parametrize("B,T,N,grid,loads", [
+    (8, 32, 256, 64, 4),        # the bench: 64 CTAs of 2 warps, 4 x 8 slots
+    (4096, 32, 256, 8192, 4),   # streams: 8 warps a CTA
+    (8, 1, 256, 8, 1),          # one round: 32 units a warp
+    (8, 1000, 256, 256, 32),    # 32 slots, each 8 spans of 4 rounds
+])
+def test_if_route_spreads_over_the_card(B, T, N, grid, loads):
+    """A small shape spreads over the card (64 CTAs at the bench's shape)
+    with a few loads a thread; the threads of a large one stay at 256 a
+    block."""
+    r = ops._if_route(B, T, N, True)
+    assert r.grid == grid
+    assert max(len(_rounds(r, y, T)) for y in range(r.slots)) == loads
+    assert r.warps == (8 if B == 4096 else 2)
+    half = ops._if_route(B, T, N, True, sms=66)
+    assert half.warps >= r.warps
+
+
+def test_if_route_is_pure_and_matches_the_kernel(monkeypatch):
+    """The route needs no library and no card, refuses an empty shape, and
+    its limits are the kernel's constants."""
+    import re
+    from pathlib import Path
+
+    from repro_torch.kernels import _build
+
+    def no_library(*args, **kwargs):
+        raise AssertionError("the route must not load the kernel library")
+
+    monkeypatch.setattr(_build, "load_library", no_library)
+    assert ops._if_route(8, 32, 256, True) == ops._if_route(8, 32, 256, True)
+    for bad in ((0, 1, 4), (1, 1, 0), (1, -1, 4)):
+        with pytest.raises(ValueError):
+            ops._if_route(*bad, True)
+    src = (Path(ops.__file__).parent / "csrc" / "if_neuron.cu").read_text()
+    assert int(re.search(r"kMaxThreads = (\d+);", src)[1]) == ops._MAX_THREADS
+    assert int(re.search(r"kSpan = (\d+);", src)[1]) == ops._SPAN

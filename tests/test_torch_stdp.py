@@ -516,3 +516,40 @@ def test_update_epoch_wrapper_checks_shapes_and_devices():
     assert torch.equal(work, want) and int(count) == int(want_count)
     assert count.dtype == torch.int32 and count.dim() == 0
     assert not any(ops.launch_counts().values())
+
+
+@pytest.mark.parametrize("n_out,n_in", [
+    (10, 256), (256, 768), (7, 99), (8, 100), (128, 256), (1, 1), (1, 40000),
+    (33, 511), (64, 257)])
+@pytest.mark.parametrize("vec", [True, False])
+def test_event_route_covers_the_event(n_out, n_in, vec):
+    """Along the event row the grid covers its groups of 4 inputs with less
+    than a block past them, whatever the number of rows."""
+    r = ops._event_route(n_out, n_in, vec)
+    assert r.vec == vec
+    groups = -(-n_in // ops._EVENT_INPUTS)
+    assert (r.grid * ops._EVENT_THREADS >= groups
+            > (r.grid - 1) * ops._EVENT_THREADS)
+
+
+def test_event_route_is_pure_and_matches_the_kernel(monkeypatch):
+    """The route needs no library and no card, refuses an empty matrix, and
+    its constants are the kernel's."""
+    import re
+    from pathlib import Path
+
+    from repro_torch.kernels import _build
+
+    def no_library(*args, **kwargs):
+        raise AssertionError("the route must not load the kernel library")
+
+    monkeypatch.setattr(_build, "load_library", no_library)
+    assert ops._event_route(10, 256, True) == ops._event_route(10, 256, True)
+    for bad in ((0, 256), (10, 0)):
+        with pytest.raises(ValueError):
+            ops._event_route(*bad, True)
+    src = (Path(ops.__file__).parent / "csrc" / "stdp.cu").read_text()
+    consts = {name: int(re.search(rf"{name} = (\d+);", src)[1])
+              for name in ("kEventThreads", "kEventInputs")}
+    assert consts == {"kEventThreads": ops._EVENT_THREADS,
+                      "kEventInputs": ops._EVENT_INPUTS}

@@ -7,7 +7,10 @@ JAX package is not installed:
     PYTHONPATH=src python -m pytest -q -m cuda tests/test_torch_stdp_cuda.py
 
 The single column event and the full-matrix rule are held bit for bit
-against their plain versions; the epoch's two kernels against theirs: the
+against their plain versions, the event on each of its routes (4-input
+loads or byte and float loads): row strided matrices, unaligned trace and
+uniform views, and with the gate off no byte of the matrix changes; the
+epoch's two kernels against theirs: the
 masks kernel slot for slot against ``stdp_epoch_masks_ref`` (keys past
 2^31, p of 0 and 1, p set exactly to a drawn uniform, so an off-by-one in
 the kernel's integer compare shows), the whole epoch against
@@ -114,6 +117,94 @@ def test_cuda_column_event_out_of_range_row_matches_plain(cuda, n_out, n_in,
         want = ops.stdp_column_event_ref(bits_t, c, gate, pre, u_pot, u_dep,
                                          0.5, 0.5)
         assert torch.equal(got, want)
+
+
+def _event(bits_t, col, gate, pre, u_pot, u_dep, route, p_pot=0.5,
+           p_dep=0.5):
+    """One event on ``bits_t`` (in place) on the expected route, one launch,
+    against the plain version on a copy; returns the plain version's
+    bits."""
+    want = ops.stdp_column_event_ref(bits_t.clone(), col, gate, pre, u_pot,
+                                     u_dep, p_pot, p_dep)
+    n_out, n_in = bits_t.shape
+    assert ops._event_route(n_out, n_in, ops._event_vec(
+        bits_t, ops._byte_mask(pre), u_pot, u_dep)) == route
+    ops.reset_launch_counts()
+    ops.stdp_column_event(bits_t, col, gate, pre, u_pot, u_dep, p_pot=p_pot,
+                          p_dep=p_dep)
+    assert ops.launch_counts()["stdp_column_event"] == 1
+    assert torch.equal(bits_t, want)
+    return want
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n_out,n_in,vec", [
+    (64, 256, True), (65, 256, True), (32, 511, False), (33, 511, False)])
+@pytest.mark.parametrize("apply", [True, False])
+def test_cuda_column_event_gate_and_rows_on_each_load_route(
+        cuda, n_out, n_in, vec, apply):
+    """Rows inside and outside [0, n_out) on 4-input and on byte loads;
+    with the gate off no byte of the matrix changes."""
+    bits_t, pre, u_pot, u_dep = (torch.from_numpy(a).to(cuda) for a in
+                                 _operands(n_out * n_in, n_out, n_in, (n_in,)))
+    gate = torch.tensor(apply, device=cuda)
+    route = ops._event_route(n_out, n_in, vec)
+    assert route.vec == vec
+    for c in (0, n_out // 2, n_out - 1, n_out, -1):
+        before = bits_t.clone()
+        _event(bits_t, torch.tensor(c, device=cuda), gate, pre, u_pot,
+               u_dep, route)
+        if not apply:
+            assert torch.equal(bits_t, before)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n_out,n_in,pad,vec", [
+    (10, 256, 4, True), (10, 256, 3, False), (7, 99, 5, False),
+    (200, 256, 4, True), (200, 256, 1, False)])
+@pytest.mark.parametrize("apply", [True, False])
+def test_cuda_column_event_on_row_strided_bits(cuda, n_out, n_in, pad, vec,
+                                               apply):
+    """A row stride ld > n_in: the event row changes, nothing else of the
+    storage (the bytes past n_in hold 7s)."""
+    bits_t, pre, u_pot, u_dep = (torch.from_numpy(a).to(cuda) for a in
+                                 _operands(n_in + pad, n_out, n_in, (n_in,)))
+    big = torch.full((n_out, n_in + pad), 7, dtype=torch.int8, device=cuda)
+    big[:, :n_in] = bits_t
+    view = big[:, :n_in]
+    gate = torch.tensor(apply, device=cuda)
+    before = big.clone()
+    route = ops._event_route(n_out, n_in, vec)
+    want = _event(view, torch.tensor(n_out // 3, device=cuda), gate, pre,
+                  u_pot, u_dep, route)
+    assert torch.equal(big[:, n_in:], before[:, n_in:])
+    assert torch.equal(big[:, :n_in], want)
+    if not apply:
+        assert torch.equal(big, before)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n_out,n_in", [(10, 256), (256, 768), (7, 99)])
+@pytest.mark.parametrize("which", ["pre", "u_pot", "u_dep", "all"])
+def test_cuda_column_event_on_unaligned_operands(cuda, n_out, n_in, which):
+    """Trace and uniform views one element past an aligned start take the
+    byte and float loads."""
+    bits_t, pre, u_pot, u_dep = (torch.from_numpy(a).to(cuda) for a in
+                                 _operands(n_in + 1, n_out, n_in, (n_in,)))
+
+    def shifted(t):
+        return torch.cat([t[:1], t])[1:]
+
+    ops_in = {"pre": pre.to(torch.uint8), "u_pot": u_pot, "u_dep": u_dep}
+    for name in ops_in:
+        if which in (name, "all"):
+            ops_in[name] = shifted(ops_in[name])
+    gate = torch.tensor(True, device=cuda)
+    route = ops._event_route(n_out, n_in, False)
+    for c in (0, n_out - 1):
+        _event(bits_t, torch.tensor(c, dtype=torch.int32, device=cuda), gate,
+               ops_in["pre"], ops_in["u_pot"], ops_in["u_dep"], route,
+               p_pot=0.25, p_dep=0.1)
 
 
 @pytest.mark.cuda
