@@ -54,11 +54,16 @@ Phases; any failure raises, so the exit code is non-zero:
    bit for bit at W 32, 128 and 1024, ports 1, 2, 4, 5 and 8, random,
    all-on and all-off requests and G 1, 16 and 1000; the
    event round's ``temporal_scan`` at the event path's T 4, 8 and 16 and
-   B 64, at B 1 and 7, with 0 and 1 hidden tiles, per reset mode with
-   refractory 2, and on each of its three routes: planes and state in
-   shared memory, planes past it, state past it too; at hidden widths
-   that are not multiples of 32, and at 34 hidden tiles, two launches),
-   timed against its bound;
+   B 64 on its register route (a cluster pipelining 8 streams through
+   the tiles on the b1 product; ``scan_sass``: its ptxas registers and
+   spills, none at the paper shape), at B 1, 7, 15, 16, 17 and 33, with 0,
+   1 and 4 hidden tiles, widths 255, 256 and 257 (first widths 255 and
+   257 on the shared-memory route), per reset mode with
+   refractory 2, and on each of the shared-memory kernel's three routes:
+   planes and state in shared memory (5 tiles), planes past it, state past
+   it too; at hidden widths that are not multiples of 32, and at 34 hidden
+   tiles, two launches), timed against its bounds and, on the register
+   route, beside the shared-memory kernel on the same operands;
 4. the serving path: ``repro_torch.launch.serve --esam`` at the paper
    topology 768:256:256:256:10, max_batch 128, telemetry on, 4096 digit
    requests, with the launch counters set to 0 just before and read just
@@ -154,9 +159,10 @@ LEARN_P_POT, LEARN_P_DEP = 0.2, 0.1
 SCAN_SAMPLES = 64
 
 #: the event path: round size (the launcher's max_batch), leak and the LIF
-#: step's checked shapes (the event round's, a large one, ragged ones)
+#: step's checked shapes (the event round's, a large one, ragged ones: N
+#: and B N not multiples of 4)
 EVENT_BATCH, EVENT_LEAK = 64, 0.125
-LIF_SHAPES = ((EVENT_BATCH, 256), (4096, 256), (1, 1), (7, 100))
+LIF_SHAPES = ((EVENT_BATCH, 256), (4096, 256), (1, 1), (7, 100), (7, 99))
 #: the event streams' lengths, and the paper topology's hidden widths
 EVENT_STEPS = (4, 8, 16)
 PAPER_HIDDEN = PAPER_TOPOLOGY[1:-1]
@@ -1480,31 +1486,36 @@ def _scan_operands(rng, hidden, n_cls, n_steps, batch):
 
 
 def scan_bound(card, hidden, n_cls, n_steps, batch, collect, telemetry):
-    """(ms, what bounds it) of one temporal_scan: c_in, the planes and
+    """The bounds of one temporal_scan (``_b1_bounds``): c_in, the planes and
     thresholds read once, the readout's membranes (and the collected words
-    and loads) written once; per stream and step one AND+popc per plane
-    word and one popc per spike word, against the popc rate."""
+    and loads) written once; per stream and step 2 n_next n AND+popc
+    operations a hidden tile (the b1 product's), or for the popc unit one
+    popc per plane word pair and spike word."""
     n_first = hidden[0] if hidden else n_cls
     widths = list(hidden) + [n_cls]
     w = [-(-n // 32) for n in hidden]
     pairs = sum(widths[i + 1] * w[i] + w[i] for i in range(len(hidden)))
+    bits = sum(widths[i + 1] * n for i, n in enumerate(hidden))
     words = sum(w)
     n_bytes = 4 * (n_steps * batch * n_first + sum(
         widths[i + 1] * w[i] + n for i, n in enumerate(hidden))
         + batch * n_cls + n_steps * batch * (
             words * collect + words // 4 * telemetry))
-    return card.bound(n_bytes, n_steps * batch * pairs)
+    return _b1_bounds(card, n_bytes, 2 * n_steps * batch * bits,
+                      n_steps * batch * pairs)
 
 
 def check_scan(card, rng, hidden, batch, n_steps, kernels, leak=EVENT_LEAK,
-               reset="zero", refractory=0, n_cls=10, route=(1, 1)):
+               reset="zero", refractory=0, n_cls=10, route="regs"):
     """temporal_scan vs its plain version on the card, bit for bit (the
     readout's membranes, every hidden tile's spike words, and their loads
     where the widths are row groups of 128), timed in a CUDA graph and
-    eagerly against its bound.  ``route`` is the (planes in shared memory,
-    state in shared memory) the widths must take; a stack deeper than one
-    launch takes runs as consecutive launches with a popcount_mac between,
-    and the launches are counted."""
+    eagerly against its bounds, with clocks a chain link (at the card's
+    maximum SM clock).  ``route`` is the route (``ops._scan_route``) the
+    widths must take; on the register route the same operands also run
+    on the shared-memory kernel (``before_ms``, the parent's kernel).  A
+    stack deeper than one launch takes runs as consecutive launches with a
+    popcount_mac between, and the launches are counted."""
     import torch
 
     from repro_torch.kernels.cim_popcount import ops as pop_ops
@@ -1529,36 +1540,98 @@ def check_scan(card, rng, hidden, batch, n_steps, kernels, leak=EVENT_LEAK,
         raise AssertionError(f"temporal_scan at {len(hidden)} hidden tiles: "
                              f"(scan, mac) launches {counts}, want "
                              f"{(launches, launches - 1)}")
+
+    def same(a, b):
+        return torch.equal(a[0], b[0]) and all(
+            torch.equal(g, w) for g, w in zip(a[1] + (a[2] or ()),
+                                              b[1] + (b[2] or ())))
+
     err = float((got[0].double() - want[0].double()).abs().max())
-    same = torch.equal(got[0], want[0]) and all(
-        torch.equal(g, w) for g, w in zip(got[1] + (got[2] or ()),
-                                          want[1] + (want[2] or ())))
-    if err or not same:
+    if err or not same(got, want):
         raise AssertionError(
             f"temporal_scan != plain at T={n_steps} B={batch} {hidden} "
-            f"{kw}: max_abs_err={err}, words and loads equal={same}")
-    bound_ms, bound_by = scan_bound(card, hidden, n_cls, n_steps, batch,
-                                    True, telemetry)
+            f"{kw}: max_abs_err={err}")
     took = ops._scan_route(torch.cuda.current_device(), tuple(hidden),
-                           n_cls)[:2] if launches == 1 and hidden else None
-    if launches == 1 and hidden and took != route:
+                           n_cls) if launches == 1 and hidden else None
+    if launches == 1 and hidden and took.name != route:
         raise AssertionError(f"temporal_scan at {hidden}: route {took}, "
                              f"want {route}")
+    before = None
+    if took is not None and took.name == "regs":   # the parent's kernel
+        dev = args[0].device
+        smem = ops.ScanRoute("smem", 1, 1)
+
+        def run_smem():
+            return ops._scan_launch(*args, dev=dev, route=smem, **kw)
+
+        if not same(run_smem(), want):
+            raise AssertionError(f"the shared-memory scan != plain at "
+                                 f"T={n_steps} B={batch} {hidden}")
+        before = graph_ms(run_smem)
+    ms = graph_ms(run)
+    links = n_steps * (len(hidden) + 1)
     row = {
         "kernel": "temporal_scan",
         "shape": f"{n_steps}x{batch}x" + ":".join(map(str, (*hidden, n_cls))),
         "leak": leak, "reset": reset, "refractory": refractory,
-        "route": took, "launches": launches, "max_abs_err": err,
-        "chain_links": n_steps * (len(hidden) + 1),
+        "route": took.name if took else None,
+        "geometry": ({"steps": took.steps, "warps": ops.SCAN_WARPS,
+                      "rows": ops.SCAN_ROWS} if took and took.name == "regs"
+                     else None),
+        "launches": launches, "max_abs_err": err, "chain_links": links,
         "fired": int(sum(int(w.sum()) for w in got[2])) if telemetry else None,
-        "ms": graph_ms(run), "call_ms": call_ms(run),
+        "ms": ms, "call_ms": call_ms(run), "before_ms": before,
+        "clocks_per_link": ms * 1e-3 * card.max_sm_mhz * 1e6 / links,
         # the plain version is ~100 launches a step: two calls a graph
         "plain_ms": graph_ms(lambda: ops.temporal_scan_ref(*args, **kw),
                              calls=2, replays=3),
-        "bound_ms": bound_ms, "bound_by": bound_by, "library_ms": None,
+        **scan_bound(card, hidden, n_cls, n_steps, batch, True, telemetry),
+        "library_ms": None,
     }
     print("kernel_check " + json.dumps(row), flush=True)
     kernels.append(row)
+
+
+def scan_sass(report) -> dict:
+    """Per instantiation of the register route's kernel
+    (``scan_regs_kernel<tiles, K steps, warps, streams, refractory,
+    subtract>``): ``ptxas`` registers, stack and spill bytes.  Raises
+    unless the paper shape's (3 tiles, 1 K step, at ``ops.SCAN_WARPS``
+    warps and ``ops.SCAN_ROWS`` streams) has neither stack nor spills."""
+    import re
+
+    from repro_torch.kernels.lif_step import ops
+
+    found, name = {}, None
+    for line in report.ptxas.splitlines():
+        if "Compiling entry function" in line:
+            name = line.split("'")[1]
+            continue
+        m = name and re.search(
+            r"scan_regs_kernelILi(\d+)ELi(\d+)ELi(\d+)ELi(\d+)ELb(\d)ELb(\d)E",
+            name)
+        if not m:
+            continue
+        key = "x".join(m.groups()[:4]) + ("/refr" if m.group(5) == "1"
+                                          else "") + (
+            "/sub" if m.group(6) == "1" else "")
+        row = found.setdefault(key, {})
+        if "registers" in line:
+            row["registers"] = int(re.search(r"Used (\d+) registers",
+                                             line).group(1))
+        if "spill" in line:
+            row["stack_bytes"] = int(re.search(r"(\d+) bytes stack frame",
+                                               line).group(1))
+            row["spill_bytes"] = sum(
+                int(x) for x in re.findall(r"(\d+) bytes spill", line))
+    paper = f"3x1x{ops.SCAN_WARPS}x{ops.SCAN_ROWS}"
+    bad = {k: v for k, v in found.items() if k.split("/")[0] == paper
+           and (v.get("spill_bytes") or v.get("stack_bytes"))}
+    if bad or not any(k.split("/")[0] == paper for k in found):
+        raise AssertionError(f"scan_regs_kernel at the paper shape: {bad}, "
+                             f"instantiations {sorted(found)}")
+    print("scan_sass " + json.dumps(found), flush=True)
+    return found
 
 
 def _spike_rows(rng, batch: int, n: int, dtype):
@@ -2379,13 +2452,15 @@ def profile_events(net, requests, temporal) -> dict:
     launches = sum(e.count for e in on_device)
     rounds = eng.stats()["rounds_event"]
     top = sorted(on_device, key=lambda e: -e.self_device_time_total)[:10]
-    # a round's device work: the scan, tile 0's MAC (popcount_mac runs the
-    # popcount_fire kernel), and the rest (the events' loads, the offset
-    # add, the telemetry's cost model, copies)
+    # a round's device work: the scan (either of temporal_scan's kernels),
+    # tile 0's MAC (popcount_mac runs the popcount_fire kernel), and the
+    # rest (the events' loads, the offset add, the telemetry's cost model,
+    # copies)
     split = {"scan": 0, "tile0": 0, "rest": 0}
     split_ms = dict.fromkeys(split, 0.0)
     for e in on_device:
-        part = ("scan" if "temporal_scan" in e.key else
+        part = ("scan" if "temporal_scan" in e.key
+                or "scan_regs_kernel" in e.key else
                 "tile0" if "popcount_fire" in e.key else "rest")
         split[part] += e.count
         split_ms[part] += e.self_device_time_total / 1e3
@@ -2605,6 +2680,7 @@ def main() -> int:
     launch_floor(floor_build)
     tile_sass(reports)
     epoch_sass(next(r for r in reports if r.name == "stdp"))
+    scan_sass(next(r for r in reports if r.name == "lif_step"))
 
     # 3. kernels vs plain, on the card
     from repro_torch.core import packing
@@ -2768,27 +2844,42 @@ def main() -> int:
                     check_lif(card, rng, batch, n, leak, reset, refractory,
                               lif_rows)
     # the event round's scan: the event path's shapes (T 4, 8 and 16 at
-    # B 64), ragged rounds, 0 and 1 hidden tiles, each reset mode with
-    # refractory 2, and its three routes: planes and state in shared
-    # memory, planes past it (read from device memory), state past it too
-    # (a device scratch)
+    # B 64) on the register route, ragged rounds, 0 and 1 hidden tiles,
+    # each reset mode with refractory 2, the register route's edges
+    # (streams around its clusters of 8 and 16, widths around a K step of
+    # 256, 4 hidden tiles and 5, past it), and the shared-memory kernel's
+    # three routes: planes and state in shared memory, planes past it
+    # (read from device memory), state past it too (a device scratch)
     scan_rows = []
     for n_steps in EVENT_STEPS:
         check_scan(card, rng, PAPER_HIDDEN, EVENT_BATCH, n_steps, scan_rows)
     for batch in (1, 7):
         check_scan(card, rng, PAPER_HIDDEN, batch, 8, scan_rows)
-    for hidden in ((), (256,)):
+    check_scan(card, rng, (), EVENT_BATCH, 8, scan_rows)
+    check_scan(card, rng, (256,), EVENT_BATCH, 8, scan_rows)
+    for batch in (15, 16, 17, 33):
+        check_scan(card, rng, PAPER_HIDDEN, batch, 8, scan_rows,
+                   refractory=3, reset="subtract")
+    for hidden in ((256, 255), (256,), (256, 257), (256,) * 4):
         check_scan(card, rng, hidden, EVENT_BATCH, 8, scan_rows)
-    check_scan(card, rng, (2048, 2048), 9, 4, scan_rows, route=(0, 1))
-    check_scan(card, rng, (16384, 16384), 2, 2, scan_rows, route=(0, 0))
+    for hidden in ((255,), (257,), (256,) * 5):
+        check_scan(card, rng, hidden, EVENT_BATCH, 8, scan_rows,
+                   route="smem")
+    check_scan(card, rng, (2048, 2048), 9, 4, scan_rows,
+               route="planes_global")
+    check_scan(card, rng, (16384, 16384), 2, 2, scan_rows,
+               route="state_global")
     for reset in ("zero", "subtract"):
         check_scan(card, rng, PAPER_HIDDEN, EVENT_BATCH, 16, scan_rows,
                    reset=reset, refractory=2)
-    # hidden widths that are not multiples of 32, and a stack deeper than
-    # one launch takes (two launches and a popcount_mac)
-    for hidden, batch in (((31,), 2), ((37, 70, 33), 5), ((129, 255), 64)):
+    # hidden widths that are not multiples of 32 (a first width that is not
+    # a multiple of 4 takes the shared-memory route), and a stack deeper
+    # than one launch takes (two launches and a popcount_mac)
+    for hidden, batch, route in (((31,), 2, "smem"), ((36, 70, 33), 5, "regs"),
+                                 ((37, 70, 33), 5, "smem"),
+                                 ((129, 255), 64, "smem")):
         check_scan(card, rng, hidden, batch, 3, scan_rows, leak=0.7,
-                   reset="subtract", refractory=3)
+                   reset="subtract", refractory=3, route=route)
     check_scan(card, rng, (9, 40) * 17, 3, 2, scan_rows, n_cls=5)
     # popcount_mac at the event path's shapes: tile 0 over a round of T 4,
     # 8 and 16 (the scan's first operand); and the per-step shapes of the

@@ -8,12 +8,22 @@ reference's ``lif_step`` op.  CPU tensors run the plain versions in
 ``ref.py``; CUDA tensors launch ``csrc/lif_step.cu`` (built by
 ``kernels/_build.py`` at first use) or the call raises.  Launches are
 counted (:func:`launch_counts`).
+
+The scan takes one of four routes, picked by shape (:func:`_scan_route`),
+never on a failure: ``regs`` (``scan_regs_kernel``: a cluster of one CTA a
+hidden tile, and one for the readout, pipelines ``SCAN_ROWS`` streams on
+the b1 tensor-core product, membranes and planes in registers, up to 4
+hidden tiles of up to 256 neurons or 2 of up to 512, ``_REG_ROUTES``),
+then the one-block-a-stream kernel with planes and state in shared memory
+(``smem``), planes read from device memory (``planes_global``) or the
+state in a device scratch too (``state_global``).
 """
 
 from __future__ import annotations
 
 import ctypes
 import functools
+from typing import NamedTuple
 
 import torch
 
@@ -54,6 +64,30 @@ _ROW_GROUP = 128
 
 #: resident blocks per SM the grid-stride launch asks for at most
 _BLOCKS_PER_SM = 8
+#: the register route's geometry (``kScanWarps``, ``kScanRows``): compute
+#: warps a CTA (a tile) and streams a cluster, the rows 8-15 of the b1
+#: product zero: twice the clusters of 16 streams, and faster than 16
+#: streams or 4 warps at every event-path T (PERF.md,
+#: probes/scan_link_probe.py)
+SCAN_WARPS = 8
+SCAN_ROWS = 8
+#: (hidden tiles, K steps of 256 bits) the register route is instantiated
+#: for (``dispatch_regs``): widths up to 256 at any depth, 512 at up to two
+#: tiles; past that a thread's membranes, refractory counters, thresholds
+#: and planes no longer fit its registers (a tile of 1024 spills)
+_REG_ROUTES = frozenset({(1, 1), (2, 1), (3, 1), (4, 1), (1, 2), (2, 2)})
+
+
+class ScanRoute(NamedTuple):
+    """How one ``temporal_scan`` launch runs: ``name`` (``regs``, ``smem``,
+    ``planes_global``, ``state_global``), the shared-memory route's flags
+    and bytes a block, and the register route's K steps a MAC (0 on the
+    other routes)."""
+    name: str
+    planes_smem: int = 0
+    state_smem: int = 0
+    smem_bytes: int = 0
+    steps: int = 0
 
 
 def launch_counts() -> dict[str, int]:
@@ -75,6 +109,9 @@ def _declare(lib: ctypes.CDLL) -> None:
     lib.temporal_scan.argtypes = [vp, i32, i32, i32, ip, i32, vp, vp, vp, vp,
                                   vp, vp, f, i32, i32, i32, i32, vp]
     lib.temporal_scan.restype = i32
+    lib.temporal_scan_regs.argtypes = [vp, i32, i32, i32, ip, i32, vp, vp,
+                                       vp, vp, vp, f, i32, i32, i32, vp]
+    lib.temporal_scan_regs.restype = i32
     lib.temporal_scan_smem_bytes.argtypes = [i32, ip, i32, i32, i32]
     lib.temporal_scan_smem_bytes.restype = ctypes.c_longlong
     lib.temporal_scan_smem_optin.argtypes = [i32]
@@ -176,20 +213,37 @@ def _check_scan(c_in, planes, vth, telemetry) -> None:
                              f"{_ROW_GROUP}-spike row groups, got {n}")
 
 
+def _regs_route(hidden: tuple, n_cls: int) -> ScanRoute | None:
+    """The register route, or None where the depth, the widths or the
+    readout are past what it is instantiated for, or the first width is
+    not a multiple of 4 (pure)."""
+    steps = -(-max(hidden, default=0) // 256)   # K steps of 256 bits
+    # tile 0's c_in rows come in one bulk copy a step: whole 16-byte rows
+    if (not hidden or (len(hidden), steps) not in _REG_ROUTES
+            or hidden[0] % 4 or not 1 <= n_cls <= 8 * SCAN_WARPS):
+        return None
+    return ScanRoute("regs", steps=steps)
+
+
 @functools.lru_cache(maxsize=None)
-def _scan_route(device_index: int, hidden: tuple,
-                n_cls: int) -> tuple[int, int, int]:
-    """(planes in shared memory, state in shared memory, bytes): the first
-    of the kernel's routes whose block fits the card's opt-in shared
-    memory.  The planes leave it first, then the state."""
+def _scan_route(device_index: int, hidden: tuple, n_cls: int) -> ScanRoute:
+    """The route one launch takes: the register route where it is
+    instantiated for the shape, else the first of the shared-memory
+    kernel's routes whose block fits the card's opt-in shared memory (the
+    planes leave it first, then the state)."""
+    regs = _regs_route(hidden, n_cls)
+    if regs is not None:
+        return regs
     kl = _library()
     arr = (ctypes.c_int * max(1, len(hidden)))(*hidden)
     limit = kl.lib.temporal_scan_smem_optin(device_index)
-    for planes_smem, state_smem in ((1, 1), (0, 1), (0, 0)):
+    for name, planes_smem, state_smem in (("smem", 1, 1),
+                                          ("planes_global", 0, 1),
+                                          ("state_global", 0, 0)):
         need = kl.lib.temporal_scan_smem_bytes(len(hidden), arr, n_cls,
                                                planes_smem, state_smem)
         if 0 <= need <= limit:
-            return planes_smem, state_smem, need
+            return ScanRoute(name, planes_smem, state_smem, need)
     raise ValueError(f"temporal_scan: no route fits {limit} B of shared "
                      f"memory at hidden widths {hidden}")
 
@@ -211,8 +265,8 @@ def temporal_scan(
     are any N >= 1 (``ceil(N/32)`` words a tile, zero tail bits); telemetry
     needs them in row groups of 128.
 
-    On the card it is one launch, one block a stream, for every
-    ``SCAN_MAX_HIDDEN`` hidden tiles (see ``_scan_in_launches``).
+    On the card it is one launch for every ``SCAN_MAX_HIDDEN`` hidden
+    tiles (see ``_scan_in_launches``), on the route ``_scan_route`` picks.
     """
     if reset not in RESET_MODES:
         raise ValueError(f"reset {reset!r} not in {RESET_MODES}")
@@ -259,9 +313,10 @@ def _scan_in_launches(c_in, planes, vth, *, scan=None,
 
 
 def _scan_launch(c_in, planes, vth, *, dev, leak: float, reset: str,
-                 refractory: int, collect: bool, telemetry: bool):
+                 refractory: int, collect: bool, telemetry: bool,
+                 route: ScanRoute | None = None):
     """One ``temporal_scan`` launch over at most ``SCAN_MAX_HIDDEN`` hidden
-    tiles of any width."""
+    tiles of any width, on ``route`` (default: ``_scan_route``'s)."""
     hidden = [int(th.shape[0]) for th in vth]
     n_cls = int(planes[-1].shape[0]) if planes else int(c_in.shape[-1])
     T, B, _ = c_in.shape
@@ -279,19 +334,28 @@ def _scan_launch(c_in, planes, vth, *, dev, leak: float, reset: str,
     ptrs = ctypes.c_void_p * max(1, k)
     kl = _library()
     with torch.cuda.device(dev):
-        planes_smem, state_smem, _ = _scan_route(dev.index, tuple(hidden),
-                                                 n_cls)
-        scratch = None if state_smem else torch.empty(
-            (B, 2 * sum(hidden) + n_cls), dtype=torch.float32, device=dev)
-        err = kl.lib.temporal_scan(
+        route = route or _scan_route(dev.index, tuple(hidden), n_cls)
+        if route.name == "regs" and c_in.data_ptr() % 16:
+            # a view at an offset: the register route's bulk copies take
+            # 16-byte aligned rows
+            c_in = c_in.clone()
+        common = (
             c_in.data_ptr(), T, B, k, (ctypes.c_int * max(1, k))(*hidden),
             n_cls, ptrs(*(w.data_ptr() for w in planes)),
             ptrs(*(th.data_ptr() for th in vth)),
             None if words is None else ptrs(*(w.data_ptr() for w in words)),
             None if loads is None else ptrs(*(ld.data_ptr() for ld in loads)),
-            out_v.data_ptr(), None if scratch is None else scratch.data_ptr(),
-            decay_of(leak), int(reset == "subtract"), refractory,
-            planes_smem, state_smem, stream_ptr(dev))
+            out_v.data_ptr())
+        dyn = (decay_of(leak), int(reset == "subtract"), refractory)
+        if route.name == "regs":
+            err = kl.lib.temporal_scan_regs(*common, *dyn, route.steps,
+                                            stream_ptr(dev))
+        else:
+            scratch = None if route.state_smem else torch.empty(
+                (B, 2 * sum(hidden) + n_cls), dtype=torch.float32, device=dev)
+            err = kl.lib.temporal_scan(
+                *common, None if scratch is None else scratch.data_ptr(),
+                *dyn, route.planes_smem, route.state_smem, stream_ptr(dev))
     _build.check(kl, err, "temporal_scan launch")
     _LAUNCHES["temporal_scan"] += 1
     return out_v, words, loads

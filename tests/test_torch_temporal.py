@@ -134,6 +134,26 @@ def test_lif_step_matches_jitted_reference(leak, reset, refractory):
             np.testing.assert_array_equal(g.numpy(), w)
 
 
+#: the single step's ragged shapes: N not a multiple of 4, B x N not a
+#: multiple of 4 (1-3 elements past the last 16 bytes), one element
+LIF_RAGGED = [(7, 99), (3, 5), (5, 6), (1, 1), (2, 3)]
+
+
+@pytest.mark.parametrize("shape", LIF_RAGGED, ids=lambda s: f"{s[0]}x{s[1]}")
+@pytest.mark.parametrize("reset,refractory", [("zero", 0), ("subtract", 2)])
+def test_lif_step_ragged_shapes_match_jitted_reference(shape, reset,
+                                                       refractory):
+    """Ragged shapes, bit for bit against jax.jit(lif_step_ref) through the
+    CPU wrapper."""
+    B, N = shape
+    ops = _lif_operands(B * N + refractory, B, N, refractory)
+    kw = dict(leak=0.125, reset=reset, refractory=refractory)
+    want = [np.asarray(a) for a in _jit_lif(*map(jnp.asarray, ops), **kw)]
+    got = lif_ops.lif_step(*map(torch.from_numpy, ops), **kw)
+    for g, w in zip(got, want):
+        np.testing.assert_array_equal(g.numpy(), w)
+
+
 @pytest.mark.parametrize("leak", [0.1, 0.125, 0.3])
 def test_lif_step_single_rounding_on_wide_membranes(leak):
     """Membranes far from the threshold, every bit of the leak-integrate
@@ -352,6 +372,86 @@ def test_temporal_scan_wrapper_checks_and_counts():
         lif_ops.temporal_scan(c_in, (planes[0].to(meta), planes[1]), vth)
     with pytest.raises(ValueError, match="different devices"):
         lif_ops.temporal_scan(c_in.to(meta), planes, vth)
+
+
+#: the register route's edges: streams around its clusters of 8 and 16 (a
+#: ragged last cluster), hidden widths around a K step of 256 bits (first
+#: and second tile), 4 hidden tiles (its depth) and 5 (past it: the
+#: shared-memory route)
+EDGE_TOPOLOGIES = [
+    ((100, 256, 256, 10), 15), ((100, 256, 256, 10), 16),
+    ((100, 256, 256, 10), 17), ((100, 256, 256, 10), 33),
+    ((100, 255, 10), 16), ((100, 256, 10), 16), ((100, 257, 10), 16),
+    ((100, 256, 255, 10), 16), ((100, 256, 257, 10), 16),
+    ((128,) * 5 + (10,), 5), ((128,) * 6 + (10,), 5),
+]
+
+
+@pytest.mark.parametrize("topo,batch", EDGE_TOPOLOGIES, ids=lambda x: (
+    ":".join(map(str, x)) if isinstance(x, tuple) else f"B{x}"))
+@pytest.mark.parametrize("reset,refractory", [("zero", 0), ("subtract", 3)])
+def test_temporal_scan_register_route_edges(topo, batch, reset, refractory):
+    """temporal_scan_ref (fed tile 0's MAC) and temporal_forward against the
+    reference's temporal_forward, bit for bit, at the shapes where the
+    card's register route changes its geometry: logits, every hidden
+    tile's spike words, and their loads where the widths are row groups of
+    128, at T 4, leak 0.125."""
+    from repro_torch.core.esam import temporal as ttemporal
+    from repro_torch.kernels.lif_step.ref import temporal_scan_ref
+
+    cfg, jcfg = _configs(n_steps=4, leak=0.125, reset=reset,
+                         refractory=refractory)
+    ref, net = _pair(topo, batch + len(topo) + refractory)
+    ev = _events(batch + refractory, 4, batch, topo[0], rate=0.35)
+    telemetry = all(n % 128 == 0 for n in topo[1:-1])
+    flags = dict(collect=True, telemetry=telemetry)
+    want = jtemporal.temporal_forward(
+        ref.weight_bits, ref.vth, ref.out_offset,
+        jnp.asarray(jpacking.pack_spikes_np(ev)), jcfg, **flags)
+    kw = dict(leak=0.125, reset=reset, refractory=refractory)
+    c_in, planes, vth = _scan_operands(net, ev)
+    out_v, words, loads = temporal_scan_ref(c_in, planes, vth, **kw, **flags)
+    got = ttemporal.temporal_forward(
+        ttemporal.mac_operands(net.weight_bits), net.vth, net.out_offset,
+        packing.words_from_np(packing.pack_spikes_np(ev)), cfg, topo, **flags)
+    for logits in (out_v + net.out_offset, got["logits"]):
+        np.testing.assert_array_equal(logits.numpy(),
+                                      np.asarray(want["logits"]))
+    _assert_planes_equal([p.transpose(0, 1) for p in words],
+                         want["planes"][1:])
+    _assert_planes_equal(got["planes"], want["planes"])
+    if telemetry:
+        _assert_loads_equal([x.transpose(0, 1) for x in loads],
+                            want["loads"][1:])
+        _assert_loads_equal(got["loads"], want["loads"])
+
+
+@pytest.mark.parametrize("hidden,n_cls,want", [
+    ((256, 256, 256), 10, ("regs", 1)),     # the paper's
+    ((256, 255), 10, ("regs", 1)),
+    ((256, 257), 10, ("regs", 2)),          # a second K step
+    ((512, 512), 10, ("regs", 2)),
+    ((256,) * 4, 10, ("regs", 1)),          # the route's depth
+    ((256,), 64, ("regs", 1)),              # 8 readout tiles
+    ((4,), 1, ("regs", 1)),
+    ((256,), 65, None),                     # readout too wide
+    ((256,) * 5, 10, None),                 # too deep
+    ((260, 255, 256), 10, None),            # 512 at three tiles
+    ((255,), 10, None),                     # c_in rows not 16 B
+    ((257, 256), 10, None),
+    ((1024,), 10, None),                    # past the registers
+    ((2048, 2048), 10, None),
+    ((), 10, None),                         # no hidden tile
+])
+def test_scan_register_route_by_shape(hidden, n_cls, want):
+    """Which shapes the register route takes (pure; the card's routes past
+    it are held in test_torch_temporal_cuda.py): depth, widths and readout
+    within what it is instantiated for."""
+    route = lif_ops._regs_route(hidden, n_cls)
+    if want is None:
+        assert route is None
+    else:
+        assert (route.name, route.steps) == want
 
 
 #: hidden widths that are not multiples of 32 (the reference computes them)

@@ -8,10 +8,13 @@ JAX package is not installed:
     PYTHONPATH=src python -m pytest -q -m cuda tests/test_torch_temporal_cuda.py
 
 ``lif_step`` against ``lif_step_ref`` (ties at the threshold, thresholds at
-2^31 - 1, every leak, reset and refractory setting); ``temporal_scan``
-against ``temporal_scan_ref`` at the event path's rounds, ragged ones,
-hidden widths that are not multiples of 32, a stack deeper than one launch
-takes, and on each of its shared-memory routes; the temporal plan on the
+2^31 - 1, every leak, reset and refractory setting, N and B N not
+multiples of 4, operands at an offset); ``temporal_scan`` against
+``temporal_scan_ref`` at the event path's rounds, ragged ones, hidden
+widths that are not multiples of 32, a stack deeper than one launch takes,
+the register route's edges (streams around its clusters of 8 and 16,
+widths around a K step, 4 and 5 hidden tiles, c_in at an offset) and on
+each route, which each shape is asserted to take; the temporal plan on the
 card (one ``popcount_mac`` and one ``temporal_scan`` a call) against the
 same network on the CPU, built from numpy draws.  The plain versions are
 held against the reference in ``test_torch_temporal.py``."""
@@ -71,7 +74,8 @@ def cuda():
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("shape", [(64, 256), (4096, 256), (1, 1), (7, 100)])
+@pytest.mark.parametrize("shape", [(64, 256), (4096, 256), (1, 1), (7, 100),
+                                   (7, 99), (3, 5), (5, 6), (2, 3)])
 @pytest.mark.parametrize("leak", [0.0, 0.125, 0.3])
 @pytest.mark.parametrize("reset", ["zero", "subtract"])
 @pytest.mark.parametrize("refractory", [0, 2])
@@ -84,6 +88,25 @@ def test_cuda_lif_step_matches_plain(cuda, shape, leak, reset, refractory):
     lif_ops.reset_launch_counts()
     got = lif_ops.lif_step(*ops, **kw)
     assert lif_ops.launch_counts() == {"lif_step": 1, "temporal_scan": 0}
+    for g, w in zip(got, lif_step_ref(*ops, **kw)):
+        assert g.dtype == w.dtype and torch.equal(g, w)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape", [(64, 256), (7, 99)])
+@pytest.mark.parametrize("offset", [1, 2])
+def test_cuda_lif_step_at_an_offset(cuda, shape, offset):
+    """Operands that are views at an offset (not 16-byte aligned), with the
+    same bits."""
+    B, N = shape
+    arrays = _lif_operands(offset + N, B, N, 2)
+    ops = []
+    for a in arrays:
+        flat = torch.from_numpy(np.concatenate(
+            [np.zeros(offset, a.dtype), a.ravel()])).to(cuda)
+        ops.append(flat[offset:].view(a.shape))
+    kw = dict(leak=0.125, reset="subtract", refractory=2)
+    got = lif_ops.lif_step(*ops, **kw)
     for g, w in zip(got, lif_step_ref(*ops, **kw)):
         assert g.dtype == w.dtype and torch.equal(g, w)
 
@@ -158,19 +181,77 @@ def test_cuda_temporal_scan_matches_plain(cuda, hidden, batch, n_steps, leak,
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("hidden,batch,n_steps,planes_smem,state_smem", [
-    ((2048, 2048), 9, 4, False, True),      # planes past shared memory
-    ((16384, 16384), 2, 2, False, False),   # state past it as well
+@pytest.mark.parametrize("hidden,batch,n_steps,route", [
+    ((2048, 2048), 9, 4, "planes_global"),   # planes past shared memory
+    ((16384, 16384), 2, 2, "state_global"),  # state past it as well
 ])
 def test_cuda_temporal_scan_past_shared_memory(cuda, hidden, batch, n_steps,
-                                               planes_smem, state_smem):
-    route = lif_ops._scan_route(torch.cuda.current_device(), hidden, 10)
-    assert route[:2] == (planes_smem, state_smem)
+                                               route):
+    took = lif_ops._scan_route(torch.cuda.current_device(), hidden, 10)
+    assert took.name == route
     ops = _random_scan_operands(11, hidden, 10, n_steps, batch, cuda)
     kw = dict(leak=0.125, reset="zero", refractory=2, collect=True,
               telemetry=True)
     _assert_scan_equal(lif_ops.temporal_scan(*ops, **kw),
                        lif_ops.temporal_scan_ref(*ops, **kw))
+
+
+#: the register route's edges, each with the route it must take: streams
+#: around its clusters of 8 and 16, widths around a K step (a first width
+#: that is not a multiple of 4 takes the shared-memory route), 4 and 5
+#: hidden tiles
+SCAN_EDGES = [
+    (PAPER_HIDDEN, 15, "regs"), (PAPER_HIDDEN, 16, "regs"),
+    (PAPER_HIDDEN, 17, "regs"), (PAPER_HIDDEN, 33, "regs"),
+    ((255,), 16, "smem"), ((256,), 16, "regs"), ((257,), 16, "smem"),
+    ((256, 255), 17, "regs"), ((256, 257), 17, "regs"),
+    ((252, 129, 256), 17, "regs"), ((255, 129, 256), 17, "smem"),
+    ((256, 256, 257), 17, "smem"), ((1024,), 5, "smem"), ((512, 512), 3, "regs"),
+    ((256,) * 4, 17, "regs"), ((256,) * 5, 17, "smem"),
+    ((128, 384), 33, "regs"), ((512, 512, 512), 3, "smem"),
+]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("hidden,batch,route", SCAN_EDGES)
+@pytest.mark.parametrize("leak,reset,refractory", [
+    (0.125, "zero", 0), (0.7, "subtract", 3)])
+def test_cuda_temporal_scan_register_route_edges(cuda, hidden, batch, route,
+                                                 leak, reset, refractory):
+    """The kernel against its plain version at the register route's edges,
+    and the route each shape takes."""
+    took = lif_ops._scan_route(torch.cuda.current_device(), hidden, 10)
+    assert took.name == route
+    ops = _random_scan_operands(batch + len(hidden), hidden, 10, 5, batch,
+                                cuda)
+    kw = dict(leak=leak, reset=reset, refractory=refractory, collect=True,
+              telemetry=all(n % 128 == 0 for n in hidden))
+    lif_ops.reset_launch_counts()
+    _assert_scan_equal(lif_ops.temporal_scan(*ops, **kw),
+                       lif_ops.temporal_scan_ref(*ops, **kw))
+    assert lif_ops.launch_counts()["temporal_scan"] == 1
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("hidden,batch", [(PAPER_HIDDEN, 64),
+                                          (PAPER_HIDDEN, 17), ((256,), 7)])
+@pytest.mark.parametrize("offset", [1, 2, 3])
+def test_cuda_temporal_scan_c_in_at_an_offset(cuda, hidden, batch, offset):
+    """c_in as a contiguous view at an offset (not 16-byte aligned) on the
+    register route: the wrapper copies it to whole 16-byte rows, with the
+    plain version's bits."""
+    ops = _random_scan_operands(batch + offset, hidden, 10, 6, batch, cuda)
+    flat = torch.zeros(offset + ops[0].numel(), dtype=torch.int32,
+                       device=cuda)
+    flat[offset:] = ops[0].reshape(-1)
+    c_in = flat[offset:].view(ops[0].shape)
+    assert c_in.is_contiguous() and c_in.data_ptr() % 16
+    assert lif_ops._scan_route(torch.cuda.current_device(), hidden,
+                               10).name == "regs"
+    kw = dict(leak=0.125, reset="subtract", refractory=2, collect=True,
+              telemetry=True)
+    _assert_scan_equal(lif_ops.temporal_scan(c_in, *ops[1:], **kw),
+                       lif_ops.temporal_scan_ref(c_in, *ops[1:], **kw))
 
 
 @pytest.mark.cuda
