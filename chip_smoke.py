@@ -64,12 +64,29 @@ Phases; any failure raises, so the exit code is non-zero:
    it too; at hidden widths that are not multiples of 32, and at 34 hidden
    tiles, two launches), timed against its bounds and, on the register
    route, beside the shared-memory kernel on the same operands;
+   The round telemetry's two kernels (port-only, ``kernels/telemetry``):
+   ``tile_loads`` on a static round's four planes at B 8-128 and ragged B,
+   on an event round's tile 0 at T 4/8/16 x B 64, on all-zero and all-one
+   words and on a view that is not 16-byte aligned; ``request_stats`` at
+   B 1-333 and every cell option, with and without the logits, on
+   all-zero and all-full loads, and on event rounds at T 1/4/16, each bit
+   for bit and timed against its bytes bound;
 4. the serving path: ``repro_torch.launch.serve --esam`` at the paper
    topology 768:256:256:256:10, max_batch 128, telemetry on, 4096 digit
-   requests, with the launch counters set to 0 just before and read just
-   after; the served logits are held against the port's functional plan on
-   the card and the per-request cycles and energy against the float64 cost
-   model;
+   requests, as the reference's launcher serves (overlapped packer, fuse
+   auto), with the launch counters set to 0 just before and read just
+   after (one ``mega_cascade``, one ``tile_loads`` and one
+   ``request_stats`` a round); the served logits are held against the
+   port's functional plan on the card and the per-request cycles and
+   energy against the float64 cost model; then ``--warmup`` (its
+   ``COLDSTART`` line; graphs captured = buckets, replays = rounds, no
+   kernel launched while serving) and ``--no-overlap --fuse off``, all
+   three bit for bit alike; each drain's req/s with its spread (5 drains
+   each, in turns; a warmed synchronous engine beside them), and the
+   synchronous and warmed drains profiled
+   (device operations, copies and host launches a round: at most 6
+   device operations a synchronous round; a warmed round is one graph
+   replay, the input copy and one copy out);
 5. the one-tile path: a 768:10 network served through ``SpikeEngine``
    (``popcount_mac``), counted and checked the same way;
 6. the learning path: ``repro_torch.train.online.train_online`` on the paper
@@ -103,8 +120,11 @@ Phases; any failure raises, so the exit code is non-zero:
    (``temporal_forward_naive``: dense tiles, ``lif_step_ref``, no kernel),
    cycles and energy against
    the float64 cost model, and a T=1, zero-leak round against the packed
-   plan; the profiled drain splits its launches a round into the scan,
-   tile 0's MAC and the rest;
+   plan; the same streams through a fused, overlapped engine and a warmed
+   one (``warmup(event_ts=(4, 8, 16))``: a graph a (bucket, T)), bit for
+   bit alike, with steps/s and its spread; the synchronous and warmed
+   drains profiled (at most 8 device operations a synchronous round),
+   each round's launches split into the scan, tile 0's MAC and the rest;
 9. the kernel bench path: ``repro_torch.launch.bench_kernels.run`` (every
    lane of the reference's ``benchmarks/bench_kernels.py``: B10
    ``cim_matmul`` and ``esam_layer`` at 256 x 768 -> 256, B8 ``arbiter``,
@@ -114,9 +134,10 @@ Phases; any failure raises, so the exit code is non-zero:
    launch counter is set to 0 just before and held to the calls the bench
    reports just after (the bench times the plain versions by name, so none
    is forbidden here; every other phase forbids them all);
-10. one JSON line of the kernels (19: the 13 Pallas kernels' ports, the
-    column-event epoch's two kernels, the matrix-RNG epoch's three and the
-    event round's scan), then the result line.
+10. one JSON line of the kernels (21: the 13 Pallas kernels' ports, the
+    column-event epoch's two kernels, the matrix-RNG epoch's three, the
+    event round's scan, and the round telemetry's two), then the result
+    line.
 
 It needs a CUDA device and exits non-zero without one.
 """
@@ -1837,37 +1858,259 @@ def check_if_neuron(card, rng, batch, rounds, n, kernels, fill="random",
     kernels.append(row)
 
 
-def profile_serve(net, spikes) -> None:
-    """Where a drain's time goes on the device: the main path's traffic
-    served once more under torch.profiler; prints device time per kernel
-    name and the device's busy share of that same profiled drain's wall
-    time (profiler overhead included)."""
+#: tile input widths (words) of a paper-topology round: 768, 256, 256, 256
+PAPER_WORDS = tuple(n // 32 for n in PAPER_TOPOLOGY[:-1])
+
+
+def check_tile_loads(card, rng, shapes, kernels, fill="random",
+                     shift=False):
+    """tile_loads (every plane of a round in one launch) vs its plain
+    version: planes of int32 words of the given shapes, random, all zero
+    or all one; ``shift``: the first plane a view 4 bytes past an aligned
+    start (word loads)."""
+    import torch
+
+    from repro_torch.kernels.telemetry import ops
+
+    planes = []
+    for shape in shapes:
+        words = rng.integers(0, 2**32, size=shape, dtype=np.uint64)
+        if fill != "random":
+            words[...] = 0 if fill == "zeros" else 2**32 - 1
+        planes.append(torch.from_numpy(
+            words.astype(np.uint32).view(np.int32)).cuda())
+    if shift:
+        flat = planes[0].reshape(-1)
+        planes[0] = torch.cat([flat[:1], flat])[1:].view(shapes[0])
+    planes = tuple(planes)
+
+    def run():
+        return ops.tile_loads(planes)
+
+    ops.reset_launch_counts()
+    got = run()
+    if ops.launch_counts()["tile_loads"] != 1:
+        raise AssertionError(f"tile_loads launches {ops.launch_counts()}")
+    want = ops.tile_loads_ref(planes)
+    torch.cuda.synchronize()
+    err = max(_word_err(g, w) for g, w in zip(got, want))
+    if err or not all(torch.equal(g, w) for g, w in zip(got, want)):
+        raise AssertionError(f"tile_loads != plain at {shapes} {fill} "
+                             f"shift={shift}: err={err}")
+    words = sum(int(np.prod(sh)) for sh in shapes)
+    # every word read once, a load a row group written; a popc a word
+    bound_ms, bound_by = card.bound(4 * words + words, words)
+    row = {
+        "kernel": "tile_loads", "shape": "+".join(
+            "x".join(map(str, sh)) for sh in shapes),
+        "fill": fill, "shift": shift, "max_abs_err": err,
+        "ms": graph_ms(run), "call_ms": call_ms(run),
+        "plain_ms": graph_ms(lambda: ops.tile_loads_ref(planes)),
+        "bound_ms": bound_ms, "bound_by": bound_by,
+        # no PyTorch call counts set bits (torch has no popcount)
+        "library_ms": None,
+    }
+    print("kernel_check " + json.dumps(row), flush=True)
+    kernels.append(row)
+
+
+def check_request_stats(card, rng, batch, kernels, read_ports=4, steps=None,
+                        fill="random", logits=True):
+    """request_stats (the cost model of a round in one launch) vs its
+    plain version, bit for bit: paper-topology loads of ``batch`` requests
+    (``steps``: event streams, time-first loads handed in batch-first as
+    the temporal plan does), random, all zero or all full (128 a group),
+    with the logits carried into the slab or not."""
+    import torch
+
+    from repro_torch.core.esam import cost_model as cm
+    from repro_torch.kernels.telemetry import ops
+
+    loads = []
+    for k, n in zip(PAPER_TOPOLOGY[:-1], PAPER_TOPOLOGY[1:]):
+        g = cm.tile_geometry(k, n)[0]
+        shape = (batch, g) if steps is None else (steps, batch, g)
+        a = rng.integers(0, 129, size=shape, dtype=np.int32)
+        if fill != "random":
+            a[...] = 0 if fill == "zeros" else 128
+        t = torch.from_numpy(a).cuda()
+        loads.append(t if steps is None else t.transpose(0, 1))
+    lg = (torch.from_numpy(rng.normal(size=(batch, PAPER_TOPOLOGY[-1]))
+                           .astype(np.float32)).cuda() if logits else None)
+    temporal = steps is not None
+    n_tiles = len(PAPER_TOPOLOGY) - 1
+
+    def run():
+        return ops.request_stats(loads, PAPER_TOPOLOGY, read_ports,
+                                 temporal=temporal, logits=lg)
+
+    def plain():
+        fn = (ops.temporal_request_stats_ref if temporal
+              else ops.request_stats_ref)
+        return ops.stats_slab_ref(fn(PAPER_TOPOLOGY, loads, read_ports),
+                                  n_tiles, temporal, lg)
+
+    ops.reset_launch_counts()
+    got = run()
+    if ops.launch_counts()["request_stats"] != 1:
+        raise AssertionError(f"request_stats launches {ops.launch_counts()}")
+    want = plain()
+    torch.cuda.synchronize()
+    err = float((got - want).abs().max()) if got.numel() else 0.0
+    if not torch.equal(got, want):
+        raise AssertionError(f"request_stats != plain at B={batch} "
+                             f"T={steps} ports={read_ports} {fill}: "
+                             f"max_abs_err={err}")
+    n_loads = sum(int(ld.numel()) for ld in loads)
+    # loads and logits read once, the slab written; ~10 float32 operations
+    # a (request, step, tile) and 2 integer ones a load
+    n_bytes = 4 * n_loads + (lg.numel() * 4 if logits else 0) + 4 * got.numel()
+    n_rows = batch * (steps or 1)
+    bound_ms, bound_by = card.bound(n_bytes, 10 * n_rows * n_tiles
+                                    + 2 * n_loads, F32_OPS_PER_S)
+    row = {
+        "kernel": "request_stats",
+        "shape": f"{batch}" + ("" if steps is None else f"x{steps}"),
+        "ports": read_ports, "fill": fill, "logits": logits,
+        "max_abs_err": err, "ms": graph_ms(run), "call_ms": call_ms(run),
+        "plain_ms": graph_ms(plain), "bound_ms": bound_ms,
+        "bound_by": bound_by,
+        # no single PyTorch call computes the cost model
+        "library_ms": None,
+    }
+    print("kernel_check " + json.dumps(row), flush=True)
+    kernels.append(row)
+
+
+#: the CUDA runtime calls that start work on the card, as the profiler's
+#: host-side events name them
+HOST_LAUNCH_CALLS = ("cudaLaunchKernel", "cudaLaunchKernelExC",
+                     "cuLaunchKernel", "cuLaunchKernelEx")
+
+
+def profile_drain(eng, reqs, what: str, rounds_key: str) -> dict:
+    """Where a drain's time goes on the device: ``reqs`` served by ``eng``
+    under torch.profiler; device time per kernel name, the device's busy
+    share of that same profiled drain's wall time (profiler overhead
+    included), device operations (kernels and copies) a round, and the
+    host's launches a round: graph replays, kernel launches, copies."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
-    from repro_torch.serve.engine import SpikeEngine, SpikeRequest
-
-    eng = SpikeEngine(net, max_batch=BUCKET, telemetry=True, device="cuda")
-    reqs = [SpikeRequest(spikes=s) for s in spikes]
     torch.cuda.synchronize()
+    rounds0 = eng.stats()[rounds_key]
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
         eng.serve(reqs)
         profiled_wall_s = time.perf_counter() - t0
-    on_device = [e for e in prof.key_averages()
+    events = prof.key_averages()
+    on_device = [e for e in events
                  if e.device_type == torch.autograd.DeviceType.CUDA]
+    host = {e.key: e.count for e in events
+            if e.device_type == torch.autograd.DeviceType.CPU}
     device_s = sum(e.self_device_time_total for e in on_device) / 1e6
+    rounds = eng.stats()[rounds_key] - rounds0
+    copies = sum(e.count for e in on_device if e.key.startswith("Memcpy"))
+    ops = sum(e.count for e in on_device)
     top = sorted(on_device, key=lambda e: -e.self_device_time_total)[:10]
-    print("profile " + json.dumps({
-        "requests": len(reqs), "rounds": eng.stats()["rounds_static"],
+    row = {
+        "drain": what, "requests": len(reqs), "rounds": rounds,
         "device_s": device_s, "profiled_wall_s": profiled_wall_s,
         "device_busy_share": device_s / profiled_wall_s,
-        "device_kernels": len(on_device),
-        "device_launches": sum(e.count for e in on_device),
+        "device_kernels": len(on_device), "device_launches": ops,
+        "device_ops_per_round": ops / rounds,
+        "device_copies_per_round": copies / rounds,
+        "host_graph_launches_per_round":
+            host.get("cudaGraphLaunch", 0) / rounds,
+        "host_kernel_launches_per_round":
+            sum(host.get(k, 0) for k in HOST_LAUNCH_CALLS) / rounds,
+        "host_copies_per_round": host.get("cudaMemcpyAsync", 0) / rounds,
+        "graph_counts": eng.graph_counts(),
         "top": [{"name": e.key[:60], "count": e.count,
                  "device_ms": e.self_device_time_total / 1e3} for e in top],
-    }), flush=True)
+    }
+    return row
+
+
+def check_round_launches(what: str, sync_prof: dict, warm_prof: dict,
+                         most: int) -> None:
+    """From the host's CUDA calls a round (the profiler's host events,
+    exact where its device records may drop a round's): a synchronous
+    round launches at most ``most`` kernels and copies, the input copy
+    included; a warmed round is one graph replay, the input copy and one
+    copy out, and no kernel launch."""
+    eager = (sync_prof["host_kernel_launches_per_round"]
+             + sync_prof["host_copies_per_round"])
+    if eager > most:
+        raise AssertionError(f"{what} round: {eager} launches and copies, "
+                             f"want at most {most}")
+    warm = (warm_prof["host_graph_launches_per_round"],
+            warm_prof["host_kernel_launches_per_round"],
+            warm_prof["host_copies_per_round"])
+    if warm != (1.0, 0.0, 2.0):
+        raise AssertionError(f"warmed {what} round: (graph replays, kernel "
+                             f"launches, copies) {warm}, want (1, 0, 2)")
+
+
+def profile_serve(net, spikes, warm: bool = False) -> dict:
+    """The main path's traffic served once more under the profiler, by the
+    synchronous drain or (``warm``) a warmed, overlapped engine; prints a
+    ``profile`` line."""
+    from repro_torch.serve.engine import SpikeEngine, SpikeRequest
+
+    kw = dict(fuse_rounds="auto", overlap=True) if warm else {}
+    eng = SpikeEngine(net, max_batch=BUCKET, telemetry=True, device="cuda",
+                      **kw)
+    if warm:
+        eng.warmup()
+    row = profile_drain(eng, [SpikeRequest(spikes=s) for s in spikes],
+                        "warmed" if warm else "sync", "rounds_static")
+    eng.close()
+    print("profile " + json.dumps(row), flush=True)
+    return row
+
+
+def _spread(values) -> dict:
+    return {"min": min(values), "median": float(np.median(values)),
+            "max": max(values), "n": len(values)}
+
+
+def drain_walls(engines: dict, make, rate, repeats: int = 5) -> dict:
+    """Wall seconds of ``repeats`` drains of each engine, in turns (ABC,
+    CBA, ...), each ending with its results on the host; ``make()`` gives
+    fresh requests, ``rate(reqs, wall)`` the rate a drain reports.  One
+    drain of each first, untimed.  Returns each engine's rates with their
+    spread."""
+    import torch
+
+    names = list(engines)
+    for name in names:
+        engines[name].serve(make())
+    out = {name: [] for name in names}
+    for k in range(repeats):
+        for name in (names if k % 2 == 0 else names[::-1]):
+            reqs = make()
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            engines[name].serve(reqs)
+            out[name].append(rate(reqs, time.perf_counter() - t0))
+    return {name: _spread(v) for name, v in out.items()}
+
+
+def same_served(got, want, what: str) -> None:
+    """Two drains' results bit for bit: logits, labels, cycles, latency,
+    energy (and energy a step)."""
+    if len(got) != len(want):
+        raise AssertionError(f"{what}: {len(got)} results, want {len(want)}")
+    for r, q in zip(got, want):
+        if not (r.status == q.status == "done"
+                and np.array_equal(r.logits, q.logits) and r.label == q.label
+                and r.cycles == q.cycles and r.latency_ns == q.latency_ns
+                and r.energy_pj == q.energy_pj
+                and getattr(r, "energy_pj_per_step", None)
+                == getattr(q, "energy_pj_per_step", None)):
+            raise AssertionError(f"{what}: results differ")
 
 
 class PlainForbidden:
@@ -1894,6 +2137,9 @@ class PlainForbidden:
           "stdp_update_masks_ref")),
         ("repro_torch.kernels.arbiter.ops",
          ("port_schedule_ref", "arbiter_ref")),
+        ("repro_torch.kernels.telemetry.ops",
+         ("tile_loads_ref", "request_stats_ref",
+          "temporal_request_stats_ref", "stats_slab_ref")),
     )
 
     def __enter__(self):
@@ -2428,52 +2674,51 @@ def _event_rounds(requests, max_batch: int) -> int:
     return sum(-(-n // max_batch) for n in by_t.values())
 
 
-def profile_events(net, requests, temporal) -> dict:
+def profile_events(net, requests, temporal, warm: bool = False) -> dict:
     """Where an event drain's time goes: the timed streams served once more
-    under torch.profiler; device time per kernel, busy share of the same
-    profiled wall, launches per round."""
+    under torch.profiler, by the synchronous drain or (``warm``) a warmed,
+    overlapped engine (``profile_drain``), with each round's device
+    operations split into the scan, tile 0's MAC and the rest; prints an
+    ``events_profile`` line."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
     from repro_torch.serve.engine import EventRequest, SpikeEngine
 
+    kw = dict(fuse_rounds="auto", overlap=True) if warm else {}
     eng = SpikeEngine(net, max_batch=EVENT_BATCH, telemetry=True,
-                      temporal=temporal, device="cuda")
+                      temporal=temporal, device="cuda", **kw)
+    if warm:
+        eng.warmup(event_ts=EVENT_STEPS)
     reqs = [EventRequest(events=r.events) for r in requests]
+    rounds = _event_rounds(reqs, EVENT_BATCH)
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        t0 = time.perf_counter()
-        eng.serve(reqs)
-        wall_s = time.perf_counter() - t0
-    on_device = [e for e in prof.key_averages()
-                 if e.device_type == torch.autograd.DeviceType.CUDA]
-    device_s = sum(e.self_device_time_total for e in on_device) / 1e6
-    launches = sum(e.count for e in on_device)
-    rounds = eng.stats()["rounds_event"]
-    top = sorted(on_device, key=lambda e: -e.self_device_time_total)[:10]
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        eng.serve([EventRequest(events=r.events) for r in requests])
+        torch.cuda.synchronize()
     # a round's device work: the scan (either of temporal_scan's kernels),
     # tile 0's MAC (popcount_mac runs the popcount_fire kernel), and the
-    # rest (the events' loads, the offset add, the telemetry's cost model,
-    # copies)
+    # rest (tile 0's loads, the offset add, the cost model, copies)
     split = {"scan": 0, "tile0": 0, "rest": 0}
     split_ms = dict.fromkeys(split, 0.0)
-    for e in on_device:
+    for e in prof.key_averages():
+        if e.device_type != torch.autograd.DeviceType.CUDA:
+            continue
         part = ("scan" if "temporal_scan" in e.key
                 or "scan_regs_kernel" in e.key else
                 "tile0" if "popcount_fire" in e.key else "rest")
         split[part] += e.count
         split_ms[part] += e.self_device_time_total / 1e3
-    row = {
-        "streams": len(reqs), "rounds": rounds,
-        "timesteps": eng.stats()["timesteps_total"], "device_s": device_s,
-        "profiled_wall_s": wall_s, "device_busy_share": device_s / wall_s,
-        "device_launches": launches, "launches_per_round": launches / rounds,
+    row = profile_drain(eng, reqs, "warmed" if warm else "sync",
+                        "rounds_event")
+    eng.close()
+    if row["rounds"] != rounds:
+        raise AssertionError(f"profiled event drain: {row['rounds']} rounds,"
+                             f" want {rounds}")
+    row.update({
+        "streams": len(reqs), "timesteps": sum(r.n_steps for r in reqs),
         "launches_per_round_split": {k: v / rounds for k, v in split.items()},
-        "device_ms_split": split_ms,
-        "top": [{"name": e.key[:60], "count": e.count,
-                 "device_ms": e.self_device_time_total / 1e3} for e in top],
-    }
+        "device_ms_split": split_ms})
     print("events_profile " + json.dumps(row), flush=True)
     return row
 
@@ -2504,9 +2749,13 @@ def events_phase() -> dict:
         raise AssertionError(f"event path: topology {run.net.topology}, "
                              f"max_batch {eng.max_batch}, {eng._temporal}, "
                              f"rounds {st['rounds_event']} != {rounds}")
-    # one tile-0 MAC and one scan a round; no single LIF step
-    guard.expect("event path", {"temporal_scan": warm_rounds + rounds,
-                                "popcount_mac": warm_rounds + rounds})
+    # one tile-0 MAC, one scan, tile 0's loads and the cost model a round;
+    # no single LIF step
+    all_rounds = warm_rounds + rounds
+    guard.expect("event path", {"temporal_scan": all_rounds,
+                                "popcount_mac": all_rounds,
+                                "tile_loads": all_rounds,
+                                "request_stats": all_rounds})
 
     # the same streams on the CPU (the plain versions)
     cpu_net = EsamNetwork.from_numpy(*run.net.to_numpy(), device="cpu")
@@ -2572,7 +2821,56 @@ def events_phase() -> dict:
     if not np.array_equal(np.stack([r.logits for r in first]), packed):
         raise AssertionError("T=1 event round differs from the packed plan")
 
+    # the same streams through the reference launcher's serving defaults
+    # (fused, overlapped), cold and warmed (one CUDA graph a (bucket, T)),
+    # each on its own copy of the network (graphs live on its plans)
+    kw = dict(max_batch=EVENT_BATCH, telemetry=True, temporal=eng._temporal,
+              device="cuda", fuse_rounds="auto", overlap=True)
+    bits = run.net.to_numpy()
+    cold = SpikeEngine(EsamNetwork.from_numpy(*bits, device="cuda"), **kw)
+    warm = SpikeEngine(EsamNetwork.from_numpy(*bits, device="cuda"), **kw)
+    with PlainForbidden() as cold_guard:
+        cold_reqs = [EventRequest(events=r.events) for r in run.requests]
+        cold.serve(cold_reqs)
+        torch.cuda.synchronize()
+    cold_guard.expect("overlapped event path", {
+        k: rounds for k in ("temporal_scan", "popcount_mac", "tile_loads",
+                            "request_stats")})
+    with PlainForbidden() as warm_guard:
+        wt = warm.warmup(event_ts=EVENT_STEPS)
+        replays0 = warm.graph_counts()["replays"]
+        warm_reqs = [EventRequest(events=r.events) for r in run.requests]
+        warm.serve(warm_reqs)
+        torch.cuda.synchronize()
+    n_b = len(warm._buckets)
+    gc = warm.graph_counts()
+    if (wt["graphs"] != n_b * (1 + len(EVENT_STEPS))
+            or gc["captures"] != wt["graphs"]
+            or gc["replays"] - replays0 != rounds):
+        raise AssertionError(f"warmed event path: warmup {wt['graphs']} "
+                             f"graphs, counts {gc}, {rounds} rounds")
+    same_served(cold_reqs, run.requests, "overlapped event drain")
+    same_served(warm_reqs, run.requests, "warmed event drain")
+
+    def make():
+        return [EventRequest(events=r.events) for r in run.requests]
+
+    warm_sync = SpikeEngine(EsamNetwork.from_numpy(*bits, device="cuda"),
+                            max_batch=EVENT_BATCH, telemetry=True,
+                            temporal=eng._temporal, device="cuda")
+    warm_sync.warmup(event_ts=EVENT_STEPS)
+    walls = drain_walls(
+        {"sync": run.engine, "overlapped": cold, "warmed": warm,
+         "warmed_sync": warm_sync}, make,
+        lambda reqs, wall: sum(r.n_steps for r in reqs) / wall)
+    same_served(warm_sync.serve(make()), run.requests, "warmed sync drain")
+    cold.close()
+    warm.close()
     rest = run.wall_s - st["host_pack_s_total"] - st["dispatch_s_total"]
+    print("events_drains " + json.dumps({
+        "steps_per_s": walls, "warmup_s": wt["total_s"],
+        "graphs": wt["graphs"], "graph_counts": gc,
+        "warm_launches": warm_guard.counts}), flush=True)
     print("events " + json.dumps({
         "streams": len(run.requests), "rounds": st["rounds_event"],
         "timesteps": st["timesteps_total"], "wall_s": run.wall_s,
@@ -2585,8 +2883,128 @@ def events_phase() -> dict:
         "cpu_twin_wall_s": cpu_wall, "energy_max_rel_err": worst,
         "per_step_oracle_wall_s": oracle_wall,
         "launches": guard.counts}), flush=True)
-    profile_events(run.net, run.requests, eng._temporal)
+    sync_prof = profile_events(run.net, run.requests, eng._temporal)
+    warm_prof = profile_events(EsamNetwork.from_numpy(*bits, device="cuda"),
+                               run.requests, eng._temporal, warm=True)
+    check_round_launches("event", sync_prof, warm_prof, 8)
     return guard.counts
+
+
+def serving_phase() -> dict:
+    """Phase 4: the main path as the reference's launcher serves it
+    (overlapped packer, fuse auto), then the same requests warmed (one CUDA
+    graph a bucket) and through the synchronous drain, all against one
+    another and the functional plan; req/s with its spread; the
+    synchronous and warmed drains profiled.  Returns the main path's
+    launch counts."""
+    import torch  # noqa: F401
+
+    from repro_torch.core.esam.network import EsamNetwork
+    from repro_torch.launch import serve as serve_mod
+    from repro_torch.serve.engine import SpikeEngine, SpikeRequest
+
+    esam = ["--esam", "--requests", str(SERVE_REQUESTS), "--device", "cuda"]
+    telemetry_kernels = ("mega_cascade", "tile_loads", "request_stats")
+    with PlainForbidden() as guard:
+        run = serve_mod.main(esam)
+    st = run.engine.stats()
+    rounds = run.warm_rounds + st["rounds_static"]
+    guard.expect("serving path", dict.fromkeys(telemetry_kernels, rounds))
+    if (run.net.topology != PAPER_TOPOLOGY or not st["overlap"]
+            or st["fuse_rounds"] != 1):
+        raise AssertionError(f"served topology {run.net.topology}, "
+                             f"overlap {st['overlap']}, fuse "
+                             f"{st['fuse_rounds']}")
+    check_served(run.net, run.spikes, run.requests, 4)
+    main_counts = dict(guard.counts)
+    print(f"main path: {len(run.requests)} requests, {rounds} rounds, "
+          f"launches {guard.counts}, "
+          f"{len(run.requests) / run.wall_s:.1f} req/s wall, "
+          f"model {st['throughput_pipelined_inf_s'] / 1e6:.3f} MInf/s, "
+          f"{st['energy_pj_per_inf']:.3f} pJ/Inf", flush=True)
+    with PlainForbidden() as warm_guard:
+        warm_run = serve_mod.main(esam + ["--warmup"])
+    wst, weng = warm_run.engine.stats(), warm_run.engine
+    n_b = len(weng._buckets)
+    # warmup: each bucket once eagerly, its capture, the cost model's eager
+    # pass; the served rounds are replays only
+    warm_guard.expect("warmed serving path",
+                      dict.fromkeys(telemetry_kernels, 3 * n_b))
+    if (warm_run.warmup["graphs"] != n_b
+            or weng.graph_counts() != {"captures": n_b,
+                                       "replays": wst["rounds_static"]}):
+        raise AssertionError(f"warmed path: {warm_run.warmup['graphs']} "
+                             f"graphs for {n_b} buckets, counts "
+                             f"{weng.graph_counts()}, "
+                             f"{wst['rounds_static']} rounds")
+    with PlainForbidden() as sync_guard:
+        sync_run = serve_mod.main(esam + ["--no-overlap", "--fuse", "off"])
+    sync_rounds = sync_run.warm_rounds + sync_run.engine.stats()[
+        "rounds_static"]
+    sync_guard.expect("synchronous serving path",
+                      dict.fromkeys(telemetry_kernels, sync_rounds))
+    same_served(warm_run.requests, run.requests, "warmed drain")
+    same_served(sync_run.requests, run.requests, "synchronous drain")
+    check_served(warm_run.net, warm_run.spikes, warm_run.requests, 4)
+    bits = run.net.to_numpy()
+    cold_net = EsamNetwork.from_numpy(*bits, device="cuda")
+    engines = {
+        "sync": SpikeEngine(cold_net, max_batch=BUCKET, telemetry=True,
+                            device="cuda"),
+        "overlapped": SpikeEngine(cold_net, max_batch=BUCKET,
+                                  telemetry=True, device="cuda",
+                                  fuse_rounds="auto", overlap=True),
+        "warmed": SpikeEngine(EsamNetwork.from_numpy(*bits, device="cuda"),
+                              max_batch=BUCKET, telemetry=True,
+                              device="cuda", fuse_rounds="auto",
+                              overlap=True)}
+    # the graphs without the packer thread: a warmed synchronous drain
+    engines["warmed_sync"] = SpikeEngine(
+        EsamNetwork.from_numpy(*bits, device="cuda"), max_batch=BUCKET,
+        telemetry=True, device="cuda")
+    engines["warmed"].warmup()
+    engines["warmed_sync"].warmup()
+    walls = drain_walls(
+        engines, lambda: [SpikeRequest(spikes=x) for x in run.spikes],
+        lambda reqs, wall: len(reqs) / wall)
+    same_served(engines["warmed_sync"].serve(
+        [SpikeRequest(spikes=x) for x in run.spikes]), run.requests,
+        "warmed synchronous drain")
+    for eng in engines.values():
+        eng.close()
+    sync_prof = profile_serve(run.net, run.spikes)
+    warm_prof = profile_serve(
+        EsamNetwork.from_numpy(*bits, device="cuda"), run.spikes, warm=True)
+    check_round_launches("static", sync_prof, warm_prof, 6)
+    print("main path drains " + json.dumps({
+        "req_per_s": walls,
+        "launcher_req_per_s": {
+            "overlapped": run.timed / run.wall_s,
+            "warmed": warm_run.timed / warm_run.wall_s,
+            "sync": sync_run.timed / sync_run.wall_s},
+        "first_request_ms": warm_run.first_request_ms,
+        "warmup_s": warm_run.warmup["total_s"], "graphs": n_b,
+        "warm_launches": warm_guard.counts,
+        "sync_launches": sync_guard.counts}), flush=True)
+    print("main path host split: " + json.dumps({
+        drain: {"wall_s": r.wall_s,
+                "host_pack_s": r.engine.stats()["host_pack_s_total"],
+                "dispatch_s": r.engine.stats()["dispatch_s_total"],
+                "flush_and_rest_s": r.wall_s
+                - r.engine.stats()["host_pack_s_total"]
+                - r.engine.stats()["dispatch_s_total"],
+                "rounds": r.engine.stats()["rounds_static"]}
+        for drain, r in (("overlapped", run), ("warmed", warm_run),
+                         ("sync", sync_run))}), flush=True)
+
+    return main_counts
+
+
+def serving_spikes() -> np.ndarray:
+    """The main path's digit traffic (the launcher's, at its seed)."""
+    from repro_torch.data import digits
+
+    return digits.make_spike_dataset(SERVE_REQUESTS, seed=0)[0]
 
 
 def phase_timer():
@@ -2974,47 +3392,64 @@ def main() -> int:
     check_if_neuron(card, rng, 8, 37, 256, if_rows, fill="wrap")
     check_if_neuron(card, rng, 8, 37, 99, if_rows, fill="wrap")
 
+    # the round telemetry: tile_loads on a static round's four planes (B 8
+    # to 128 and ragged), on an event round's tile 0 (T 4/8/16 x B 64), on
+    # all-zero and all-one words and on a view that is not 16-byte
+    # aligned; request_stats at the same rounds, every cell option, ragged
+    # B, all-zero and all-full loads, with and without the logits
+    tele_rows = []
+    for batch in (8, 16, 32, 64, BUCKET, 7, 100, 333):
+        check_tile_loads(card, rng, [(batch, w) for w in PAPER_WORDS],
+                         tele_rows)
+    for steps in EVENT_STEPS:
+        check_tile_loads(card, rng, [(steps, EVENT_BATCH, PAPER_WORDS[0])],
+                         tele_rows)
+    for fill in ("zeros", "ones"):
+        check_tile_loads(card, rng, [(BUCKET, w) for w in PAPER_WORDS],
+                         tele_rows, fill=fill)
+    check_tile_loads(card, rng, [(BUCKET + 1, w) for w in PAPER_WORDS],
+                     tele_rows, shift=True)
+    for batch in (8, 16, 32, 64, BUCKET, 1, 7, 100, 333):
+        for ports in range(5):
+            check_request_stats(card, rng, batch, tele_rows,
+                                read_ports=ports)
+    check_request_stats(card, rng, BUCKET, tele_rows, logits=False)
+    for fill in ("zeros", "full"):
+        for ports in (0, 4):
+            check_request_stats(card, rng, BUCKET, tele_rows,
+                                read_ports=ports, fill=fill)
+    for steps in EVENT_STEPS:
+        for batch in (EVENT_BATCH, 7):
+            for ports in (0, 4):
+                check_request_stats(card, rng, batch, tele_rows,
+                                    read_ports=ports, steps=steps,
+                                    logits=False)
+    check_request_stats(card, rng, EVENT_BATCH, tele_rows, steps=1,
+                        logits=False, fill="full")
+    print(f"telemetry: {len(tele_rows)} cases bit for bit", flush=True)
+
     lap("3 kernels vs plain")
 
     # 4. the main path
+    main_counts = serving_phase()
     from repro_torch.launch import serve as serve_mod
     from repro_torch.serve.engine import SpikeEngine, SpikeRequest
 
-    with PlainForbidden() as guard:
-        run = serve_mod.main(["--esam", "--requests", str(SERVE_REQUESTS),
-                              "--device", "cuda"])
-    st = run.engine.stats()
-    rounds = run.warm_rounds + st["rounds_static"]
-    guard.expect("serving path", {"mega_cascade": rounds})
-    if run.net.topology != PAPER_TOPOLOGY:
-        raise AssertionError(f"served topology {run.net.topology}")
-    check_served(run.net, run.spikes, run.requests, 4)
-    mega_launches = guard.counts["mega_cascade"]
-    print(f"main path: {len(run.requests)} requests, {rounds} rounds, "
-          f"launches {guard.counts}, "
-          f"{len(run.requests) / run.wall_s:.1f} req/s wall, "
-          f"model {st['throughput_pipelined_inf_s'] / 1e6:.3f} MInf/s, "
-          f"{st['energy_pj_per_inf']:.3f} pJ/Inf", flush=True)
-    profile_serve(run.net, run.spikes)
-    print("main path host split: " + json.dumps({
-        "wall_s": run.wall_s, "host_pack_s": st["host_pack_s_total"],
-        "dispatch_s": st["dispatch_s_total"],
-        "flush_and_rest_s": run.wall_s - st["host_pack_s_total"]
-        - st["dispatch_s_total"],
-        "rounds": st["rounds_static"]}), flush=True)
-
+    spikes = serving_spikes()
     lap("4 serving")
 
     # 5. the one-tile path
     net1 = serve_mod.random_esam_network((768, 10), seed=1, device="cuda")
-    reqs1 = [SpikeRequest(spikes=s) for s in run.spikes[:1000]]
+    reqs1 = [SpikeRequest(spikes=s) for s in spikes[:1000]]
     with PlainForbidden() as guard:
         eng1 = SpikeEngine(net1, max_batch=BUCKET, telemetry=True,
                            device="cuda")
         eng1.serve(reqs1)
     rounds1 = eng1.stats()["rounds_static"]
-    guard.expect("one-tile path", {"popcount_mac": rounds1})
-    check_served(net1, run.spikes[:1000], reqs1, 4)
+    guard.expect("one-tile path", {"popcount_mac": rounds1,
+                                   "tile_loads": rounds1,
+                                   "request_stats": rounds1})
+    check_served(net1, spikes[:1000], reqs1, 4)
     mac_launches = guard.counts["popcount_mac"]
     print(f"one-tile path: {len(reqs1)} requests, {rounds1} rounds, "
           f"launches {guard.counts}", flush=True)
@@ -3066,74 +3501,90 @@ def main() -> int:
     prefix_shape = f"{LEARN_TRAIN}x768->256"
     bench_shape = f"{BENCH_B}x{BENCH_K}->{BENCH_N}"
     print(json.dumps({"kernels": [
-        line("mega_cascade", pop_src, "cim_popcount/kernel.py:98",
-             mega_row, mega_launches),
-        line("popcount_fire", pop_src, "cim_popcount/kernel.py:74",
+        line("mega_cascade", pop_src, "cim_popcount/ops.py:287",
+             mega_row, main_counts["mega_cascade"]),
+        line("popcount_fire", pop_src, "cim_popcount/ops.py:161",
              pick(fire_rows, prefix_shape, fill="random", stride_pad=0),
              learn["train"]["popcount_fire"]),
-        line("popcount_mac", pop_src, "cim_popcount/kernel.py:54",
+        line("popcount_mac", pop_src, "cim_popcount/ops.py:106",
              pick(mac_rows, f"{BUCKET}x768->10", fill="random",
                   stride_pad=0), mac_launches),
-        line("stdp_epoch_masks", stdp_src, "stdp/kernel.py:75",
+        line("stdp_epoch_masks", stdp_src, "stdp/kernel.py:117",
              pick(masks_rows, f"{LEARN_TRAIN}x256->10"),
              learn["train"]["stdp_epoch_masks"]),
-        line("stdp_column_epoch", stdp_src, "stdp/kernel.py:75",
+        line("stdp_column_epoch", stdp_src, "stdp/kernel.py:117",
              pick(epoch_rows, f"{LEARN_TRAIN}x256->10", tied=False,
                   offset=True, special=False, key=[0, LEARN_TRAIN]),
              learn["train"]["stdp_column_epoch"]),
-        line("stdp_column_event", stdp_src, "stdp/kernel.py:75",
+        line("stdp_column_event", stdp_src, "stdp/kernel.py:117",
              pick(event_rows, "10x256", pad=0, shift=False),
              bench["stdp_column_event"]),
-        line("stdp_update", stdp_src, "stdp/kernel.py:26",
+        line("stdp_update", stdp_src, "stdp/kernel.py:59",
              pick(single_rows, "10x256"), bench["stdp_update"]),
-        line("stdp_update_keys", stdp_src, "stdp/kernel.py:26",
+        line("stdp_update_keys", stdp_src, "stdp/kernel.py:59",
              pick(update_rows, f"{LEARN_TRAIN}x256->10",
                   kernel="stdp_update_keys"),
              learn["scan"]["stdp_update_keys"]),
-        line("stdp_update_masks", stdp_src, "stdp/kernel.py:26",
+        line("stdp_update_masks", stdp_src, "stdp/kernel.py:59",
              pick(update_rows, f"{LEARN_TRAIN}x256->10",
                   kernel="stdp_update_masks"),
              learn["scan"]["stdp_update_masks"]),
-        line("stdp_update_chain", stdp_src, "stdp/kernel.py:26",
+        line("stdp_update_chain", stdp_src, "stdp/kernel.py:59",
              pick(update_rows, f"{LEARN_TRAIN}x256->10",
                   kernel="stdp_update_chain"),
              learn["scan"]["stdp_update_chain"]),
         line("fused_fire_packed", packed_src,
-             "cim_matmul_packed/kernel.py:66", pick(packed_rows, prefix_shape),
+             "cim_matmul_packed/ops.py:131", pick(packed_rows, prefix_shape),
              learn["epoch"]["fused_fire_packed"]),
-        line("port_schedule", "arbiter/csrc/arbiter.cu", "arbiter/kernel.py:51",
+        line("port_schedule", "arbiter/csrc/arbiter.cu", "arbiter/kernel.py:100",
              pick_arbiter("port_schedule"), cyc["sweep"]["port_schedule"]),
-        line("arbiter", "arbiter/csrc/arbiter.cu", "arbiter/kernel.py:33",
+        line("arbiter", "arbiter/csrc/arbiter.cu", "arbiter/kernel.py:135",
              next(r for r in arbiter_rows if r["kernel"] == "arbiter"
                   and r["shape"] == f"16x{ROW_GROUP}" and r["ports"] == 4),
              bench["arbiter"]),
         # no path runs the single step since the event round became one
         # scan: its count is the event path's, 0; check_lif holds its bits
-        line("lif_step", "lif_step/csrc/lif_step.cu", "lif_step/kernel.py:38",
+        line("lif_step", "lif_step/csrc/lif_step.cu", "lif_step/kernel.py:85",
              next(r for r in lif_rows
                   if r["shape"] == f"{EVENT_BATCH}x256"
                   and r["leak"] == EVENT_LEAK and r["reset"] == "zero"
                   and r["refractory"] == 0),
              events_counts["lif_step"]),
         line("temporal_scan", "lif_step/csrc/lif_step.cu",
-             "lif_step/kernel.py:38",
+             "lif_step/kernel.py:85",
              next(r for r in scan_rows
                   if r["shape"] == f"16x{EVENT_BATCH}x256:256:256:10"
                   and r["reset"] == "zero" and r["refractory"] == 0),
              events_counts["temporal_scan"]),
         line("cim_matmul_packed", packed_src,
-             "cim_matmul_packed/kernel.py:47",
+             "cim_matmul_packed/ops.py:77",
              pick(packed_mac_rows, bench_shape), bench["cim_matmul_packed"]),
-        line("cim_matmul", matmul_src, "cim_matmul/kernel.py:27",
+        line("cim_matmul", matmul_src, "cim_matmul/kernel.py:90",
              pick(matmul_rows, "256x768->256", kernel="cim_matmul",
                   dtype="float32", view=None), bench["cim_matmul"]),
-        line("esam_layer", matmul_src, "cim_matmul/kernel.py:47",
+        line("esam_layer", matmul_src, "cim_matmul/kernel.py:129",
              pick(matmul_rows, "256x768->256", kernel="esam_layer",
                   dtype="float32", view=None), bench["esam_layer"]),
         line("if_neuron", "if_neuron/csrc/if_neuron.cu",
-             "if_neuron/kernel.py:23",
+             "if_neuron/kernel.py:52",
              pick(if_rows, "8x32x256", fill="random", view=None),
              bench["if_neuron"]),
+        # port-only kernels: no Pallas kernel stands behind them; they do
+        # what XLA fused in the reference (the plan's group_popcount and
+        # the engine's _stats_jit)
+        {**line("tile_loads", "telemetry/csrc/telemetry.cu", "",
+                pick(tele_rows, "+".join(f"{BUCKET}x{w}"
+                                         for w in PAPER_WORDS),
+                     fill="random", shift=False),
+                main_counts["tile_loads"]),
+         "replaces": "src/repro/core/packing.py:59 (group_popcount, fused "
+                     "by XLA; no Pallas kernel)"},
+        {**line("request_stats", "telemetry/csrc/telemetry.cu", "",
+                pick(tele_rows, f"{BUCKET}", kernel="request_stats",
+                     ports=4, fill="random", logits=True),
+                main_counts["request_stats"]),
+         "replaces": "src/repro/serve/engine.py:170 (_stats_jit, fused by "
+                     "XLA; no Pallas kernel)"},
     ]}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

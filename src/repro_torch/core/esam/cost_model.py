@@ -2,7 +2,8 @@
 
 A copy of the reference's ``repro.core.esam.cost_model`` constants and
 per-request accounting, with ``request_stats_device`` evaluated in float32
-torch ops on the loads' own device.  Every constant is the paper's or is
+on the loads' own device (``kernels/telemetry``: a kernel on the card, its
+plain torch version on the CPU).  Every constant is the paper's or is
 derived from a published anchor; the provenance notes are the reference's.
 Nothing here is a measurement of the GPU: cycles, ns and pJ are the modeled
 3nm CIM macro's.  The last section holds the MAC datapath roofline inputs
@@ -301,48 +302,26 @@ def request_stats_device(
     loads: Sequence[torch.Tensor],   # per tile, int32[..., n_groups]
     read_ports: int,
 ) -> dict:
-    """``request_stats`` in float32 torch ops on the loads' device.
+    """``request_stats`` in float32 on the loads' device.
 
-    Same formulas and the same order of operations as the reference's
-    ``request_stats_device``, so a serving loop keeps its telemetry on the
-    device and pays one host transfer per drain.  Cycle counts are small
-    integers and stay exact; energies agree with the float64 numpy
-    accounting to float32 rounding (~1e-7 relative).
+    Same formulas and the same order of float32 operations as the
+    reference's ``request_stats_device``, so a serving loop keeps its
+    telemetry on the device and pays one host transfer per drain.  Cycle
+    counts are small integers and stay exact; energies agree with the
+    float64 numpy accounting to float32 rounding (~1e-7 relative).  CUDA
+    loads go to the ``request_stats`` kernel (one launch,
+    ``kernels/telemetry``), CPU loads to its plain version
+    (``request_stats_ref``); the two agree bit for bit.
 
     Returns {"cycles_per_tile": f32[B, T], "cycles": f32[B],
     "latency_ns": f32[B], "energy_pj": f32[B]}.
     """
-    spec = cell_spec(read_ports)
-    p = spec.ports
-    n_tiles = len(topology) - 1
-    if len(loads) != n_tiles:
-        raise ValueError(f"{len(loads)} load tensors for {n_tiles} tiles")
+    from repro_torch.kernels.telemetry import ops as tele
 
-    cycles_pt, energy = [], None
-    for t in range(n_tiles):
-        n_in, n_out = topology[t], topology[t + 1]
-        n_groups, n_colgroups = tile_geometry(n_in, n_out)
-        ld = loads[t].to(torch.float32).reshape(-1, n_groups)
-        drain = torch.ceil(ld / p)
-        tile_cycles = drain.amax(dim=1) + 1.0
-        cycles_pt.append(tile_cycles)
-
-        reads = ld.sum(dim=1) * n_colgroups
-        e = reads * spec.e_read_pj
-        e += tile_cycles * (n_groups * E_ARBITER_PJ_PER_CYCLE_128)
-        e += tile_cycles * (n_out * E_NEURON_ACCUM_PJ)
-        e += n_out * E_NEURON_FIRE_PJ
-        e += tile_cycles * (n_groups * n_colgroups * E_TILE_CLOCKTREE_PJ_PER_CYCLE)
-        energy = e if energy is None else energy + e
-
-    cycles_per_tile = torch.stack(cycles_pt, dim=1)
-    cycles = cycles_per_tile.sum(dim=1)
-    return {
-        "cycles_per_tile": cycles_per_tile,
-        "cycles": cycles,
-        "latency_ns": cycles * spec.clock_ns,
-        "energy_pj": energy,
-    }
+    if all(ld.device.type == "cpu" for ld in loads):
+        return tele.request_stats_ref(topology, loads, read_ports)
+    slab = tele.request_stats(loads, topology, read_ports)
+    return tele.split_stats(slab, len(topology) - 1, temporal=False)
 
 
 def temporal_request_stats(
@@ -383,27 +362,22 @@ def temporal_request_stats_device(
     loads: Sequence[torch.Tensor],   # per tile, int32[B, T, n_groups]
     read_ports: int,
 ) -> dict:
-    """:func:`temporal_request_stats` in float32 torch ops on the loads'
-    device, from :func:`request_stats_device` on the ``[B*T, groups]``
-    loads.  Cycle counts stay exact; energies agree with the float64 numpy
-    accounting to float32 rounding (the reference's jitted twin may turn
-    ``energy / T`` into a multiply by a float32 reciprocal, so the two
-    packages agree to ~1e-7 relative, not bit for bit)."""
-    b, t = loads[0].shape[:2]
-    flat = [ld.reshape(b * t, -1) for ld in loads]
-    rs = request_stats_device(topology, flat, read_ports)
-    n_tiles = len(topology) - 1
-    cycles_per_tile = rs["cycles_per_tile"].reshape(b, t, n_tiles).sum(dim=1)
-    cycles = rs["cycles"].reshape(b, t).sum(dim=1)
-    energy = rs["energy_pj"].reshape(b, t).sum(dim=1)
-    return {
-        "cycles_per_tile": cycles_per_tile,
-        "cycles": cycles,
-        "latency_ns": cycles * cell_spec(read_ports).clock_ns,
-        "energy_pj": energy,
-        "energy_pj_per_step": energy / t,
-        "n_steps": t,
-    }
+    """:func:`temporal_request_stats` in float32 on the loads' device: the
+    per-step accounting of :func:`request_stats_device`, each stream's steps
+    added one after another, and the energy a step as the energy times the
+    float32 reciprocal of T.  Cycle counts stay exact; energies agree with
+    the float64 numpy accounting to float32 rounding (the reference's jitted
+    twin sums and divides in its own order, so the two packages agree to
+    ~1e-7 relative, not bit for bit).  CUDA loads go to the
+    ``request_stats`` kernel, CPU loads to ``temporal_request_stats_ref``;
+    the two agree bit for bit."""
+    from repro_torch.kernels.telemetry import ops as tele
+
+    if all(ld.device.type == "cpu" for ld in loads):
+        return tele.temporal_request_stats_ref(topology, loads, read_ports)
+    slab = tele.request_stats(loads, topology, read_ports, temporal=True)
+    return {**tele.split_stats(slab, len(topology) - 1, temporal=True),
+            "n_steps": int(loads[0].shape[1])}
 
 
 # ----------------------------------------------------------------------------

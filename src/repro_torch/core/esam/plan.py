@@ -42,7 +42,8 @@ batch: ``[..., T, words]`` and ``[..., T, groups]``.
 from __future__ import annotations
 
 import dataclasses
-from typing import Any, Optional
+import time
+from typing import Any, Optional, Sequence
 
 import numpy as np
 import torch
@@ -54,6 +55,7 @@ from repro_torch.core.esam import temporal as temporal_mod
 from repro_torch.core.esam import tile as tile_mod
 from repro_torch.kernels.cim_matmul_packed import ops as packed_ops
 from repro_torch.kernels.cim_popcount import ops as pop_ops
+from repro_torch.kernels.telemetry import ops as tele_ops
 
 MODES = ("functional", "packed", "prefix", "cycle", "temporal")
 #: reference modes the port does not carry yet (none: temporal was the last)
@@ -162,6 +164,12 @@ class EsamPlan:
                           if self._packed_input else self._n_in)
         self._prep_key = None
         self._prep_params = None
+        # cold start (``warmup``): a static input buffer a batch size, and
+        # on the card one captured CUDA graph a (batch, key)
+        self._inputs: dict[int, torch.Tensor] = {}
+        self._graphs: dict[tuple, PlanGraph] = {}
+        #: CUDA graphs this plan has captured (re-captures included)
+        self.captures = 0
 
     # ------------------------------------------------------------------ #
     # operand prep: decode / bit-slice once, serve every batch
@@ -203,13 +211,93 @@ class EsamPlan:
         plan never serves stale operands.
         """
         net = self.network
-        src = (*net.weight_bits, *net.vth, net.out_offset)
-        key = tuple((id(t), t.data_ptr(), t._version) for t in src)
+        key = self._param_key()
         if key != self._prep_key:
             self._prep_params = self._build_params(
                 tuple(net.weight_bits), tuple(net.vth), net.out_offset)
             self._prep_key = key
         return self._prep_params
+
+    def _param_key(self) -> tuple:
+        net = self.network
+        src = (*net.weight_bits, *net.vth, net.out_offset)
+        return tuple((id(t), t.data_ptr(), t._version) for t in src)
+
+    # ------------------------------------------------------------------ #
+    # cold start: every shape run once, and on the card one CUDA graph each
+    # ------------------------------------------------------------------ #
+    def input_buffer(self, batch: int) -> torch.Tensor:
+        """The static input of one padded batch of ``batch`` (zeros until a
+        caller writes it): int32 words ``[batch, W]``, ``[T, batch, W]`` in
+        temporal mode, bool spikes in the unpacked modes.  A captured graph
+        reads it; the counterpart of the reference's donated input
+        (``PlanSpec.donate``)."""
+        buf = self._inputs.get(batch)
+        if buf is None:
+            shape = (batch, self._in_width)
+            if self.spec.mode == "temporal":
+                shape = (self.spec.temporal.n_steps,) + shape
+            dtype = packing.WORD_DTYPE if self._packed_input else torch.bool
+            buf = torch.zeros(shape, dtype=dtype, device=self.network.device)
+            self._inputs[batch] = buf
+        return buf
+
+    def _traced(self, x: torch.Tensor, epilogue):
+        res = self(x)
+        return res if epilogue is None else epilogue(res)
+
+    def warmup(self, batch_sizes: Sequence[int], *, aot: bool = True,
+               epilogue=None, key=None) -> dict[int, float]:
+        """Run every shape the caller will serve before the first request,
+        one per (padded) batch size, typically an engine's bucket ladder.
+
+        Each batch runs once on its static input (:meth:`input_buffer`):
+        that builds every kernel library and loads every module.  On the
+        card with ``aot=True`` the whole call (the plan, then
+        ``epilogue(result)`` when given) is then captured into one CUDA
+        graph a batch size under ``key`` (:meth:`graph`), on a side stream;
+        a replay launches nothing from Python.  ``aot=False``, and the CPU,
+        capture nothing.  Returns ``{batch: seconds}``.
+        """
+        self._prepare()
+        dev = self.network.device
+        capture = aot and dev.type == "cuda"
+        times: dict[int, float] = {}
+        for b in batch_sizes:
+            b = int(b)
+            if b < 1:
+                raise ValueError(f"batch sizes must be >= 1, got {b}")
+            t0 = time.perf_counter()
+            self._traced(self.input_buffer(b), epilogue)
+            if capture:
+                torch.cuda.synchronize(dev)
+                self._capture(b, key, epilogue)
+            if dev.type == "cuda":
+                torch.cuda.synchronize(dev)
+            times[b] = time.perf_counter() - t0
+        return times
+
+    def _capture(self, batch: int, key, epilogue) -> None:
+        self._prepare()            # operands rebuilt outside the capture
+        x = self.input_buffer(batch)
+        graph = torch.cuda.CUDAGraph()
+        with torch.cuda.graph(graph, capture_error_mode="thread_local"):
+            out = self._traced(x, epilogue)
+        self._graphs[(batch, key)] = PlanGraph(
+            graph=graph, static_in=x, out=out, prep_key=self._prep_key,
+            epilogue=epilogue)
+        self.captures += 1
+
+    def graph(self, batch: int, key=None) -> Optional["PlanGraph"]:
+        """The CUDA graph :meth:`warmup` captured for ``batch`` under
+        ``key``, or None.  A graph holds the operands' addresses: when a
+        parameter tensor changed since the capture, it is captured again
+        first, so a replay never serves stale weights."""
+        g = self._graphs.get((batch, key))
+        if g is not None and self._param_key() != g.prep_key:
+            self._capture(batch, key, g.epilogue)
+            g = self._graphs[(batch, key)]
+        return g
 
     # ------------------------------------------------------------------ #
     # execution
@@ -312,11 +400,14 @@ class EsamPlan:
                 x, params["w_stack"], params["vth_stack"],
                 topology=self.topology, tiles=params["cascade_tiles"])
             planes = (x,) + tuple(fired)
-            out["logits"] = vmem.to(torch.float32) + off
+            # int32 + float32 promotes to float32 in one op: the same bits
+            # as a cast and an add, one launch fewer
+            out["logits"] = vmem + off
             if spec.collect:
                 out["planes"] = planes
             if spec.telemetry:
-                out["loads"] = tuple(packing.group_popcount(p) for p in planes)
+                # every plane's loads in one tile_loads launch on the card
+                out["loads"] = tele_ops.tile_loads(planes)
         elif spec.mode == "temporal":
             out.update(temporal_mod.temporal_forward(
                 params["w_mac"], vth, off, x, spec.temporal,
@@ -353,6 +444,28 @@ class EsamPlan:
         x, lead = self._normalize(x)
         out = self._run(self._prepare(), x)
         return PlanResult(**{k: _with_lead(v, lead) for k, v in out.items()})
+
+
+@dataclasses.dataclass
+class PlanGraph:
+    """One captured call of a plan: its graph, the static input it reads
+    and the outputs it writes (the graph's own memory: every replay
+    overwrites them, so a caller copies them out before the next)."""
+
+    graph: Any
+    static_in: torch.Tensor
+    out: Any
+    prep_key: tuple
+    epilogue: Any = None
+
+    def replay(self, src: Optional[torch.Tensor] = None):
+        """Copy ``src`` (any device; pinned host memory copies
+        asynchronously) into the static input, replay, return the
+        outputs."""
+        if src is not None:
+            self.static_in.copy_(src, non_blocking=True)
+        self.graph.replay()
+        return self.out
 
 
 def _with_lead(v, lead: tuple[int, ...]):

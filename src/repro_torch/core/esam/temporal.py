@@ -49,6 +49,7 @@ from repro_torch.core.esam import tile as tile_mod
 from repro_torch.kernels.cim_popcount import ops as pop_ops
 from repro_torch.kernels.common import resolve_device
 from repro_torch.kernels.lif_step import ops as lif_ops
+from repro_torch.kernels.telemetry import ops as tele_ops
 from repro_torch.kernels.lif_step.ref import (
     RESET_MODES,
     decay_of,
@@ -146,7 +147,7 @@ def temporal_forward(
         out["planes"] = tuple(w.transpose(0, 1) for w in (events, *words))
     if telemetry:
         out["loads"] = tuple(ld.transpose(0, 1) for ld in (
-            packing.group_popcount(events), *loads))
+            *tele_ops.tile_loads((events,)), *loads))
     return out
 
 

@@ -142,16 +142,22 @@ def unpack_weight_planes(planes: torch.Tensor, n_in: int,
 # numpy (host) pair — uint32, the reference's layout
 # --------------------------------------------------------------------- #
 def pack_spikes_np(spikes: np.ndarray) -> np.ndarray:
+    """{0,1}[..., n] (any dtype) -> uint32 words[..., ceil(n/32)].
+
+    ``np.packbits`` with ``bitorder="little"`` puts spike ``8k + b`` in bit
+    ``b`` of byte ``k``, and four such bytes read as one little-endian
+    uint32 are exactly the wire word (spike ``32j + i`` in bit ``i``)."""
+    spikes = np.asarray(spikes)
     n = spikes.shape[-1]
     w = packed_width(n)
-    bits = (np.asarray(spikes) != 0).astype(np.uint32)
+    bits = spikes != 0
     pad = w * LANE_BITS - n
     if pad:
         widths = [(0, 0)] * (bits.ndim - 1) + [(0, pad)]
         bits = np.pad(bits, widths)
-    b = bits.reshape(bits.shape[:-1] + (w, LANE_BITS))
-    shifts = np.arange(LANE_BITS, dtype=np.uint32)
-    return np.sum(b << shifts, axis=-1, dtype=np.uint64).astype(np.uint32)
+    packed = np.ascontiguousarray(
+        np.packbits(bits, axis=-1, bitorder="little"))
+    return packed.view(np.dtype("<u4")).astype(np.uint32, copy=False)
 
 
 def unpack_spikes_np(packed: np.ndarray, n: int, dtype=np.int8) -> np.ndarray:
@@ -184,11 +190,12 @@ def pad_spike_rows_np(rows, batch: int, n_in: int) -> np.ndarray:
     if len(rows) > batch:
         raise ValueError(f"{len(rows)} rows do not fit a batch of {batch}")
     out = np.zeros((batch, n_in), np.uint8)
+    rows = [np.asarray(r) for r in rows]
     for i, r in enumerate(rows):
-        r = np.asarray(r)
         if r.shape != (n_in,):
             raise ValueError(f"row {i} has shape {r.shape}, want ({n_in},)")
-        out[i] = r != 0
+    if rows:
+        out[: len(rows)] = np.stack(rows) != 0
     return out
 
 

@@ -33,7 +33,7 @@ KERNELS = Path(__file__).resolve().parent
 SHARED_INCLUDE = KERNELS / "csrc"
 #: the kernel packages that carry CUDA sources under ``csrc/``
 LIBRARIES = ("cim_popcount", "cim_matmul_packed", "stdp", "arbiter",
-             "lif_step", "cim_matmul", "if_neuron")
+             "lif_step", "cim_matmul", "if_neuron", "telemetry")
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a",
     "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC",

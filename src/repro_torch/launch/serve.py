@@ -9,6 +9,14 @@ next to the modeled paper-unit operating point (MInf/s and pJ/Inf of the
     python -m repro_torch.launch.serve --esam            # 768:256:256:256:10
     python -m repro_torch.launch.serve --esam --smoke    # 768:256:10
 
+``--esam`` serves as the reference's launcher does: round fusion
+``--fuse auto`` (the data-parallel degree: 1 on one device) and the
+overlapped host packer on (``--no-overlap`` for the synchronous drain).
+``--warmup`` runs the engine's whole bucket ladder first (on the card, one
+CUDA graph a bucket), then times the first request alone and prints the
+reference's ``COLDSTART first_request_ms=... warmup_s=... buckets=...``
+line before serving the rest.
+
 Event mode (``--events``): rate-encoded digit streams of mixed length T
 (4, 8, 16; with ``--smoke`` 2, 4) through ``SpikeEngine.submit_events`` and
 the temporal plan, with a leak of 0.125 a step by default.  Prints steps/s
@@ -26,6 +34,7 @@ from __future__ import annotations
 import argparse
 import dataclasses
 import time
+from typing import Optional
 
 import numpy as np
 import torch
@@ -49,6 +58,9 @@ class EsamServeRun:
     spikes: np.ndarray             # {0,1}[n_requests, 768] digit traffic
     warm_rounds: int               # rounds of the untimed warm-up engine
     wall_s: float                  # timed serve(), results on the host
+    timed: int                     # requests in the timed serve()
+    warmup: Optional[dict] = None  # engine.warmup()'s times (--warmup)
+    first_request_ms: Optional[float] = None  # the first request (--warmup)
 
 
 @dataclasses.dataclass
@@ -83,29 +95,51 @@ def esam_main(args) -> EsamServeRun:
     max_batch = 128 if args.batch_size is None else args.batch_size
     net = random_esam_network(topology, args.seed, dev)
     engine_kw = dict(max_batch=max_batch, telemetry=True,
-                     read_ports=args.read_ports, device=dev)
+                     read_ports=args.read_ports, device=dev,
+                     fuse_rounds=_fuse_arg(args),
+                     overlap=not args.no_overlap)
 
     x, _ = digits.make_spike_dataset(n_requests, seed=args.seed)
-    # warm on a throwaway engine serving the same workload shape (the plan
-    # is cached per network, and the card builds its kernels at first use)
-    # so the timed engine's stats() see only the timed requests
-    warm = SpikeEngine(net, **engine_kw)
-    warm.serve([SpikeRequest(spikes=r) for r in x])
     reqs = [SpikeRequest(spikes=x[i]) for i in range(n_requests)]
     eng = SpikeEngine(net, **engine_kw)
+    wt, first_ms, warm_rounds = None, None, 0
+    if args.warmup:
+        # the whole bucket ladder up front, then the very first request the
+        # warmed engine serves, timed alone: the cold-start headline
+        wt = eng.warmup()
+        t0 = time.perf_counter()
+        eng.serve([reqs[0]])
+        first_ms = (time.perf_counter() - t0) * 1e3
+        print(f"COLDSTART first_request_ms={first_ms:.2f} "
+              f"warmup_s={wt['total_s']:.2f} "
+              f"buckets={len(eng._buckets)} graphs={wt['graphs']}")
+        reqs_timed = reqs[1:]
+    else:
+        # warm on a throwaway engine serving the same workload shape (the
+        # plan is cached per network, and the card builds its kernels at
+        # first use) so the timed engine's stats() see only the timed
+        # requests
+        warm = SpikeEngine(net, **engine_kw)
+        warm.serve([SpikeRequest(spikes=r) for r in x])
+        warm.close()
+        warm_rounds = warm.stats()["rounds_static"]
+        reqs_timed = reqs
     if dev.type == "cuda":
         torch.cuda.synchronize(dev)
     t0 = time.perf_counter()
-    eng.serve(reqs)           # ends in the flush's device-to-host copies
+    eng.serve(reqs_timed)     # ends in the flush, after the copies out
     wall_s = time.perf_counter() - t0
+    eng.close()
 
     st = eng.stats()
     where = torch.cuda.get_device_name(dev) if dev.type == "cuda" else "cpu"
     print(f"esam-serve: {st['n_requests']} requests on {where} "
           f"(topology={':'.join(map(str, topology))}, cell={st['cell']}, "
-          f"buckets={eng._buckets}, rounds={st['rounds_static']})")
+          f"buckets={eng._buckets}, rounds={st['rounds_static']}, "
+          f"fuse={st['fuse_rounds']}, overlap={st['overlap']}, "
+          f"rounds_saved={st['rounds_saved']})")
     print(f"  wall-clock        : {wall_s*1e3:8.1f} ms  "
-          f"({len(reqs)/wall_s:,.0f} req/s)")
+          f"({len(reqs_timed)/wall_s:,.0f} req/s)")
     print(f"  model throughput  : "
           f"{st['throughput_pipelined_inf_s']/1e6:8.2f} MInf/s "
           f"(pipelined; paper {cm.PAPER_THROUGHPUT_INF_S/1e6:.0f})")
@@ -117,8 +151,9 @@ def esam_main(args) -> EsamServeRun:
     if missing:
         raise RuntimeError(f"{missing} of {len(reqs)} requests got no label")
     return EsamServeRun(net=net, engine=eng, requests=reqs, spikes=x,
-                        warm_rounds=warm.stats()["rounds_static"],
-                        wall_s=wall_s)
+                        warm_rounds=warm_rounds, wall_s=wall_s,
+                        timed=len(reqs_timed), warmup=wt,
+                        first_request_ms=first_ms)
 
 
 def events_main(args) -> EventServeRun:
@@ -179,6 +214,15 @@ def events_main(args) -> EventServeRun:
                          wall_s=wall_s)
 
 
+def _fuse_arg(args):
+    """Resolve --fuse: "auto" (default) | "off" | an integer factor."""
+    if args.fuse in ("off", "none", "0"):
+        return None
+    if args.fuse == "auto":
+        return "auto"
+    return int(args.fuse)
+
+
 def main(argv=None):
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--esam", action="store_true",
@@ -203,6 +247,17 @@ def main(argv=None):
                          "network and the digit traffic (jax.random's bits "
                          "cannot be reproduced, so the network differs from "
                          "the JAX launcher's at the same seed)")
+    ap.add_argument("--fuse", default="auto",
+                    help="--esam: round fusion factor: 'auto' (= the "
+                         "data-parallel degree, 1 here), 'off', or an "
+                         "integer")
+    ap.add_argument("--no-overlap", action="store_true",
+                    help="--esam: no background host packer (the "
+                         "synchronous drain)")
+    ap.add_argument("--warmup", action="store_true",
+                    help="--esam: run the bucket ladder before serving (on "
+                         "the card, one CUDA graph a bucket) and print the "
+                         "COLDSTART first-request line")
     ap.add_argument("--device", default="cuda",
                     help="cuda (default; raises without a GPU) or cpu")
     args = ap.parse_args(argv)

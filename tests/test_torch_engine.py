@@ -1,9 +1,8 @@
 """repro_torch SpikeEngine against repro SpikeEngine on the same digit
 requests, on the CPU: labels, logits and cycles bit for bit; latency and
 energy within 1e-6 relative (float32 device telemetry, see
-test_torch_cost_model); the identity, rounds and cost sections of
-``stats()``.  Also the device rule: without a GPU, the default device
-raises everywhere."""
+test_torch_cost_model); every section of ``stats()``.  Also the device
+rule: without a GPU, the default device raises everywhere."""
 
 from __future__ import annotations
 
@@ -23,6 +22,8 @@ from repro_torch.serve import engine
 PAPER = (768, 256, 256, 256, 10)
 #: host wall times: present in both, comparable in neither
 WALL_KEYS = {"host_pack_s_total", "dispatch_s_total"}
+#: rounds the straggler watchdog flags: read from host wall times too
+WALL_COUNT_KEYS = {"straggler_rounds"}
 
 
 def _pair(topo, seed):
@@ -36,8 +37,8 @@ def _pair(topo, seed):
     return ref, EsamNetwork.from_numpy(bits, vth, off, device="cpu")
 
 
-def _sections(schema, names=("identity", "rounds", "events", "cost")):
-    return {k for name in names for k in schema[name]}
+def _sections(schema, names=None):
+    return {k for name in (names or schema) for k in schema[name]}
 
 
 @pytest.mark.parametrize("n_requests,read_ports", [(300, 4), (77, 1)])
@@ -73,7 +74,7 @@ def test_engine_matches_reference(n_requests, read_ports):
 
     st, ref_st = eng.stats(), ref_eng.stats()
     assert set(st) == _sections(engine.stats_schema())
-    for key in set(st) - WALL_KEYS:
+    for key in set(st) - WALL_KEYS - WALL_COUNT_KEYS:
         want = ref_st[key]
         if key in engine.stats_schema()["cost"]:
             assert st[key] == pytest.approx(want, rel=1e-6), key
@@ -81,6 +82,8 @@ def test_engine_matches_reference(n_requests, read_ports):
             assert st[key] == want, key
     for key in WALL_KEYS:
         assert isinstance(st[key], float) and st[key] >= 0.0
+    for key in WALL_COUNT_KEYS:
+        assert isinstance(st[key], int) and 0 <= st[key] <= st["dispatch_rounds"]
     assert st["rounds_static"] == -(-half // 128) + -(-(n_requests - half)
                                                        // 128)
 
@@ -97,9 +100,12 @@ def test_empty_engine_stats_match_reference():
 def test_stats_schema_is_the_reference_sections():
     schema, ref_schema = engine.stats_schema(), jengine.stats_schema()
     assert engine.STATS_SCHEMA_VERSION == jengine.STATS_SCHEMA_VERSION
-    for name in ("identity", "rounds", "events", "cost"):
+    assert set(schema) == set(ref_schema) == {
+        "identity", "health", "overload", "rounds", "fusion", "events",
+        "cost"}
+    for name in ref_schema:
         assert schema[name] == ref_schema[name], name
-    assert set(schema) == {"identity", "rounds", "events", "cost"}
+    assert schema == ref_schema
 
 
 @pytest.mark.parametrize("max_batch,min_bucket,dp",
