@@ -108,17 +108,21 @@ class EsamNetwork(nn.Module):
     def plan(self, *, mode: str = "packed", collect: bool = False,
              telemetry: bool = False,
              read_ports: int | tuple[int, ...] = 4,
-             record_vmem_trace: bool = False, temporal=None) -> EsamPlan:
+             record_vmem_trace: bool = False, temporal=None,
+             faults=None) -> EsamPlan:
         """Build (or fetch from this network's cache) one plan.
 
         ``mode="temporal"`` takes a
         :class:`~repro_torch.core.esam.temporal.TemporalConfig`; each
         (T, leak, reset, refractory, collect, telemetry) is its own plan.
+        ``faults`` takes a :class:`~repro_torch.core.esam.faults.FaultModel`:
+        the plan with that fault population in its operands, each model its
+        own plan; ``None`` is the clean plan.
         """
         spec = PlanSpec(mode=mode, collect=collect, telemetry=telemetry,
                         read_ports=read_ports,
                         record_vmem_trace=record_vmem_trace,
-                        temporal=temporal)
+                        temporal=temporal, faults=faults)
         cached = self._plan_cache.get(spec)
         if cached is None:
             cached = EsamPlan(self, spec)

@@ -33,7 +33,12 @@ Modes (every mode of the reference):
 Orthogonal flags: ``collect`` returns the inter-tile planes (cycle plans
 ignore it: their traces hold every tile's spikes), ``telemetry`` returns
 the per-tile arbiter loads (group popcounts straight off the wire).
-``read_ports`` is the cell option (0..4); only ``cycle`` mode depends on it.
+``read_ports`` is the cell option (0..4); the ``cycle`` mode's schedule
+depends on it, and a faulted plan reads its upset masks at it.
+``faults`` (a :class:`~repro_torch.core.esam.faults.FaultModel`) draws the
+fault masks once, when the plan is built, on the network's device, and
+applies them to the operands when they are built: every kernel runs as it
+is on faulted weights and thresholds, and ``faults=None`` is the clean plan.
 ``record_vmem_trace`` adds the per-cycle V_mem history to cycle traces.
 In temporal mode ``planes`` and ``loads`` gain a timestep axis after the
 batch: ``[..., T, words]`` and ``[..., T, groups]``.
@@ -50,6 +55,7 @@ import torch
 
 from repro_torch.core import packing
 from repro_torch.core.esam import arbiter as arb
+from repro_torch.core.esam import faults as faults_mod
 from repro_torch.core.esam import neuron as nrn
 from repro_torch.core.esam import temporal as temporal_mod
 from repro_torch.core.esam import tile as tile_mod
@@ -75,6 +81,9 @@ class PlanSpec:
     record_vmem_trace: bool = False
     #: temporal mode only: the LIF dynamics (T, leak, reset, refractory)
     temporal: Optional[temporal_mod.TemporalConfig] = None
+    #: the fault population injected into the operands (frozen and
+    #: hashable, so each model is its own plan); None is the clean plan
+    faults: Optional[faults_mod.FaultModel] = None
 
     def __post_init__(self):
         if self.mode not in MODES:
@@ -162,6 +171,15 @@ class EsamPlan:
         self._n_in = self.topology[0]
         self._in_width = (packing.packed_width(self._n_in)
                           if self._packed_input else self._n_in)
+        # fault masks, drawn once: a cycle sweep reads them at every
+        # effective port count it simulates, every other plan at its one
+        if spec.faults is not None:
+            ports = (self._cycle_port_options() if spec.mode == "cycle"
+                     else (max(1, int(spec.read_ports)),))
+            self._fault_masks = spec.faults.build_masks(
+                self.topology, ports, device=network.device)
+        else:
+            self._fault_masks = None
         self._prep_key = None
         self._prep_params = None
         # cold start (``warmup``): a static input buffer a batch size, and
@@ -182,11 +200,31 @@ class EsamPlan:
         return tuple(sorted({max(1, int(o)) for o in options}))
 
     def _build_params(self, wb, vth, off) -> dict[str, Any]:
+        fmk = self._fault_masks
+        if fmk is not None:
+            vth = tuple(faults_mod.faulted_vth(vth, fmk))
+            if self.spec.mode != "cycle":
+                wb = tuple(faults_mod.faulted_weights(
+                    wb, fmk, max(1, int(self.spec.read_ports))))
         params: dict[str, Any] = {"vth": vth, "out_offset": off}
-        if self.spec.mode in ("functional", "cycle") or (
+        if self.spec.mode == "cycle":
+            # float32 ±1, decoded once an effective port count: read-disturb
+            # upsets scale with the ports, so a faulted sweep reads another
+            # array at each; a clean one shares one decode
+            def decode(ws):
+                return tuple(nrn.decode_bitlines(w).to(torch.float32)
+                             for w in ws)
+
+            options = self._cycle_port_options()
+            if fmk is None:
+                params["cycle_w_signed"] = dict.fromkeys(options, decode(wb))
+            else:
+                params["cycle_w_signed"] = {
+                    p: decode(faults_mod.faulted_weights(wb, fmk, p))
+                    for p in options}
+        elif self.spec.mode == "functional" or (
                 self.spec.mode == "prefix" and not self.prefix_packed):
-            # float32 ±1: the dense matmul operand, decoded once (a cycle
-            # plan shares it across every port count of its sweep)
+            # float32 ±1: the dense matmul operand, decoded once
             params["w_signed"] = tuple(
                 nrn.decode_bitlines(w).to(torch.float32) for w in wb)
         elif self.spec.mode == "prefix":
@@ -414,10 +452,15 @@ class EsamPlan:
                 self.topology, collect=spec.collect,
                 telemetry=spec.telemetry))
         else:  # cycle: one simulation per effective port count
+            rp = spec.read_ports
+            options = rp if isinstance(rp, tuple) else (rp,)
             by_ports: dict[int, dict] = {}
-            for ports in self._cycle_port_options():
+            for opt in options:
+                ports = max(1, int(opt))
+                if ports in by_ports:
+                    continue
                 traces, s = [], x
-                for w, th in zip(params["w_signed"], vth):
+                for w, th in zip(params["cycle_w_signed"][ports], vth):
                     tr = tile_mod.simulate_tile_batch(
                         None, s, th, ports, spec.record_vmem_trace,
                         w_signed=w)
@@ -426,13 +469,13 @@ class EsamPlan:
                 by_ports[ports] = {
                     "logits": traces[-1].vmem_final.to(torch.float32) + off,
                     "traces": tuple(traces)}
-            rp = spec.read_ports
             if isinstance(rp, tuple):
                 out["sweep"] = {int(o): by_ports[max(1, o)] for o in rp}
             else:
                 out.update(by_ports[max(1, rp)])
             if spec.telemetry:
-                # every port count drains the same spikes
+                # the loads of the first option's simulation (a faulted
+                # sweep's port counts drain different spikes)
                 traces = next(iter(by_ports.values()))["traces"]
                 out["loads"] = tuple(
                     arb.split_row_groups(si.to(torch.int32)).sum(

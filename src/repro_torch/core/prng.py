@@ -18,7 +18,13 @@ device, CPU or CUDA alike:
   (rotations 13,15,26,6 / 17,29,16,24, key injection after every 4 rounds);
 * ``fold_in(k, d) = threefry(k, (0, d))``; ``split(k, n)[j] = threefry(k, (0, j))``;
 * ``bits(k, shape)[i] = x0 ^ x1`` of ``threefry(k, (0, i))``, i the flat index;
-* ``uniform = bitcast_f32((bits >> 9) | 0x3f800000) - 1`` in [0, 1);
+* ``uniform = bitcast_f32((bits >> 9) | 0x3f800000) - 1`` in [0, 1), and
+  with bounds ``max(lo, fma(u, hi - lo, lo))`` in float32;
+* ``normal = sqrt(2) * erf_inv(uniform(k, lo=nextafter(-1, 0), hi=1))``, with
+  ``erf_inv`` the single-precision polynomial XLA lowers ``lax.erf_inv`` to
+  (Giles), in float32 torch ops; not bit for bit: ``torch.log1p`` is not
+  XLA's, so about one draw in a hundred sits a few ulp from JAX's
+  (``tests/test_torch_faults.py`` states the bound);
 * ``bernoulli(k, p) = uniform < p`` (p rounded to float32, as JAX does);
 * ``permutation(k, n)``: ``ceil(3 ln n / ln(2^32 - 1))`` rounds of
   ``k, sub = split(k)`` and a stable sort of the order by ``bits(sub, (n,))``.
@@ -100,10 +106,71 @@ def bits(key: torch.Tensor, shape) -> torch.Tensor:
     return y0 ^ y1
 
 
-def uniform(key: torch.Tensor, shape) -> torch.Tensor:
-    """``jax.random.uniform`` (float32, [0, 1)): ``[..., *shape]``."""
+def fma32(a: torch.Tensor, b, c) -> torch.Tensor:
+    """float32 ``fma(a, b, c)`` rounded once, as XLA contracts ``a * b + c``
+    (``b`` and ``c`` tensors or floats): the product is exact in float64,
+    the sum is rounded to odd there (TwoSum and a sticky last bit), then to
+    float32; ``kernels/lif_step/ref.py`` states why that is one rounding."""
+    def f64(x):   # a float stays a scalar: no copy to the device
+        return x.to(torch.float64) if isinstance(x, torch.Tensor) else float(x)
+
+    p = a.to(torch.float64) * f64(b)
+    c = f64(c)
+    s = p + c
+    t = s - p
+    err = (p - (s - t)) + (c - t)
+    even = (s.view(torch.int64) & 1) == 0
+    toward = torch.where(err > 0, torch.inf, -torch.inf).to(torch.float64)
+    return torch.where((err != 0) & even, torch.nextafter(s, toward),
+                       s).to(torch.float32)
+
+
+def uniform(key: torch.Tensor, shape, minval: float = 0.0,
+            maxval: float = 1.0) -> torch.Tensor:
+    """``jax.random.uniform`` (float32, [minval, maxval)): ``[..., *shape]``.
+
+    The bounds are rounded to float32 and applied as JAX does, in float32:
+    ``max(minval, u * (maxval - minval) + minval)``, the scale and shift one
+    fused multiply-add (XLA contracts them)."""
     b = (bits(key, shape) >> 9) | 0x3F800000
-    return b.to(torch.int32).view(torch.float32) - 1.0
+    u = b.to(torch.int32).view(torch.float32) - 1.0
+    if (minval, maxval) == (0.0, 1.0):
+        return u                       # the bounds change no bit here
+    lo, hi = np.float32(minval), np.float32(maxval)
+    return torch.clamp_min(fma32(u, float(hi - lo), float(lo)), float(lo))
+
+
+#: Giles' single-precision erf_inv coefficients, as XLA lowers
+#: ``lax.erf_inv`` for float32 (w < 5, and the tail)
+_ERFINV_CENTRAL = (2.81022636e-08, 3.43273939e-07, -3.5233877e-06,
+                   -4.39150654e-06, 0.00021858087, -0.00125372503,
+                   -0.00417768164, 0.246640727, 1.50140941)
+_ERFINV_TAIL = (-0.000200214257, 0.000100950558, 0.00134934322,
+                -0.00367342844, 0.00573950773, -0.0076224613,
+                0.00943887047, 1.00167406, 2.83297682)
+
+
+def erf_inv(x: torch.Tensor) -> torch.Tensor:
+    """float32 ``lax.erf_inv``: ``w = -log1p(-x^2)``, Horner in ``w - 2.5``
+    (w < 5) or ``sqrt(w) - 3`` with each step one fused multiply-add (as XLA
+    contracts it), times x; +-inf at +-1.  Only ``torch.log1p`` differs from
+    XLA's, by an ulp now and then."""
+    w = -torch.log1p(x * -x)
+    central = w < 5.0
+    w = torch.where(central, w - 2.5, torch.sqrt(w) - 3.0)
+    coef = [torch.where(central, np.float32(c), np.float32(t))
+            for c, t in zip(_ERFINV_CENTRAL, _ERFINV_TAIL)]
+    p = coef[0].expand_as(x)
+    for c in coef[1:]:
+        p = fma32(p, w, c)
+    return torch.where(x.abs() == 1.0, x * float("inf"), p * x)
+
+
+def normal(key: torch.Tensor, shape) -> torch.Tensor:
+    """``jax.random.normal`` (float32): ``[..., *shape]``."""
+    lo = np.nextafter(np.float32(-1.0), np.float32(0.0), dtype=np.float32)
+    u = uniform(key, shape, float(lo), 1.0)
+    return float(np.float32(np.sqrt(2.0))) * erf_inv(u)
 
 
 def bernoulli(key: torch.Tensor, p: float, shape) -> torch.Tensor:

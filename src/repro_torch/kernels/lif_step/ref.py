@@ -49,7 +49,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from repro_torch.core import packing
+from repro_torch.core import packing, prng
 from repro_torch.kernels.cim_popcount.ref import cim_popcount_ref
 
 RESET_MODES = ("zero", "subtract")
@@ -63,15 +63,8 @@ def decay_of(leak: float) -> float:
 def leak_integrate(vmem: torch.Tensor, decay: float,
                    contrib: torch.Tensor) -> torch.Tensor:
     """``fma(vmem, decay, float32(contrib))`` in float32, rounded once."""
-    p = vmem.to(torch.float32).to(torch.float64) * decay   # exact
-    c = contrib.to(torch.float32).to(torch.float64)
-    s = p + c
-    b = s - p
-    err = (p - (s - b)) + (c - b)                          # TwoSum: exact
-    even = (s.view(torch.int64) & 1) == 0
-    toward = torch.where(err > 0, torch.inf, -torch.inf).to(torch.float64)
-    s = torch.where((err != 0) & even, torch.nextafter(s, toward), s)
-    return s.to(torch.float32)
+    return prng.fma32(vmem.to(torch.float32), decay,
+                      contrib.to(torch.float32))
 
 
 def lif_step_ref(

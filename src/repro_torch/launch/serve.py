@@ -24,6 +24,18 @@ and input spikes/s next to the modeled pJ per timestep.
 
     python -m repro_torch.launch.serve --events --device cpu --smoke
 
+Traffic mode (``--traffic``): open-loop Poisson traffic (seeded arrivals, a
+blend of static requests and event streams of T 2 or 4) through the
+overload plane (bounded admission, deadlines, the degradation ladder) and,
+with ``--replicas N``, the retrying ``FaultAwareRouter`` over N engines on
+the one device; ``--chaos`` arms the reference's chaos plan (replica 0
+crashes mid-drain, replica 1 stalls 5 ms a round, a storm of 2 x max_batch
+requests at t=0).  Prints p50/p99/p99.9 latency, shed/rejected/retry counts
+and goodput under the SLO.
+
+    python -m repro_torch.launch.serve --traffic --smoke --replicas 2 \
+        --chaos --device cpu
+
 The network is random, drawn with ``numpy.random.default_rng(seed)``:
 jax.random's bits cannot be reproduced in torch, so the same seed gives a
 different network than ``python -m repro.launch.serve --esam``.
@@ -45,7 +57,11 @@ from repro_torch.core.esam.temporal import TemporalConfig
 from repro_torch.data import digits
 from repro_torch.data import events as events_mod
 from repro_torch.kernels.common import resolve_device
-from repro_torch.serve.engine import EventRequest, SpikeEngine, SpikeRequest
+from repro_torch.serve import traffic as traffic_mod
+from repro_torch.serve.engine import (EventRequest, FaultAwareRouter,
+                                      SpikeEngine, SpikeRequest)
+from repro_torch.serve.overload import DegradationLadder
+from repro_torch.train.fault_tolerance import RetryPolicy
 
 
 @dataclasses.dataclass
@@ -74,6 +90,20 @@ class EventServeRun:
     warm_requests: list[EventRequest]
     input_spikes: int                # spikes in the timed streams
     wall_s: float                    # timed serve(), results on the host
+
+
+@dataclasses.dataclass
+class TrafficRun:
+    """What one ``--traffic`` run served, for callers that check it."""
+
+    net: EsamNetwork
+    engines: list[SpikeEngine]       # the replicas of the measured run
+    server: object                   # engines[0], or the router over them
+    config: traffic_mod.TrafficConfig
+    chaos: Optional[traffic_mod.ChaosConfig]
+    requests: list                   # the offered requests, arrival order
+    report: traffic_mod.TrafficReport
+    rate_sustainable: float          # req/s of the closed-loop warm-up
 
 
 def random_esam_network(topology, seed: int, device="cuda") -> EsamNetwork:
@@ -214,6 +244,91 @@ def events_main(args) -> EventServeRun:
                          wall_s=wall_s)
 
 
+def traffic_main(args) -> TrafficRun:
+    """Open-loop Poisson traffic (optionally chaos-injected) through the
+    overload plane, printing the SLO-facing numbers (the reference
+    launcher's ``_traffic_main``)."""
+    dev = resolve_device(args.device)
+    topology = (768, 256, 10) if args.smoke else cm.PAPER_TOPOLOGY
+    n_requests = args.requests if args.requests is not None else (
+        64 if args.smoke else 256)
+    max_batch = 32 if args.batch_size is None else args.batch_size
+    net = random_esam_network(topology, args.seed, dev)
+
+    def make_engine():
+        return SpikeEngine(
+            net, max_batch=max_batch, telemetry=True,
+            read_ports=args.read_ports, queue_limit=4 * max_batch,
+            fuse_rounds=_fuse_arg(args), overlap=not args.no_overlap,
+            ladder=DegradationLadder.default(max_batch, args.read_ports),
+            device=dev)
+
+    # closed-loop warm-up on the same request blend: the first pass builds
+    # every (bucket, T) the traffic can hit, the second measures the
+    # sustainable rate, so the default --rate lands relative to saturation
+    warm = make_engine()
+    blend = dict(rate_hz=1.0, n_requests=n_requests, p_event=args.p_event,
+                 event_t_choices=(2, 4), n_in=topology[0])
+    warm.serve(traffic_mod.build_requests(
+        traffic_mod.TrafficConfig(seed=args.seed, **blend))[0])
+    timed = traffic_mod.build_requests(
+        traffic_mod.TrafficConfig(seed=args.seed + 1, **blend))[0]
+    t0 = time.perf_counter()
+    warm.serve(timed)
+    rate_sust = len(timed) / (time.perf_counter() - t0)
+    warm.close()
+    rate = args.rate if args.rate is not None else 2.0 * rate_sust
+
+    engines = [make_engine() for _ in range(max(1, args.replicas))]
+    # health_threshold=0: a random network's telemetry deviates from the
+    # reference calibration, so health routing would mark every replica
+    # degraded; this mode exercises crash/retry/deadlines, not health
+    server = engines[0] if len(engines) == 1 else FaultAwareRouter(
+        engines, health_threshold=0.0,
+        retry=RetryPolicy(base_backoff_s=1e-3, attempt_timeout_s=2.0))
+    chaos = None
+    if args.chaos:
+        chaos = traffic_mod.ChaosConfig(
+            slowdown=((1, 5e-3),) if len(engines) > 1 else (),
+            crash_replica=0 if len(engines) > 1 else None,
+            crash_after_rounds=2,
+            storm_at_s=0.0, storm_size=2 * max_batch)
+    deadline_s = args.deadline_ms / 1e3 if args.deadline_ms else None
+    slo_s = args.slo_ms / 1e3 if args.slo_ms else deadline_s
+    cfg = traffic_mod.TrafficConfig(
+        rate_hz=rate, n_requests=n_requests, seed=args.seed,
+        p_event=args.p_event, event_t_choices=(2, 4),
+        n_in=topology[0], deadline_s=deadline_s)
+    if args.warmup:
+        traffic_mod.warmup_engine(server, cfg)
+    schedule = traffic_mod.build_requests(cfg, chaos=chaos)
+    rep = traffic_mod.run_open_loop(server, cfg, slo_s=slo_s, chaos=chaos,
+                                    schedule=schedule)
+    for eng in engines:
+        eng.close()
+
+    print(f"esam-traffic: offered {rep.n_offered} requests @ {rate:,.0f}/s "
+          f"(sustainable ~{rate_sust:,.0f}/s, replicas={len(engines)}, "
+          f"chaos={'on' if chaos else 'off'})")
+    print(f"  completed         : {rep.n_completed}  "
+          f"(shed {rep.n_shed}, rejected {rep.n_rejected}, "
+          f"failed {rep.n_failed}, deadline-miss {rep.n_deadline_miss})")
+    print(f"  latency           : p50 {rep.p50_ms:8.1f} ms   "
+          f"p99 {rep.p99_ms:8.1f} ms   p99.9 {rep.p999_ms:8.1f} ms")
+    print(f"  goodput under SLO : {100 * rep.goodput_slo:6.1f} %  "
+          f"(SLO {1e3 * rep.slo_s:.0f} ms)" if rep.slo_s else
+          f"  goodput           : {100 * rep.goodput_slo:6.1f} %")
+    print(f"  resilience        : retries {rep.retries}, "
+          f"crashes {rep.crashes}, timeouts {rep.timeouts}, "
+          f"degraded routes {rep.degraded_routes}")
+    print(f"  degradation       : {rep.ladder_transitions} transitions, "
+          f"deepest level {rep.max_degradation_level}; "
+          f"backpressure events {rep.backpressure_events}")
+    return TrafficRun(net=net, engines=engines, server=server, config=cfg,
+                      chaos=chaos, requests=schedule[0], report=rep,
+                      rate_sustainable=rate_sust)
+
+
 def _fuse_arg(args):
     """Resolve --fuse: "auto" (default) | "off" | an integer factor."""
     if args.fuse in ("off", "none", "0"):
@@ -229,15 +344,34 @@ def main(argv=None):
                     help="serve synthetic digit traffic through SpikeEngine")
     ap.add_argument("--events", action="store_true",
                     help="serve event streams through the temporal plan")
+    ap.add_argument("--traffic", action="store_true",
+                    help="open-loop Poisson traffic through the overload "
+                         "plane (deadlines, ladder, retries); see also "
+                         "--chaos/--replicas")
+    ap.add_argument("--rate", type=float, default=None,
+                    help="--traffic: offered arrival rate in req/s "
+                         "(default: 2x the measured sustainable rate)")
+    ap.add_argument("--deadline-ms", type=float, default=250.0,
+                    help="--traffic: per-request deadline (0 disables)")
+    ap.add_argument("--slo-ms", type=float, default=None,
+                    help="--traffic: goodput SLO (default: the deadline)")
+    ap.add_argument("--p-event", type=float, default=0.25,
+                    help="--traffic: fraction of event-stream requests")
+    ap.add_argument("--replicas", type=int, default=1,
+                    help="--traffic: engine replicas behind the router")
+    ap.add_argument("--chaos", action="store_true",
+                    help="--traffic: crash replica 0 mid-drain, slow "
+                         "replica 1, and inject a request storm")
     ap.add_argument("--smoke", action="store_true",
                     help="topology 768:256:10 instead of the paper's "
                          "768:256:256:256:10")
     ap.add_argument("--requests", type=int, default=None,
                     help="default: 64 (--esam --smoke), 512 (--esam), "
-                         "32 (--events --smoke), 256 (--events)")
+                         "32 (--events --smoke), 256 (--events), "
+                         "64 (--traffic --smoke), 256 (--traffic)")
     ap.add_argument("--batch-size", type=int, default=None,
                     help="the engine's max_batch (default 128 with --esam, "
-                         "64 with --events)")
+                         "64 with --events, 32 with --traffic)")
     ap.add_argument("--read-ports", type=int, default=4,
                     help="cell option 0..4 of the cost model")
     ap.add_argument("--leak", type=float, default=0.125,
@@ -257,15 +391,18 @@ def main(argv=None):
     ap.add_argument("--warmup", action="store_true",
                     help="--esam: run the bucket ladder before serving (on "
                          "the card, one CUDA graph a bucket) and print the "
-                         "COLDSTART first-request line")
+                         "COLDSTART first-request line; --traffic: warm "
+                         "every replica's (bucket, T) shapes first")
     ap.add_argument("--device", default="cuda",
                     help="cuda (default; raises without a GPU) or cpu")
     args = ap.parse_args(argv)
+    if args.traffic:
+        return traffic_main(args)
     if args.events:
         return events_main(args)
     if not args.esam:
-        ap.error("only --esam and --events serving are ported to "
-                 "repro_torch; the LM and --traffic modes are not")
+        ap.error("only --esam, --events and --traffic serving are ported "
+                 "to repro_torch; the LM mode is not")
     return esam_main(args)
 
 

@@ -23,6 +23,13 @@ packer thread fills pinned host slots while the previous round runs),
 cold start (``warmup``: every shape run once, and on the card one CUDA graph
 a bucket, replayed from then on), and the overload plane (bounded
 admission, deadlines, the degradation ladder, the straggler watchdog).
+
+Fault-aware serving: ``SpikeEngine(faults=)`` serves through plans built
+with that ``FaultModel`` (its masks read at the plans' 4 ports, as the
+reference's engine reads them), scores each tile's health from the
+telemetry, and ``replan_degraded`` rebuilds its plan for a surviving device
+count.  ``FaultAwareRouter`` drains traffic across several engines around
+degraded, slow and crashed replicas, with ``RetryPolicy`` backoff.
 """
 
 from __future__ import annotations
@@ -284,6 +291,9 @@ class SpikeEngine:
     (queue depth past the high-water mark, or a round the ``watchdog``
     flags) and back up when it clears.  ``round_hook(round)`` runs before
     each round inside the watchdog's timing.
+
+    ``faults`` (a ``FaultModel``) goes to the static plan and to every
+    event plan; ``stats()["faulted"]`` reports it.
     """
 
     def __init__(self, net, *, max_batch: int = 128, min_bucket: int = 8,
@@ -291,6 +301,7 @@ class SpikeEngine:
                  overlap: bool = False,
                  telemetry: bool = False, read_ports: int = 4,
                  temporal: Optional[TemporalConfig] = None,
+                 faults=None,  # Optional[faults.FaultModel]
                  watchdog: Optional[ft.StragglerWatchdog] = None,
                  health_threshold: float = 0.75,
                  queue_limit: Optional[int] = None,
@@ -313,6 +324,7 @@ class SpikeEngine:
         self.n_in = net.topology[0]
         self.telemetry = telemetry
         self.read_ports = read_ports
+        self.faults = faults
         self.health_threshold = health_threshold
         self._min_bucket = min_bucket
         # dispatch-round straggler watchdog: each round's host wall time
@@ -354,7 +366,8 @@ class SpikeEngine:
         #: CUDA graphs this engine captured and replayed (the wrappers'
         #: launch counters see captures, never replays)
         self._graph_counts = {"captures": 0, "replays": 0}
-        self._plan = net.plan(mode="packed", telemetry=telemetry)
+        self._plan = net.plan(mode="packed", telemetry=telemetry,
+                              faults=faults)
         # LIF dynamics of event streams; n_steps comes from each request
         self._temporal = temporal or TemporalConfig(n_steps=1)
         n_tiles = len(net.topology) - 1
@@ -862,7 +875,7 @@ class SpikeEngine:
         the network)."""
         cfg = dataclasses.replace(self._temporal, n_steps=n_steps)
         return self.net.plan(mode="temporal", temporal=cfg,
-                             telemetry=self.telemetry)
+                             telemetry=self.telemetry, faults=self.faults)
 
     def _pack_events(self, events: list[np.ndarray], n_steps: int,
                      bucket: int, out: Optional[np.ndarray] = None
@@ -980,6 +993,29 @@ class SpikeEngine:
         """Engine health: the weakest tile's score (pipeline bottleneck)."""
         return float(self.tile_health().min())
 
+    def replan_degraded(self, n_devices: int) -> ft.ReplanResult:
+        """Degraded-mesh operation: flush what is in flight, pick the mesh
+        ``elastic_replan`` gives ``n_devices`` surviving devices (model
+        parallel 1), and rebuild the bucket ladder and the serving plan with
+        the same fault model.  Telemetry totals survive.
+
+        The port serves on one device: a data axis above 1 needs sharded
+        plans, which are not ported (ROADMAP, multi-device), and raises
+        ``NotImplementedError`` rather than serving on one device."""
+        self._flush()
+        plan = ft.elastic_replan(max(1, int(n_devices)), model_parallel=1)
+        (data, _), _ = plan
+        if data > 1:
+            raise NotImplementedError(
+                f"a data axis of {data} needs sharded serving plans, which "
+                "are not ported (ROADMAP: multi-device)")
+        self._fuse = self._fuse_factor(data)
+        self._buckets = _bucket_sizes(
+            self.max_batch * self._fuse, self._min_bucket, data)
+        self._plan = self.net.plan(mode="packed", telemetry=self.telemetry,
+                                   faults=self.faults)
+        return plan
+
     # -------------------------------------------------------------- #
     # aggregate telemetry
     # -------------------------------------------------------------- #
@@ -1010,7 +1046,7 @@ class SpikeEngine:
             "cell": spec.name,
             "read_ports": self.read_ports,
             "data_parallel": 1,
-            "faulted": False,
+            "faulted": self.faults is not None,
             "tile_health": [float(h) for h in self.tile_health()],
             "health": health,
             "degraded": health < self.health_threshold,
@@ -1068,4 +1104,203 @@ class SpikeEngine:
             "throughput_pipelined_inf_s":
                 1e9 / (bottleneck_cycles * spec.clock_ns)
                 if bottleneck_cycles else 0.0,
+        }
+
+
+# ------------------------------------------------------------------ #
+# fault-aware routing across SpikeEngine replicas
+# ------------------------------------------------------------------ #
+class AllReplicasDownError(RuntimeError):
+    """Every replica has crashed: nothing can serve."""
+
+
+class AllReplicasDegradedError(RuntimeError):
+    """Every live replica is below the health threshold and the router was
+    built with ``on_all_degraded="raise"``."""
+
+
+class FaultAwareRouter:
+    """Drains spike traffic around degraded, stalled and crashed replicas.
+
+    Holds N ``SpikeEngine`` replicas (on one card here, each possibly with
+    its own ``FaultModel``) and routes every request by tile health:
+    round-robin across the replicas whose weakest tile scores at least
+    ``health_threshold``.  When every live replica is degraded the router
+    raises (``on_all_degraded="raise"``) or falls back to the healthiest one,
+    and counts each fallback in ``stats()["degraded_route"]``.  Health comes
+    from each engine's telemetry: the router does no device work.
+
+    ``retry`` (a ``RetryPolicy``): a replica whose drain raises is taken out
+    of rotation and every request it held but did not complete is re-routed
+    to a survivor after exponential backoff with counter-based jitter.  A
+    drain past ``retry.attempt_timeout_s`` counts a timeout and marks the
+    replica slow: round-robin prefers the others from then on.  A request
+    whose retry budget runs out gets ``status="failed"``, never lost.
+    """
+
+    def __init__(self, engines, *, health_threshold: float = 0.75,
+                 retry: Optional[ft.RetryPolicy] = None,
+                 on_all_degraded: str = "fallback",
+                 sleep=time.sleep, clock=time.monotonic):
+        if not engines:
+            raise ValueError("router needs at least one engine")
+        if on_all_degraded not in ("fallback", "raise"):
+            raise ValueError(f"on_all_degraded must be 'fallback' or "
+                             f"'raise', got {on_all_degraded!r}")
+        self.engines = list(engines)
+        self.health_threshold = health_threshold
+        self.retry = retry or ft.RetryPolicy()
+        self.on_all_degraded = on_all_degraded
+        self.routed = [0] * len(self.engines)
+        self.counters = {"retries": 0, "crashes": 0, "timeouts": 0,
+                         "degraded_route": 0, "rejected_full": 0,
+                         "failed": 0}
+        self._rr = 0
+        self._down: set[int] = set()
+        self._slow: set[int] = set()
+        self._assigned: list[list] = [[] for _ in self.engines]
+        self._backoff_counter = 0
+        self._sleep = sleep
+        self._clock = clock
+
+    def backlog(self) -> int:
+        """Routed requests not yet completed on a live replica."""
+        return sum(len(self._assigned[i]) for i in range(len(self.engines))
+                   if i not in self._down)
+
+    def route(self, request, *, exclude=()) -> Optional[int]:
+        """Queue one request on the chosen replica; returns its index, or
+        ``None`` when every candidate's bounded queue rejected it (the
+        request's status is then ``"rejected"``, counted in
+        ``stats()["rejected_full"]``)."""
+        avoid = set(exclude) | self._down
+        candidates = [i for i in range(len(self.engines)) if i not in avoid]
+        if not candidates:
+            raise AllReplicasDownError(
+                f"all {len(self.engines)} replicas are down")
+        scores = {i: self.engines[i].health() for i in candidates}
+        healthy = [i for i in candidates
+                   if scores[i] >= self.health_threshold]
+        fast = [i for i in healthy if i not in self._slow]
+        pool = fast or healthy
+        if pool:
+            idx = pool[self._rr % len(pool)]
+            self._rr += 1
+            order = [idx] + [i for i in pool if i != idx] + sorted(
+                (i for i in candidates if i not in pool),
+                key=lambda i: -scores[i])
+        else:
+            # every live candidate is degraded: count it, and raise if so
+            # configured
+            self.counters["degraded_route"] += 1
+            if self.on_all_degraded == "raise":
+                raise AllReplicasDegradedError(
+                    f"all live replicas below health threshold "
+                    f"{self.health_threshold} (scores: {scores})")
+            order = sorted(candidates, key=lambda i: -scores[i])
+        for idx in order:
+            verdict = self.engines[idx].submit(request)
+            if verdict is None or verdict.admitted:
+                request.status = "pending"   # clear any earlier rejection
+                if pool and idx not in pool:
+                    # the healthy queues were full and the request spilled
+                    # onto a degraded replica
+                    self.counters["degraded_route"] += 1
+                self._assigned[idx].append(request)
+                self.routed[idx] += 1
+                return idx
+        self.counters["rejected_full"] += 1
+        return None
+
+    def serve(self, requests=None) -> list:
+        """Route ``requests`` (optional), then drain every live replica,
+        re-routing work off any replica that crashes or stalls."""
+        if requests is not None:
+            if isinstance(requests, (SpikeRequest, EventRequest)):
+                requests = [requests]
+            for r in requests:
+                self.route(r)
+        self._drain()
+        return requests if requests is not None else []
+
+    def _drain(self) -> None:
+        """Drain passes until every routed request is terminal.  A crash
+        re-routes its victims, possibly onto a replica already drained this
+        pass, hence the outer loop; each pass completes requests or downs a
+        replica."""
+        max_passes = 2 * len(self.engines) + 2
+        for _ in range(max_passes):
+            for idx, eng in enumerate(self.engines):
+                if idx in self._down:
+                    continue
+                if not (self._assigned[idx] or eng.queue_depth()):
+                    continue
+                t0 = self._clock()
+                try:
+                    eng.serve()
+                except Exception:
+                    self._on_crash(idx)
+                    continue
+                dt = self._clock() - t0
+                to = self.retry.attempt_timeout_s
+                if to is not None and dt > to:
+                    self.counters["timeouts"] += 1
+                    self._slow.add(idx)
+                self._assigned[idx] = [
+                    r for r in self._assigned[idx]
+                    if r.logits is None and r.status == "pending"]
+            if self.backlog() == 0:
+                return
+
+    def _on_crash(self, idx: int) -> None:
+        """A crashed replica leaves the rotation; its incomplete requests
+        are re-routed with backoff.  Requests it completed keep their
+        results: each request's result attaches on exactly one replica."""
+        self.counters["crashes"] += 1
+        self._down.add(idx)
+        victims = [r for r in self._assigned[idx]
+                   if r.logits is None and r.status == "pending"]
+        self._assigned[idx] = []
+        # empty the dead replica's queues: its pending requests are the
+        # victims being re-routed (exactly once depends on this)
+        eng = self.engines[idx]
+        eng._pending.clear()
+        eng._pending_events.clear()
+        eng._inflight.clear()
+        for r in victims:
+            r.attempts += 1
+            if r.attempts >= self.retry.max_attempts:
+                r.status = "failed"
+                self.counters["failed"] += 1
+                continue
+            self._backoff_counter += 1
+            self._sleep(self.retry.backoff_s(r.attempts,
+                                             self._backoff_counter))
+            try:
+                dest = self.route(r, exclude={idx})
+            except AllReplicasDownError:
+                r.status = "failed"
+                self.counters["failed"] += 1
+                continue
+            if dest is not None:
+                self.counters["retries"] += 1
+
+    def stats(self) -> dict:
+        per_engine = [
+            {"health": h, "degraded": h < self.health_threshold,
+             "down": i in self._down, "slow": i in self._slow,
+             "routed": n, "n_requests": e.stats()["n_requests"]}
+            for i, (e, n, h) in enumerate(zip(
+                self.engines, self.routed,
+                (e.health() for e in self.engines)))
+        ]
+        return {
+            "n_engines": len(self.engines),
+            "health_threshold": self.health_threshold,
+            "routed": list(self.routed),
+            "engines": per_engine,
+            "down": sorted(self._down),
+            "slow": sorted(self._slow),
+            "backlog": self.backlog(),
+            **self.counters,
         }

@@ -18,6 +18,11 @@ transposable port (Sec 4.4.1):
 
 Under the same key the draws are the reference's (``core/prng.py``), so the
 weights, accuracies and update counts are the reference's bit for bit.
+
+``faults=`` (a ``FaultModel``) makes the loop the online-learning repair:
+the prefix runs through the faulted plan, and each epoch learns on the
+readout as the faulted array reads it (``faults.clamp_readout_t`` at 4
+ports); only the writes that land are folded back into the programmed bits.
 """
 
 from __future__ import annotations
@@ -30,6 +35,7 @@ import torch
 
 from repro_torch.checkpoint import io as ckpt_io
 from repro_torch.core import packing, prng
+from repro_torch.core.esam import faults as faults_mod
 from repro_torch.core.esam import learning
 from repro_torch.core.esam.network import EsamNetwork
 
@@ -76,6 +82,7 @@ def train_online(
     checkpoint_dir: str | None = None,
     checkpoint_every: int = 0,
     resume: bool = False,
+    faults: faults_mod.FaultModel | None = None,
 ) -> OnlineTrainResult:
     """Supervised-STDP training of the readout tile over several epochs.
 
@@ -85,6 +92,12 @@ def train_online(
     ``checkpoint_dir`` set, the full weight list is checkpointed every
     ``checkpoint_every`` epochs and at the end; ``resume=True`` restarts from
     the latest step found there.
+
+    ``faults`` runs the repair: the prefix is the faulted plan's, and the
+    epoch reads and writes the clamped readout (writes into stuck cells do
+    not take, reads see the disturb flips).  The result carries the
+    *programmed* bits: evaluate it under the same ``FaultModel`` for the
+    deployed accuracy, which equals the last epoch's.
     """
     if key is None:
         key = prng.PRNGKey(0)
@@ -94,8 +107,14 @@ def train_online(
     key = key.to(dev)
     spikes = torch.as_tensor(spikes).to(dev) != 0
     labels = torch.as_tensor(labels).to(dev)
-    prefix_plan = network.plan(mode="prefix")
+    prefix_plan = network.plan(mode="prefix", faults=faults)
     n_pre = network.topology[-2]
+    fault_masks = None
+    if faults is not None:
+        fault_masks = faults.build_masks(network.topology, (4,), device=dev)
+
+    def clamp(bt):
+        return faults_mod.clamp_readout_t(bt, fault_masks, 4)
 
     def run_prefix(x):
         out = prefix_plan(x).prefix
@@ -136,11 +155,24 @@ def train_online(
             x_e, y_e = pre, labels
         # learning events target the deployed readout: the wrong winner is
         # the argmax of the offset-shifted logits, as in _readout_accuracy
-        bits_t, n = learning.column_event_epoch(
-            bits_t, x_e, y_e, ep_key, p_pot=float(p_pot), p_dep=float(p_dep),
-            out_offset=network.out_offset)
+        if fault_masks is None:
+            bits_t, n = learning.column_event_epoch(
+                bits_t, x_e, y_e, ep_key, p_pot=float(p_pot),
+                p_dep=float(p_dep), out_offset=network.out_offset)
+            eval_bits = bits_t
+        else:
+            # bits_t holds the programmed state; the epoch reads and writes
+            # the effective one, a fresh clamped tensor it updates in place
+            # (never a view of bits_t).  The writes that landed, where the
+            # effective bit changed, are folded back into the programmed
+            # state: a write into a stuck cell is dropped, as on the array.
+            eff, n = learning.column_event_epoch(
+                clamp(bits_t), x_e, y_e, ep_key, p_pot=float(p_pot),
+                p_dep=float(p_dep), out_offset=network.out_offset)
+            bits_t = torch.where(eff != clamp(bits_t), eff, bits_t)
+            eval_bits = clamp(bits_t)
         accuracy.append(_readout_accuracy(
-            bits_t, eval_pre, eval_labels, network.out_offset))
+            eval_bits, eval_pre, eval_labels, network.out_offset))
         n_updates.append(int(n))
         epoch_s.append(time.perf_counter() - t0)
         at_end = epoch + 1 == epochs

@@ -239,3 +239,16 @@ def test_default_device_raises_without_gpu(monkeypatch):
         bnn.init_params(prng.PRNGKey(0), SMALL)
     with pytest.raises(RuntimeError):
         quickstart.main(["--smoke"])
+
+
+def test_init_params_within_3_ulp_of_reference():
+    """The latent init draws ``prng.normal``: every weight within 3 ulp of
+    the reference's ``jax.random.normal`` init, the biases zero."""
+    want = jbnn.init_params(jax.random.PRNGKey(0), SMALL)
+    got = bnn.init_params(prng.PRNGKey(0), SMALL, device="cpu")
+    for g, w in zip(got, want):
+        wj = np.asarray(w["w"])
+        ulp = np.abs(g["w"].numpy().view(np.int32).astype(np.int64)
+                     - wj.view(np.int32))
+        assert g["w"].dtype == torch.float32 and ulp.max() <= 3
+        assert not torch.any(g["b"])
