@@ -154,7 +154,22 @@ Phases; any failure raises, so the exit code is non-zero:
     --esam --traffic --replicas 2 --chaos``:
     one crash, no request failed or left pending, every completed logit
     equal to a clean replay;
-11. one JSON line of the kernels (21: the 13 Pallas kernels' ports, the
+11. the observability plane at the paper topology (``obs`` lines): 4096
+    requests through ``SpikeEngine`` with and without
+    ``Observability.enabled(registry=Registry())``, synchronous and warmed,
+    equal bit for bit (results, stats() less its wall-clock keys), every
+    request span closed, the counters equal to stats(), and each drain's
+    req/s with the plane on and off in turns; ``DeviceProfiler`` with the
+    ``torch.profiler`` backend around 4 rounds of the synchronous drain (4
+    launches of each round kernel in its Chrome trace) and of a warmed one
+    (4 graph replays); ``launch.serve --traffic --replicas 2 --chaos`` with
+    every observability flag in a subprocess, its endpoint scraped over
+    127.0.0.1 while held and reconciled with its ``--report-json`` and
+    trace (``PROFILE ... status=ok``); ``train_online(observability=)``
+    for 2 epochs equal to a run without it, a span and the counters an
+    epoch; ``launch.bench_serving`` at the reference's sizes with the
+    reference CI's assertions on its rows (``overhead_pct`` reported);
+12. one JSON line of the kernels (21: the 13 Pallas kernels' ports, the
     column-event epoch's two kernels, the matrix-RNG epoch's three, the
     event round's scan, and the round telemetry's two), then the result
     line.
@@ -3552,6 +3567,401 @@ def faults_phase() -> dict:
     return counts
 
 
+# ------------------------------------------------------------------ #
+# the observability plane (phase 11)
+# ------------------------------------------------------------------ #
+#: the kernels of an eager static round, as the profiler names them
+ROUND_KERNELS = ("mega_cascade_kernel", "tile_loads_kernel",
+                 "request_stats_kernel")
+#: stats() keys that measure the host's wall time, not the datapath
+WALL_CLOCK_KEYS = ("host_pack_s_total", "dispatch_s_total",
+                   "straggler_rounds")
+#: where phase 11 writes its traces (git-ignored, not brought back)
+OBS_DIR = ROOT / "build" / "obs"
+
+
+def obs_counters_reconcile(what: str, eng, snap: dict) -> dict:
+    """The engine's counters against its stats() and float64 totals."""
+    st = eng.stats()
+    want = {
+        "esam_requests_served_total{kind=\"static\"}": st["n_requests"],
+        "esam_dispatch_rounds_total": st["dispatch_rounds"],
+        "esam_rows_real_total": st["rows_real_total"],
+        "esam_rows_padded_total": st["rows_padded_total"],
+        "esam_cycles_total": eng._totals["cycles"],
+        "esam_energy_pj_total": eng._totals["energy_pj"],
+        "esam_health": st["health"],
+        "esam_queue_depth": 0,
+    }
+    got = {k: snap[k]["value"] for k in want}
+    if got != want:
+        raise AssertionError(f"{what}: counters {got} != stats {want}")
+    return got
+
+
+def obs_identity_check(bits, spikes) -> dict:
+    """4096 requests through engines with and without
+    ``Observability.enabled(registry=Registry())``, synchronous and warmed:
+    results and stats() (less its wall-clock keys) equal bit for bit, every
+    request span closed, counters equal to stats(); then each drain's
+    req/s with the plane on and off, 5 drains each in turns.  Each mode has
+    a network of its own: a plan's graphs serve every engine on it."""
+    from repro_torch.core.esam.network import EsamNetwork
+    from repro_torch.obs import Observability, Registry
+    from repro_torch.obs.trace import validate_trace
+    from repro_torch.serve.engine import SpikeEngine, SpikeRequest
+
+    def make():
+        return [SpikeRequest(spikes=s) for s in spikes]
+
+    modes = {"sync": {}, "warmed": dict(fuse_rounds="auto", overlap=True)}
+    engines, rows = {}, {}
+    for mode, kw in modes.items():
+        net = EsamNetwork.from_numpy(*bits, device="cuda")
+        obs = Observability.enabled(registry=Registry())
+        plain = SpikeEngine(net, max_batch=BUCKET, telemetry=True,
+                            device="cuda", **kw)
+        inst = SpikeEngine(net, max_batch=BUCKET, telemetry=True,
+                           device="cuda", observability=obs, **kw)
+        if mode == "warmed":
+            plain.warmup()
+            inst.warmup()
+        with PlainForbidden() as guard:
+            want = plain.serve(make())
+            got = inst.serve(make())
+        rounds = plain.stats()["rounds_static"]
+        guard.expect(f"{mode} drains, plane off and on", dict.fromkeys(
+            ("mega_cascade", "tile_loads", "request_stats"),
+            0 if mode == "warmed" else 2 * rounds))
+        same_served(got, want, f"{mode} drain with the plane on")
+        st_plain, st_inst = plain.stats(), inst.stats()
+        for key in WALL_CLOCK_KEYS:
+            st_plain.pop(key)
+            st_inst.pop(key)
+        if st_inst != st_plain:
+            raise AssertionError(f"{mode}: stats() differ with the plane on")
+        summary = validate_trace(obs.tracer.export())
+        if (summary["request_begun"] != len(spikes)
+                or summary["request_close_fraction"] != 1.0
+                or summary["phases"]["round"] != rounds
+                or obs.tracer.dropped):
+            raise AssertionError(f"{mode}: trace {summary}")
+        snap = obs.metrics.snapshot()
+        if snap["esam_requests_submitted_total"]["value"] != len(spikes):
+            raise AssertionError(f"{mode}: submitted "
+                                 f"{snap['esam_requests_submitted_total']}")
+        rows[mode] = {
+            "rounds": rounds, "events": summary["events"],
+            "phases": summary["phases"],
+            "counters": obs_counters_reconcile(mode, inst, snap),
+            "latency_p99_s": snap["esam_request_latency_seconds"]["p99"]}
+        engines[f"{mode}_off"], engines[f"{mode}_on"] = plain, inst
+    walls = drain_walls(engines, make, lambda reqs, wall: len(reqs) / wall)
+    for mode in modes:
+        off = walls[f"{mode}_off"]["median"]
+        on = walls[f"{mode}_on"]["median"]
+        rows[mode]["overhead_pct"] = 100.0 * (off - on) / on
+    for eng in engines.values():
+        eng.close()
+    print("obs identity " + json.dumps({"requests": len(spikes), **rows,
+                                        "req_per_s": walls}), flush=True)
+    return rows
+
+
+def obs_profiler_check(bits, spikes) -> dict:
+    """``DeviceProfiler(skip_rounds=1, n_rounds=4)`` with the
+    ``torch.profiler`` backend around the eager synchronous drain (its
+    Chrome trace holds 4 launches of each of the round's kernels and no
+    graph replay) and a warmed drain (4 graph replays; the kernel records
+    CUPTI gives for a replay's nodes are reported, not held), each on a
+    network of its own.  The skipped round runs in the backend's warm-up
+    step: a session that recorded from its first launch lost the first
+    round's cascade record.  A capture that lost records is taken
+    again, as the learning profile is, and after ``PROFILE_ATTEMPTS`` the
+    phase fails; every attempt is reported."""
+    from repro_torch.core.esam.network import EsamNetwork
+    from repro_torch.obs import DeviceProfiler, Observability, TorchProfiler
+    from repro_torch.serve.engine import SpikeEngine, SpikeRequest
+
+    out = {}
+    for mode, kw in (("sync", {}),
+                     ("warmed", dict(fuse_rounds="auto", overlap=True))):
+        seen = []
+        for attempt in range(1, PROFILE_ATTEMPTS + 1):
+            backend = TorchProfiler()
+            prof = DeviceProfiler(str(OBS_DIR / f"profile_{mode}"),
+                                  skip_rounds=1, n_rounds=4,
+                                  profiler=backend)
+            prof.prepare()
+            net = EsamNetwork.from_numpy(*bits, device="cuda")
+            eng = SpikeEngine(net, max_batch=BUCKET, telemetry=True,
+                              device="cuda", observability=Observability(
+                                  profile=prof), **kw)
+            if mode == "warmed":
+                eng.warmup()
+            t0 = time.perf_counter()
+            eng.serve([SpikeRequest(spikes=s) for s in spikes])
+            wall = time.perf_counter() - t0
+            eng.close()
+            if prof.error is not None or prof.captured != 4 or not prof.done:
+                raise AssertionError(f"{mode} profile: error {prof.error}, "
+                                     f"captured {prof.captured}")
+            with open(backend.trace_path) as f:
+                events = json.load(f)["traceEvents"]
+            kernels = trace_names(events, "kernel")
+            runtime = trace_names(events, "cuda_runtime", "runtime")
+            counts = {k: sum(k in name for name in kernels)
+                      for k in ROUND_KERNELS}
+            replays = runtime.count("cudaGraphLaunch")
+            seen.append({"kernels": counts, "graph_replays": replays})
+            if (replays == 4 if mode == "warmed" else (
+                    replays == 0
+                    and counts == dict.fromkeys(ROUND_KERNELS, 4))):
+                break
+        else:
+            print("obs profiler " + json.dumps({mode: seen}), flush=True)
+            raise AssertionError(f"{mode} profile: {seen} after "
+                                 f"{PROFILE_ATTEMPTS} captures")
+        out[mode] = {"captured": prof.captured, "attempts": seen,
+                     "device_events": len(kernels),
+                     "trace_bytes": Path(backend.trace_path).stat().st_size,
+                     "drain_wall_s": wall}
+    print("obs profiler " + json.dumps(out), flush=True)
+    return out
+
+
+def trace_names(events, *cats) -> list[str]:
+    """Names of a Chrome trace's events of these categories (any case)."""
+    return [e["name"] for e in events
+            if str(e.get("cat", "")).lower() in cats]
+
+
+def _scrape(port: int, path: str) -> bytes:
+    import urllib.request
+
+    with urllib.request.urlopen(f"http://127.0.0.1:{port}{path}",
+                                timeout=30) as r:
+        if r.status != 200:
+            raise AssertionError(f"GET {path}: {r.status}")
+        return r.read()
+
+
+def obs_launcher_check(hold_s: float = 3.0, timeout_s: float = 240.0):
+    """``launch.serve --traffic --replicas 2 --chaos`` with every lane on, in
+    a subprocess: /healthz, /metrics and /metrics.json scraped over
+    127.0.0.1 while the endpoint is held, then the reference's CI
+    observability smoke asserted (typed families; submitted reconciles
+    with the report and equals its snapshot; close fraction; phases), and
+    ``PROFILE ... status=ok``."""
+    import os
+    import threading
+
+    from repro_torch.obs.trace import validate_trace
+
+    OBS_DIR.mkdir(parents=True, exist_ok=True)
+    trace_path = OBS_DIR / "launcher_trace.json"
+    report_path = OBS_DIR / "launcher_report.json"
+    cmd = [sys.executable, "-m", "repro_torch.launch.serve", "--traffic",
+           "--replicas", "2", "--chaos", "--device", "cuda",
+           "--metrics-port", "0", "--metrics-hold-s", str(hold_s),
+           "--trace-out", str(trace_path), "--report-json", str(report_path),
+           "--profile-rounds", "2",
+           "--profile-dir", str(OBS_DIR / "launcher_profile")]
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
+    t0 = time.perf_counter()
+    proc = subprocess.Popen(cmd, cwd=ROOT, env=env, stdout=subprocess.PIPE,
+                            stderr=subprocess.STDOUT, text=True)
+    # a launcher that hangs is killed, which ends the read below
+    killer = threading.Timer(timeout_s, proc.kill)
+    killer.start()
+    lines, scraped, port = [], None, None
+    try:
+        for line in proc.stdout:
+            lines.append(line.rstrip("\n"))
+            if line.startswith("METRICS port="):
+                port = int(line.split()[1].split("=")[1])
+            if line.startswith("METRICS holding") and scraped is None:
+                scraped = {p: _scrape(port, p) for p in
+                           ("/healthz", "/metrics", "/metrics.json")}
+        rc = proc.wait(timeout=60)
+    finally:
+        killer.cancel()
+        if proc.poll() is None:
+            proc.kill()
+            proc.wait()
+    wall = time.perf_counter() - t0
+    if rc != 0 or scraped is None:
+        raise AssertionError(f"launcher rc {rc}, scraped {scraped is not None}"
+                             ":\n" + "\n".join(lines[-30:]))
+    if scraped["/healthz"] != b"ok\n":
+        raise AssertionError(f"/healthz: {scraped['/healthz']!r}")
+    text = scraped["/metrics"].decode()
+    for want in ("# TYPE esam_requests_submitted_total counter",
+                 "# TYPE esam_request_latency_seconds histogram",
+                 'esam_request_latency_seconds_bucket{le="+Inf"}',
+                 "# TYPE esam_router_crashes_total counter"):
+        if want not in text:
+            raise AssertionError(f"/metrics lacks {want!r}")
+    values = {}
+    for line in text.splitlines():
+        if line.startswith("#") or "{" in line:
+            continue
+        name, _, val = line.partition(" ")
+        values[name] = float(val)
+    with open(report_path) as f:
+        report = json.load(f)
+    with open(trace_path) as f:
+        doc = json.load(f)
+    summary = validate_trace(doc)
+    snap = report["metrics"]
+    scraped_snap = json.loads(scraped["/metrics.json"])
+    profile_key = "esam_profile_rounds_captured"
+    if ({k: v for k, v in scraped_snap.items() if k != profile_key}
+            != {k: v for k, v in snap.items() if k != profile_key}):
+        raise AssertionError("/metrics.json differs from the report's "
+                             "snapshot")
+    submitted = values["esam_requests_submitted_total"]
+    # the CI's identity (one replica): submitted = offered - rejected; with
+    # the crash, the crashed replica's victims are admitted once more
+    # where they are re-routed (or fail)
+    victims = sum(e["args"]["victims"] for e in doc["traceEvents"]
+                  if e["name"] == "replica_crash")
+    if (submitted != snap["esam_requests_submitted_total"]["value"]
+            or submitted != report["n_offered"] - report["n_rejected"]
+            + victims - report["n_failed"]):
+        raise AssertionError(f"submitted {submitted}: offered "
+                             f"{report['n_offered']}, rejected "
+                             f"{report['n_rejected']}, victims {victims}, "
+                             f"failed {report['n_failed']}")
+    if (summary["request_begun"] == 0
+            or summary["request_close_fraction"] < 0.99
+            or not {"pack", "dispatch", "device_drain",
+                    "telemetry_flush"} <= set(summary["phases"])):
+        raise AssertionError(f"launcher trace: {summary}")
+    profile = [line for line in lines if line.startswith("PROFILE ")]
+    if len(profile) != 1 or not profile[0].endswith("status=ok"):
+        raise AssertionError(f"launcher profile: {profile}")
+    if report["crashes"] != 1 or report["n_offered"] != (
+            report["n_completed"] + report["n_shed"] + report["n_rejected"]
+            + report["n_failed"]):
+        raise AssertionError(f"launcher report: {report}")
+    print("obs launcher " + json.dumps({
+        "wall_s": wall, "submitted": submitted, "victims": victims,
+        "ci_identity_offered_minus_rejected":
+            report["n_offered"] - report["n_rejected"],
+        "report": {k: v for k, v in report.items() if k != "metrics"},
+        "trace": {k: v for k, v in summary.items() if k != "phases"},
+        "phases": summary["phases"], "scalar_series": len(values),
+        "lines": [line for line in lines
+                  if line.split(" ")[0] in ("METRICS", "PROFILE", "TRACE",
+                                            "REPORT")]}), flush=True)
+
+
+def obs_learning_check() -> dict:
+    """``train_online(observability=)`` on the paper-learn network and data
+    for 2 epochs: the learned bits, accuracies and updates of a run
+    without the plane; one ``train_epoch`` span and the counters an
+    epoch."""
+    import torch
+
+    from repro_torch.core import prng
+    from repro_torch.data import digits
+    from repro_torch.obs import Observability, Registry
+    from repro_torch.obs.trace import validate_trace
+    from repro_torch.train.online import train_online
+
+    x, y = digits.make_spike_dataset(LEARN_TRAIN, seed=3)
+    xe, ye = digits.make_spike_dataset(LEARN_EVAL, seed=4)
+    kw = dict(epochs=2, key=prng.PRNGKey(10), p_pot=LEARN_P_POT,
+              p_dep=LEARN_P_DEP, eval_spikes=xe, eval_labels=ye,
+              shuffle=True)
+    obs = Observability.enabled(registry=Registry())
+    with PlainForbidden() as guard:
+        plain = train_online(paper_network("cuda"), x, y, **kw)
+        got = train_online(paper_network("cuda"), x, y, observability=obs,
+                           **kw)
+        torch.cuda.synchronize()
+    if not (torch.equal(plain.network.weight_bits[-1],
+                        got.network.weight_bits[-1])
+            and plain.accuracy == got.accuracy
+            and plain.n_updates == got.n_updates):
+        raise AssertionError("train_online differs with the plane on")
+    guard.expect("learning with the plane off and on", {
+        "popcount_fire": 4 * (len(PAPER_TOPOLOGY) - 2),
+        "stdp_epoch_masks": 4, "stdp_column_epoch": 4})
+    spans = [e for e in obs.tracer.events() if e["name"] == "train_epoch"]
+    reg = obs.metrics
+    if ([s["args"] for s in spans] != [
+            {"epoch": i, "accuracy": a, "n_updates": n}
+            for i, (a, n) in enumerate(zip(got.accuracy, got.n_updates))]
+            or reg.get("esam_train_epochs_total").value != 2
+            or reg.get("esam_train_column_updates_total").value
+            != sum(got.n_updates)
+            or reg.get("esam_train_accuracy").value != got.accuracy[-1]
+            or reg.get("esam_train_epoch_seconds").count != 2):
+        raise AssertionError("train_online's spans or counters miss an "
+                             "epoch")
+    validate_trace(obs.tracer.export())
+    row = {"accuracy": got.accuracy, "n_updates": got.n_updates,
+           "epoch_s": got.epoch_s, "plain_epoch_s": plain.epoch_s,
+           "span_us": [s["dur"] for s in spans]}
+    print("obs learning " + json.dumps(row), flush=True)
+    return row
+
+
+def obs_bench_check() -> list:
+    """``launch.bench_serving`` at the reference's sizes: every row, and
+    what the reference's CI asserts of them (the warm first request faster
+    than the cold one; the over lane sheds, has a p99 and a goodput; the
+    chaos lane loses nothing, which the bench itself raises on).
+    ``overhead_pct`` and the chaos lane's crash count are reported."""
+    from repro_torch.launch import bench_serving
+
+    with PlainForbidden() as guard:
+        t0 = time.perf_counter()
+        rows = bench_serving.run(device="cuda")
+        wall = time.perf_counter() - t0
+    f = {r["name"]: bench_serving.fields(r) for r in rows}
+    cold = f["serving_cold_start"]
+    over = f["serving_openloop_over"]
+    if not (float(cold["warm_first_request_ms"])
+            < float(cold["cold_first_request_ms"])
+            and int(over["shed_total"]) > 0 and float(over["p99_ms"]) > 0
+            and "goodput_slo" in over
+            and "p99_ms" in f["serving_openloop_under"]
+            and int(f["serving_chaos"]["lost"]) == 0):
+        raise AssertionError(f"bench_serving rows: {f}")
+    for kernel in ("mega_cascade", "tile_loads", "request_stats"):
+        if not guard.counts[kernel]:
+            raise AssertionError(f"bench_serving launched no {kernel}")
+    print("obs bench " + json.dumps({
+        "wall_s": wall,
+        "launches": {k: v for k, v in guard.counts.items() if v},
+        "overhead_pct": f["serving_obs_overhead"]["overhead_pct"],
+        "chaos_crashes": int(f["serving_chaos"]["crashes"]),
+        "rows": {r["name"]: r["derived"] for r in rows}}), flush=True)
+    return rows
+
+
+def obs_phase() -> None:
+    """Phase 11: the observability plane at the paper topology."""
+    from repro_torch.launch import serve as serve_mod
+
+    lap = phase_timer()
+    spikes = serving_spikes()
+    bits = serve_mod.random_esam_network(PAPER_TOPOLOGY, 0, "cpu").to_numpy()
+    obs_identity_check(bits, spikes)
+    lap("11a plane on vs off")
+    obs_profiler_check(bits, spikes)
+    lap("11b device profiler")
+    obs_launcher_check()
+    lap("11c launcher scrape")
+    obs_learning_check()
+    lap("11d train_online")
+    obs_bench_check()
+    lap("11e bench_serving")
+
+
 def main() -> int:
     import torch
 
@@ -3968,7 +4378,11 @@ def main() -> int:
     faults_phase()
     lap("10 faults")
 
-    # 11. each kernel at its path's shape, then the result
+    # 11. the observability plane
+    obs_phase()
+    lap("11 observability")
+
+    # 12. each kernel at its path's shape, then the result
     def line(name, source, replaces, row, launches):
         return {"name": name, "route": "cuda",
                 "source": f"src/repro_torch/kernels/{source}",

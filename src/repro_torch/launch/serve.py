@@ -36,6 +36,20 @@ and goodput under the SLO.
     python -m repro_torch.launch.serve --traffic --smoke --replicas 2 \
         --chaos --device cpu
 
+Observability (every mode): ``--metrics-port PORT`` serves the registry
+over HTTP on 127.0.0.1 (``/metrics``, ``/metrics.json``, ``/trace.json``,
+``/healthz``; 0 picks a free port, printed as ``METRICS port=...``) and
+``--metrics-hold-s S`` keeps it up S seconds after the run;
+``--trace-out PATH`` writes the run's Perfetto ``trace_event`` JSON
+(``TRACE path=... events=... requests=... close_fraction=...``);
+``--profile-rounds N`` captures N drain rounds (after ``--profile-skip``)
+with ``torch.profiler`` into ``--profile-dir`` (``PROFILE dir=...
+rounds=... status=...``); ``--report-json PATH`` (``--traffic``) writes
+the ``TrafficReport`` with the metrics snapshot.
+
+    python -m repro_torch.launch.serve --traffic --smoke --device cpu \
+        --metrics-port 0 --trace-out trace.json --report-json report.json
+
 The network is random, drawn with ``numpy.random.default_rng(seed)``:
 jax.random's bits cannot be reproduced in torch, so the same seed gives a
 different network than ``python -m repro.launch.serve --esam``.
@@ -45,6 +59,9 @@ from __future__ import annotations
 
 import argparse
 import dataclasses
+import json
+import os
+import tempfile
 import time
 from typing import Optional
 
@@ -57,6 +74,9 @@ from repro_torch.core.esam.temporal import TemporalConfig
 from repro_torch.data import digits
 from repro_torch.data import events as events_mod
 from repro_torch.kernels.common import resolve_device
+from repro_torch.obs import DeviceProfiler, Observability, Registry, Tracer
+from repro_torch.obs.http import MetricsServer
+from repro_torch.obs.trace import validate_trace
 from repro_torch.serve import traffic as traffic_mod
 from repro_torch.serve.engine import (EventRequest, FaultAwareRouter,
                                       SpikeEngine, SpikeRequest)
@@ -117,7 +137,64 @@ def random_esam_network(topology, seed: int, device="cuda") -> EsamNetwork:
         bits, vth, np.zeros((topology[-1],), np.float32), device=device)
 
 
-def esam_main(args) -> EsamServeRun:
+# ------------------------------------------------------------------ #
+# observability plane: --metrics-port / --trace-out / --profile-rounds
+# ------------------------------------------------------------------ #
+def _build_observability(args):
+    """The launcher's ``Observability`` handle (None when every lane is
+    off) and the scrape server when ``--metrics-port`` was given.  Returns
+    ``(obs, metrics_server)``; the caller threads ``obs`` into the engines
+    and finishes with :func:`_finish_observability`."""
+    want_trace = args.trace_out is not None
+    want_metrics = args.metrics_port is not None or args.report_json
+    want_profile = args.profile_rounds > 0
+    if not (want_trace or want_metrics or want_profile):
+        return None, None
+    registry = Registry() if (want_metrics or want_profile) else None
+    tracer = Tracer() if want_trace else None
+    profiler = None
+    if want_profile:
+        profiler = DeviceProfiler(
+            args.profile_dir, skip_rounds=args.profile_skip,
+            n_rounds=args.profile_rounds, registry=registry)
+        # the profiler library's one-time set-up, before any traffic
+        profiler.prepare()
+    obs = Observability(tracer=tracer, metrics=registry, profile=profiler)
+    server = None
+    if args.metrics_port is not None:
+        server = MetricsServer(registry, port=args.metrics_port,
+                               tracer=tracer)
+        port = server.start()
+        print(f"METRICS port={port} url=http://127.0.0.1:{port}/metrics",
+              flush=True)
+    return obs, server
+
+
+def _finish_observability(args, obs, server) -> None:
+    """Export the trace, print the summary lines, then hold the scrape
+    endpoint open for ``--metrics-hold-s`` (a scraper reads it then)."""
+    if obs is None:
+        return
+    if obs.profile is not None:
+        obs.profile.stop()
+        status = obs.profile.error or "ok"
+        print(f"PROFILE dir={obs.profile.logdir} "
+              f"rounds={obs.profile.captured} status={status}")
+    if obs.tracer is not None and args.trace_out is not None:
+        doc = obs.tracer.export(args.trace_out)
+        summary = validate_trace(doc)
+        print(f"TRACE path={args.trace_out} events={summary['events']} "
+              f"requests={summary['request_begun']} "
+              f"close_fraction={summary['request_close_fraction']:.4f}")
+    if server is not None:
+        if args.metrics_hold_s > 0:
+            print(f"METRICS holding for {args.metrics_hold_s:.0f}s",
+                  flush=True)
+            time.sleep(args.metrics_hold_s)
+        server.stop()
+
+
+def esam_main(args, obs=None) -> EsamServeRun:
     dev = resolve_device(args.device)
     topology = (768, 256, 10) if args.smoke else cm.PAPER_TOPOLOGY
     n_requests = args.requests if args.requests is not None else (
@@ -131,7 +208,7 @@ def esam_main(args) -> EsamServeRun:
 
     x, _ = digits.make_spike_dataset(n_requests, seed=args.seed)
     reqs = [SpikeRequest(spikes=x[i]) for i in range(n_requests)]
-    eng = SpikeEngine(net, **engine_kw)
+    eng = SpikeEngine(net, observability=obs, **engine_kw)
     wt, first_ms, warm_rounds = None, None, 0
     if args.warmup:
         # the whole bucket ladder up front, then the very first request the
@@ -186,7 +263,7 @@ def esam_main(args) -> EsamServeRun:
                         first_request_ms=first_ms)
 
 
-def events_main(args) -> EventServeRun:
+def events_main(args, obs=None) -> EventServeRun:
     """Mixed-T rate-encoded digit streams through ``submit_events``."""
     dev = resolve_device(args.device)
     topology = (768, 256, 10) if args.smoke else cm.PAPER_TOPOLOGY
@@ -212,7 +289,7 @@ def events_main(args) -> EventServeRun:
     # per network) so the timed engine's stats() see only the timed streams
     warm = SpikeEngine(net, **engine_kw)
     warm_reqs = warm.serve(make_requests())
-    eng = SpikeEngine(net, **engine_kw)
+    eng = SpikeEngine(net, observability=obs, **engine_kw)
     reqs = make_requests()
     if dev.type == "cuda":
         torch.cuda.synchronize(dev)
@@ -244,7 +321,7 @@ def events_main(args) -> EventServeRun:
                          wall_s=wall_s)
 
 
-def traffic_main(args) -> TrafficRun:
+def traffic_main(args, obs=None) -> TrafficRun:
     """Open-loop Poisson traffic (optionally chaos-injected) through the
     overload plane, printing the SLO-facing numbers (the reference
     launcher's ``_traffic_main``)."""
@@ -255,13 +332,15 @@ def traffic_main(args) -> TrafficRun:
     max_batch = 32 if args.batch_size is None else args.batch_size
     net = random_esam_network(topology, args.seed, dev)
 
-    def make_engine():
+    def make_engine(engine_obs=None):
+        # the warm-up engine stays uninstrumented, so the scrape and the
+        # trace carry only the measured open-loop run
         return SpikeEngine(
             net, max_batch=max_batch, telemetry=True,
             read_ports=args.read_ports, queue_limit=4 * max_batch,
             fuse_rounds=_fuse_arg(args), overlap=not args.no_overlap,
             ladder=DegradationLadder.default(max_batch, args.read_ports),
-            device=dev)
+            observability=engine_obs, device=dev)
 
     # closed-loop warm-up on the same request blend: the first pass builds
     # every (bucket, T) the traffic can hit, the second measures the
@@ -279,12 +358,12 @@ def traffic_main(args) -> TrafficRun:
     warm.close()
     rate = args.rate if args.rate is not None else 2.0 * rate_sust
 
-    engines = [make_engine() for _ in range(max(1, args.replicas))]
+    engines = [make_engine(obs) for _ in range(max(1, args.replicas))]
     # health_threshold=0: a random network's telemetry deviates from the
     # reference calibration, so health routing would mark every replica
     # degraded; this mode exercises crash/retry/deadlines, not health
     server = engines[0] if len(engines) == 1 else FaultAwareRouter(
-        engines, health_threshold=0.0,
+        engines, health_threshold=0.0, observability=obs,
         retry=RetryPolicy(base_backoff_s=1e-3, attempt_timeout_s=2.0))
     chaos = None
     if args.chaos:
@@ -303,9 +382,13 @@ def traffic_main(args) -> TrafficRun:
         traffic_mod.warmup_engine(server, cfg)
     schedule = traffic_mod.build_requests(cfg, chaos=chaos)
     rep = traffic_mod.run_open_loop(server, cfg, slo_s=slo_s, chaos=chaos,
-                                    schedule=schedule)
+                                    schedule=schedule, observability=obs)
     for eng in engines:
         eng.close()
+    if args.report_json:
+        with open(args.report_json, "w") as f:
+            json.dump(rep.to_dict(), f, indent=2, default=str)
+        print(f"REPORT path={args.report_json}")
 
     print(f"esam-traffic: offered {rep.n_offered} requests @ {rate:,.0f}/s "
           f"(sustainable ~{rate_sust:,.0f}/s, replicas={len(engines)}, "
@@ -395,15 +478,43 @@ def main(argv=None):
                          "every replica's (bucket, T) shapes first")
     ap.add_argument("--device", default="cuda",
                     help="cuda (default; raises without a GPU) or cpu")
+    ap.add_argument("--metrics-port", type=int, default=None, metavar="PORT",
+                    help="serve Prometheus /metrics on 127.0.0.1 at this "
+                         "port (0 = a free one; prints 'METRICS port=...')")
+    ap.add_argument("--metrics-hold-s", type=float, default=0.0,
+                    help="keep the /metrics endpoint up this long after the "
+                         "run finishes (lets a scraper read it before exit)")
+    ap.add_argument("--trace-out", default=None, metavar="PATH",
+                    help="export a Perfetto trace_event JSON of the run "
+                         "(open at ui.perfetto.dev)")
+    ap.add_argument("--profile-rounds", type=int, default=0, metavar="N",
+                    help="capture a torch.profiler trace around N drain "
+                         "rounds (see --profile-dir/--profile-skip)")
+    ap.add_argument("--profile-dir",
+                    default=os.path.join(tempfile.gettempdir(),
+                                         "esam-profile"),
+                    help="directory of the torch.profiler Chrome trace "
+                         "(default: esam-profile in the temp directory, "
+                         "/tmp/esam-profile as the reference's)")
+    ap.add_argument("--profile-skip", type=int, default=1,
+                    help="drain rounds to skip before the profiler arms "
+                         "(skips the first round's kernel loads; default 1)")
+    ap.add_argument("--report-json", default=None, metavar="PATH",
+                    help="--traffic: write the TrafficReport (with the "
+                         "metrics snapshot) as JSON")
     args = ap.parse_args(argv)
-    if args.traffic:
-        return traffic_main(args)
-    if args.events:
-        return events_main(args)
-    if not args.esam:
+    if not (args.traffic or args.events or args.esam):
         ap.error("only --esam, --events and --traffic serving are ported "
                  "to repro_torch; the LM mode is not")
-    return esam_main(args)
+    obs, metrics_server = _build_observability(args)
+    try:
+        if args.traffic:
+            return traffic_main(args, obs)
+        if args.events:
+            return events_main(args, obs)
+        return esam_main(args, obs)
+    finally:
+        _finish_observability(args, obs, metrics_server)
 
 
 if __name__ == "__main__":

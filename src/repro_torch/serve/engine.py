@@ -30,6 +30,13 @@ reference's engine reads them), scores each tile's health from the
 telemetry, and ``replan_degraded`` rebuilds its plan for a surviving device
 count.  ``FaultAwareRouter`` drains traffic across several engines around
 degraded, slow and crashed replicas, with ``RetryPolicy`` backoff.
+
+Observability (``observability=``, an ``obs.Observability``): the engine
+and the router emit the reference's spans, instants and metrics (request
+lifecycles, each round's pack, dispatch, device drain and telemetry flush,
+admission, sheds, the ladder, warmup, crashes and re-routes) and call the
+device profiler's hooks around each round.  Off by default; the off path
+is the instrumented path bit for bit.
 """
 
 from __future__ import annotations
@@ -50,6 +57,7 @@ from repro_torch.core.esam import cost_model as cm
 from repro_torch.core.esam.temporal import TemporalConfig
 from repro_torch.kernels.common import resolve_device
 from repro_torch.kernels.telemetry import ops as tele
+from repro_torch.obs import Observability, record_warmup_times
 from repro_torch.serve.overload import (  # noqa: F401  (AdmissionVerdict re-exported)
     AdmissionVerdict,
     DegradationLadder,
@@ -294,6 +302,10 @@ class SpikeEngine:
 
     ``faults`` (a ``FaultModel``) goes to the static plan and to every
     event plan; ``stats()["faulted"]`` reports it.
+
+    ``observability`` (an ``Observability``) instruments the engine as the
+    reference's is: every lane off by default, and each emission guarded,
+    so the off path holds no instruments.
     """
 
     def __init__(self, net, *, max_batch: int = 128, min_bucket: int = 8,
@@ -309,6 +321,7 @@ class SpikeEngine:
                  ladder: Optional[DegradationLadder] = None,
                  clock=time.monotonic,
                  round_hook=None,
+                 observability: Optional[Observability] = None,
                  device="cuda"):
         dev = resolve_device(device)
         if net.device != dev:
@@ -344,6 +357,18 @@ class SpikeEngine:
         self._ladder_flagged_seen = 0
         self._transitions: list[dict] = []
         self.round_hook = round_hook
+        # ---- observability plane ----------------------------------- #
+        # every lane defaults off; each emission is guarded, so the off
+        # path is the instrumented path bit for bit (spans observe, never
+        # perturb: tests/test_torch_obs_identity.py)
+        self._obs = observability
+        self._tracer = observability.tracer if observability else None
+        self._metrics = observability.metrics if observability else None
+        self._profiler = observability.profile if observability else None
+        # id(request) -> (async span id, admit ts us); removed at every
+        # terminal transition, so the map never outgrows the queue
+        self._req_spans: dict[int, tuple[int, float]] = {}
+        self._m = self._make_instruments(self._metrics)
         self._shed_deadline = 0
         self._rejected_full = 0
         self._backpressure_events = 0
@@ -401,6 +426,114 @@ class SpikeEngine:
                               "energy_pj": 0.0}
 
     # -------------------------------------------------------------- #
+    # observability plane: instruments + span helpers (no-ops when off)
+    # -------------------------------------------------------------- #
+    @staticmethod
+    def _make_instruments(reg) -> Optional[dict]:
+        """Register every engine metric up front (the reference's 22, their
+        names, labels and help), so a scrape shows the whole zeroed surface
+        before the first request.  Counters go up by exactly the values
+        ``stats()`` folds, so the two reconcile."""
+        if reg is None:
+            return None
+        c, g, h = reg.counter, reg.gauge, reg.histogram
+        return {
+            "submitted": c("esam_requests_submitted_total",
+                           "requests admitted to the engine queue"),
+            "rejected": c("esam_requests_rejected_total",
+                          "bounded-queue admission rejections"),
+            "shed": c("esam_requests_shed_total",
+                      "requests shed on an expired deadline"),
+            "served_static": c("esam_requests_served_total",
+                               "requests served", kind="static"),
+            "served_event": c("esam_requests_served_total",
+                              "requests served", kind="event"),
+            "timesteps": c("esam_timesteps_served_total",
+                           "event-stream timesteps served"),
+            "rounds": c("esam_dispatch_rounds_total",
+                        "continuous-batching dispatch rounds"),
+            "fused": c("esam_fused_rounds_total",
+                       "rounds that coalesced >1 legacy bucket-round"),
+            "rounds_saved": c("esam_rounds_saved_total",
+                              "legacy bucket-rounds saved by fusion"),
+            "rows_real": c("esam_rows_real_total",
+                           "real (non-padded) rows dispatched"),
+            "rows_padded": c("esam_rows_padded_total",
+                             "zero-padded bucket rows dispatched"),
+            "backpressure": c("esam_backpressure_events_total",
+                              "admissions past the high-water mark"),
+            "ladder_transitions": c("esam_ladder_transitions_total",
+                                    "degradation-ladder level changes"),
+            "energy": c("esam_energy_pj_total",
+                        "modeled inference energy (pJ), telemetry lane"),
+            "cycles": c("esam_cycles_total",
+                        "modeled CIM cycles, telemetry lane"),
+            "queue_depth": g("esam_queue_depth",
+                             "requests admitted and awaiting dispatch"),
+            "ladder_level": g("esam_degradation_level",
+                              "current degradation-ladder level (0=full)"),
+            "health": g("esam_health",
+                        "weakest-tile health score in [0,1]"),
+            "pack_s": h("esam_round_pack_seconds",
+                        "host-side wire-format packing time per round"),
+            "dispatch_s": h("esam_round_dispatch_seconds",
+                            "plan dispatch-call time per round"),
+            "queue_s": h("esam_request_queue_seconds",
+                         "admit -> round-formation queue wait"),
+            "latency_s": h("esam_request_latency_seconds",
+                           "admit -> terminal-state request latency"),
+        }
+
+    def _obs_admit(self, r) -> None:
+        """Open the request's async span and book the admission."""
+        if self._m is not None:
+            self._m["submitted"].inc()
+            self._m["queue_depth"].set(self.queue_depth())
+        if self._tracer is not None:
+            rid = self._tracer.next_id()
+            self._req_spans[id(r)] = (rid, self._tracer.now_us())
+            self._tracer.begin_async(
+                "request", rid,
+                kind="event" if isinstance(r, EventRequest) else "static",
+                deadline_s=r.deadline_s, dp=1)
+
+    def _obs_close(self, r, status: str, **args) -> None:
+        """Close the request's async span at a terminal transition."""
+        entry = self._req_spans.pop(id(r), None)
+        if entry is None:
+            return
+        rid, t_admit = entry
+        now = self._tracer.now_us()
+        if self._m is not None:
+            self._m["latency_s"].observe((now - t_admit) / 1e6)
+        self._tracer.end_async("request", rid, status=status, **args)
+
+    def _obs_abandon(self, reqs) -> None:
+        """Close the spans of requests this engine will never finish: its
+        replica crashed and the router takes them elsewhere, where each
+        opens a span of its own.  No latency is observed (the request has
+        not ended).  The reference leaves these spans open."""
+        if self._tracer is None:
+            return
+        for r in reqs:
+            entry = self._req_spans.pop(id(r), None)
+            if entry is not None:
+                self._tracer.end_async("request", entry[0], status="crashed")
+
+    def _obs_queue_spans(self, reqs, bucket: int) -> None:
+        """Per-request queue-wait spans: admit time -> round formation."""
+        now = self._tracer.now_us()
+        for r in reqs:
+            entry = self._req_spans.get(id(r))
+            if entry is None:
+                continue
+            rid, t_admit = entry
+            self._tracer.complete("queue", t_admit, now - t_admit,
+                                  cat="request", req=rid, bucket=bucket)
+            if self._m is not None:
+                self._m["queue_s"].observe((now - t_admit) / 1e6)
+
+    # -------------------------------------------------------------- #
     # admission + dispatch
     # -------------------------------------------------------------- #
     def queue_depth(self) -> int:
@@ -425,6 +558,10 @@ class SpikeEngine:
             if self._queue_limit is not None and depth >= self._queue_limit:
                 r.status = "rejected"
                 self._rejected_full += 1
+                if self._m is not None:
+                    self._m["rejected"].inc()
+                if self._tracer is not None:
+                    self._tracer.instant("rejected", queue_depth=depth)
                 verdicts.append(AdmissionVerdict(
                     admitted=False, reason="queue_full", queue_depth=depth))
                 continue
@@ -432,10 +569,14 @@ class SpikeEngine:
                 self._pending_events.append(r)
             else:
                 self._pending.append(r)
+            if self._obs is not None:
+                self._obs_admit(r)
             depth += 1
             bp = self._high_water is not None and depth > self._high_water
             if bp:
                 self._backpressure_events += 1
+                if self._m is not None:
+                    self._m["backpressure"].inc()
             verdicts.append(AdmissionVerdict(
                 admitted=True, backpressure=bp, queue_depth=depth))
         return verdicts[0] if single else verdicts
@@ -656,6 +797,14 @@ class SpikeEngine:
             times["telemetry_s"] = time.perf_counter() - tw0
         times["graphs"] = graphs
         times["total_s"] = time.perf_counter() - t0
+        if self._metrics is not None:
+            # seconds a shape; the graph count is not a time
+            record_warmup_times(self._metrics, {
+                k: v for k, v in times.items() if k != "graphs"})
+        if self._tracer is not None:
+            self._tracer.instant("warmup_done", cat="engine",
+                                 total_s=times["total_s"],
+                                 shapes=len(self._buckets) + len(ts))
         return times
 
     def graph_counts(self) -> dict[str, int]:
@@ -682,6 +831,11 @@ class SpikeEngine:
                 if r.deadline_s is not None and now > r.deadline_s:
                     r.status = "shed"
                     self._shed_deadline += 1
+                    if self._m is not None:
+                        self._m["shed"].inc()
+                    if self._tracer is not None:
+                        self._tracer.instant("shed", deadline_s=r.deadline_s)
+                        self._obs_close(r, "shed")
                 else:
                     keep.append(r)
             setattr(self, name, keep)
@@ -755,16 +909,39 @@ class SpikeEngine:
             "to": self._ladder.level(to_level).name,
             "reason": reason,
         })
+        if self._m is not None:
+            self._m["ladder_transitions"].inc()
+            self._m["ladder_level"].set(to_level)
+        if self._tracer is not None:
+            self._tracer.instant(
+                "ladder_transition", cat="ladder", round=self._rounds,
+                from_level=self._ladder_level, to_level=to_level,
+                reason=reason)
         self._ladder_level = to_level
 
     def _timed_round(self, dispatch, *args) -> None:
         """One dispatch round under the straggler watchdog: its host wall
         time feeds the EMA.  The round hook runs inside the timed section; a
-        raising hook aborts the round before dispatch."""
+        raising hook aborts the round before dispatch.  The device
+        profiler's window opens and closes around rounds here."""
         t0 = time.perf_counter()
+        if self._profiler is not None:
+            self._profiler.on_round_start(self._rounds)
+        trace_t0 = (self._tracer.now_us() if self._tracer is not None
+                    else 0.0)
         if self.round_hook is not None:
             self.round_hook(self._rounds)
         dispatch(*args)
+        if self._tracer is not None:
+            self._tracer.complete(
+                "round", trace_t0, self._tracer.now_us() - trace_t0,
+                cat="round", round=self._rounds, level=self._level().name,
+                dp=1)
+        if self._profiler is not None:
+            self._profiler.on_round_end(self._rounds)
+        if self._m is not None:
+            self._m["rounds"].inc()
+            self._m["queue_depth"].set(self.queue_depth())
         self._watchdog.record(self._rounds, time.perf_counter() - t0)
         self._rounds += 1
 
@@ -787,6 +964,15 @@ class SpikeEngine:
         if n_legacy > 1:
             c["fused_rounds"] += 1
             c["rounds_saved"] += n_legacy - 1
+        if self._m is not None:
+            self._m[f"served_{kind}"].inc(n_real)
+            self._m["rows_real"].inc(n_real)
+            self._m["rows_padded"].inc(bucket - n_real)
+            self._m["pack_s"].observe(pack_s)
+            self._m["dispatch_s"].observe(dispatch_s)
+            if n_legacy > 1:
+                self._m["fused"].inc()
+                self._m["rounds_saved"].inc(n_legacy - 1)
         self._rounds_per_bucket[bucket] = (
             self._rounds_per_bucket.get(bucket, 0) + 1)
         self._padded_rows_per_bucket[bucket] = (
@@ -806,13 +992,19 @@ class SpikeEngine:
                      ) -> tuple[np.ndarray, float]:
         """Host half of a round: bit-pack to the padded wire format (numpy
         only: safe on the packer thread), into ``out`` when given."""
+        trace_t0 = self._tracer.now_us() if self._tracer is not None else 0.0
         t0 = time.perf_counter()
         packed = packing.pack_padded_rows_np(
             [r.spikes for r in reqs], bucket, self.n_in)
         if out is not None:
             out[...] = packed
             packed = out
-        return packed, time.perf_counter() - t0
+        pack_s = time.perf_counter() - t0
+        if self._tracer is not None:
+            self._tracer.complete(
+                "pack", trace_t0, self._tracer.now_us() - trace_t0,
+                cat="round", kind="static", bucket=bucket, n_real=len(reqs))
+        return packed, pack_s
 
     def _run_round(self, plan, bucket: int, packed: np.ndarray,
                    slot: Optional[_HostSlot], temporal: bool):
@@ -856,13 +1048,31 @@ class SpikeEngine:
                        slot: Optional[_HostSlot] = None) -> None:
         """Device half of a static round; the results stay in flight (no
         host sync here)."""
+        if self._tracer is not None:
+            self._obs_queue_spans(reqs, bucket)
+        trace_t1 = self._tracer.now_us() if self._tracer is not None else 0.0
         t1 = time.perf_counter()
         host, done = self._run_round(self._plan, bucket, packed, slot, False)
         t2 = time.perf_counter()
+        if self._tracer is not None:
+            self._trace_dispatch(trace_t1, "static", bucket, len(reqs))
         self._note_round("static", bucket, len(reqs), pack_s, t2 - t1,
                          self._n_legacy(len(reqs)))
         self._served += len(reqs)
         self._inflight.append((reqs, host, done))
+
+    def _trace_dispatch(self, trace_t1: float, kind: str, bucket: int,
+                        n_real: int, **steps) -> None:
+        """A round's ``dispatch`` span from ``trace_t1``, after the ``fuse``
+        instant of a round that coalesced legacy rounds."""
+        n_legacy = self._n_legacy(n_real)
+        if n_legacy > 1:
+            self._tracer.instant("fuse", cat="round", bucket=bucket,
+                                 rounds_coalesced=n_legacy)
+        self._tracer.complete(
+            "dispatch", trace_t1, self._tracer.now_us() - trace_t1,
+            cat="round", kind=kind, bucket=bucket, **steps, n_real=n_real,
+            dp=1)
 
     def _dispatch(self, reqs: list[SpikeRequest]) -> None:
         """One round (synchronous drain): pad to the bucket, pack, launch."""
@@ -884,6 +1094,7 @@ class SpikeEngine:
         ``[n_steps, bucket, W]``, zero (silent) past the real streams (numpy
         only: safe on the packer thread), into ``out`` when given."""
         width = packing.packed_width(self.n_in)
+        trace_t0 = self._tracer.now_us() if self._tracer is not None else 0.0
         t0 = time.perf_counter()
         if out is None:
             packed = np.zeros((n_steps, bucket, width), np.uint32)
@@ -902,20 +1113,34 @@ class SpikeEngine:
                 raise ValueError(f"stream {i} has shape {ev.shape}, want "
                                  f"[T, {self.n_in}] spikes or uint32 "
                                  f"[T, {width}] words")
-        return packed, time.perf_counter() - t0
+        pack_s = time.perf_counter() - t0
+        if self._tracer is not None:
+            self._tracer.complete(
+                "pack", trace_t0, self._tracer.now_us() - trace_t0,
+                cat="round", kind="event", bucket=bucket, t=n_steps,
+                n_real=len(events))
+        return packed, pack_s
 
     def _launch_events(self, reqs: list[EventRequest], bucket: int,
                        n_steps: int, packed: np.ndarray, pack_s: float,
                        slot: Optional[_HostSlot] = None) -> None:
         """Device half of an event round; results stay in flight."""
+        if self._tracer is not None:
+            self._obs_queue_spans(reqs, bucket)
+        trace_t1 = self._tracer.now_us() if self._tracer is not None else 0.0
         t1 = time.perf_counter()
         host, done = self._run_round(self._event_plan(n_steps), bucket,
                                      packed, slot, True)
         t2 = time.perf_counter()
+        if self._tracer is not None:
+            self._trace_dispatch(trace_t1, "event", bucket, len(reqs),
+                                 t=n_steps)
         self._note_round("event", bucket, len(reqs), pack_s, t2 - t1,
                          self._n_legacy(len(reqs)))
         self._served_events += len(reqs)
         self._served_timesteps += len(reqs) * n_steps
+        if self._m is not None:
+            self._m["timesteps"].inc(len(reqs) * n_steps)
         self._inflight.append((reqs, host, done))
 
     def _dispatch_events(self, reqs: list[EventRequest], n_steps: int) -> None:
@@ -933,45 +1158,76 @@ class SpikeEngine:
         """Attach logits/labels (+ per-request cost) and fold the telemetry
         totals: each round's slab is read once, after its copy out ended.
         Totals accumulate in float64, masking each bucket's padded rows."""
-        n_tiles = len(self.net.topology) - 1
-        n_cls = self.net.topology[-1]
         for reqs, host, done in self._inflight:
             n = len(reqs)
+            is_event = bool(reqs) and isinstance(reqs[0], EventRequest)
+            kind = "event" if is_event else "static"
+            trace_t0 = (self._tracer.now_us() if self._tracer is not None
+                        else 0.0)
+            # the wait on the round's copy out (where the reference's
+            # np.asarray waits on the device)
             if done is not None:
                 done.synchronize()
             slab = host.numpy()
-            is_event = bool(reqs) and isinstance(reqs[0], EventRequest)
-            cols = tele.stats_columns(n_tiles, n_cls, is_event)
-            # one copy a round that the requests' logits view: the slab's
-            # pinned buffer goes back to its pool
-            logits = slab[:n, cols["logits"]].copy()
-            for r, row, label in zip(reqs, logits,
-                                     logits.argmax(axis=1).tolist()):
-                r.logits = row
-                r.label = label
-                r.status = "done"
-            if not self.telemetry:
-                continue
-            cycles = slab[:, cols["cycles"].start]
-            latency = slab[:, cols["latency_ns"].start]
-            energy = slab[:, cols["energy_pj"].start]
-            for r, c, lat, e in zip(reqs, cycles[:n].astype(np.int64).tolist(),
-                                    latency[:n].tolist(), energy[:n].tolist()):
-                r.cycles, r.latency_ns, r.energy_pj = c, lat, e
-            if is_event:
-                per_step = slab[:n, cols["energy_pj_per_step"].start].tolist()
-                for r, e in zip(reqs, per_step):
-                    r.energy_pj_per_step = e
-                tot = self._event_totals
-            else:
-                tot = self._totals
-                # per-tile stage totals feed the pipelined-throughput model
-                tot["cycles_per_tile"] += slab[
-                    :n, cols["cycles_per_tile"]].astype(np.float64).sum(axis=0)
-            tot["cycles"] += float(cycles[:n].sum(dtype=np.float64))
-            tot["latency_ns"] += float(latency[:n].sum(dtype=np.float64))
-            tot["energy_pj"] += float(energy[:n].sum(dtype=np.float64))
+            if self._tracer is not None:
+                self._tracer.complete(
+                    "device_drain", trace_t0,
+                    self._tracer.now_us() - trace_t0, cat="flush",
+                    kind=kind, n_real=n)
+                trace_t0 = self._tracer.now_us()
+            self._attach(reqs, slab, is_event)
+            if self._tracer is not None:
+                self._tracer.complete(
+                    "telemetry_flush", trace_t0,
+                    self._tracer.now_us() - trace_t0, cat="flush",
+                    kind=kind, n_real=n, telemetry=self.telemetry)
+            if self._obs is not None:
+                for r in reqs:
+                    self._obs_close(r, "done", label=r.label)
         self._inflight.clear()
+        if self._m is not None and self.telemetry and self._served:
+            self._m["health"].set(self.health())
+
+    def _attach(self, reqs: list, slab: np.ndarray, is_event: bool) -> None:
+        """One round's slab onto its requests, and into the float64 totals
+        (and the cycles and energy counters, by exactly the sums folded)."""
+        n = len(reqs)
+        n_tiles = len(self.net.topology) - 1
+        cols = tele.stats_columns(n_tiles, self.net.topology[-1], is_event)
+        # one copy a round that the requests' logits view: the slab's
+        # pinned buffer goes back to its pool
+        logits = slab[:n, cols["logits"]].copy()
+        for r, row, label in zip(reqs, logits,
+                                 logits.argmax(axis=1).tolist()):
+            r.logits = row
+            r.label = label
+            r.status = "done"
+        if not self.telemetry:
+            return
+        cycles = slab[:, cols["cycles"].start]
+        latency = slab[:, cols["latency_ns"].start]
+        energy = slab[:, cols["energy_pj"].start]
+        for r, c, lat, e in zip(reqs, cycles[:n].astype(np.int64).tolist(),
+                                latency[:n].tolist(), energy[:n].tolist()):
+            r.cycles, r.latency_ns, r.energy_pj = c, lat, e
+        if is_event:
+            per_step = slab[:n, cols["energy_pj_per_step"].start].tolist()
+            for r, e in zip(reqs, per_step):
+                r.energy_pj_per_step = e
+            tot = self._event_totals
+        else:
+            tot = self._totals
+            # per-tile stage totals feed the pipelined-throughput model
+            tot["cycles_per_tile"] += slab[
+                :n, cols["cycles_per_tile"]].astype(np.float64).sum(axis=0)
+        cycles_sum = float(cycles[:n].sum(dtype=np.float64))
+        energy_sum = float(energy[:n].sum(dtype=np.float64))
+        tot["cycles"] += cycles_sum
+        tot["latency_ns"] += float(latency[:n].sum(dtype=np.float64))
+        tot["energy_pj"] += energy_sum
+        if self._m is not None:
+            self._m["cycles"].inc(cycles_sum)
+            self._m["energy"].inc(energy_sum)
 
     # -------------------------------------------------------------- #
     # tile health from the telemetry totals
@@ -1003,6 +1259,9 @@ class SpikeEngine:
         plans, which are not ported (ROADMAP, multi-device), and raises
         ``NotImplementedError`` rather than serving on one device."""
         self._flush()
+        if self._tracer is not None:
+            self._tracer.instant("replan_degraded", cat="engine",
+                                 n_devices=int(n_devices))
         plan = ft.elastic_replan(max(1, int(n_devices)), model_parallel=1)
         (data, _), _ = plan
         if data > 1:
@@ -1136,11 +1395,17 @@ class FaultAwareRouter:
     drain past ``retry.attempt_timeout_s`` counts a timeout and marks the
     replica slow: round-robin prefers the others from then on.  A request
     whose retry budget runs out gets ``status="failed"``, never lost.
+
+    ``observability`` (an ``Observability``): every counter is mirrored
+    into ``esam_router_<name>_total``, the replicas down and slow into
+    gauges, and each replica drain, crash, re-route, slow mark and
+    degraded route is traced.
     """
 
     def __init__(self, engines, *, health_threshold: float = 0.75,
                  retry: Optional[ft.RetryPolicy] = None,
                  on_all_degraded: str = "fallback",
+                 observability: Optional[Observability] = None,
                  sleep=time.sleep, clock=time.monotonic):
         if not engines:
             raise ValueError("router needs at least one engine")
@@ -1162,6 +1427,25 @@ class FaultAwareRouter:
         self._backoff_counter = 0
         self._sleep = sleep
         self._clock = clock
+        self._tracer = observability.tracer if observability else None
+        self._metrics = observability.metrics if observability else None
+
+    def _count(self, name: str, n: int = 1) -> None:
+        """Bump a router counter, mirrored into ``esam_router_*_total``."""
+        self.counters[name] += n
+        if self._metrics is not None:
+            self._metrics.counter(
+                f"esam_router_{name}_total",
+                "fault-aware router event counter").inc(n)
+
+    def _health_gauges(self) -> None:
+        if self._metrics is not None:
+            self._metrics.gauge(
+                "esam_router_replicas_down",
+                "replicas out of rotation (crashed)").set(len(self._down))
+            self._metrics.gauge(
+                "esam_router_replicas_slow",
+                "replicas flagged slow (drain timeout)").set(len(self._slow))
 
     def backlog(self) -> int:
         """Routed requests not yet completed on a live replica."""
@@ -1192,7 +1476,11 @@ class FaultAwareRouter:
         else:
             # every live candidate is degraded: count it, and raise if so
             # configured
-            self.counters["degraded_route"] += 1
+            self._count("degraded_route")
+            if self._tracer is not None:
+                self._tracer.instant("degraded_route", cat="router",
+                                     scores={i: float(s)
+                                             for i, s in scores.items()})
             if self.on_all_degraded == "raise":
                 raise AllReplicasDegradedError(
                     f"all live replicas below health threshold "
@@ -1205,11 +1493,11 @@ class FaultAwareRouter:
                 if pool and idx not in pool:
                     # the healthy queues were full and the request spilled
                     # onto a degraded replica
-                    self.counters["degraded_route"] += 1
+                    self._count("degraded_route")
                 self._assigned[idx].append(request)
                 self.routed[idx] += 1
                 return idx
-        self.counters["rejected_full"] += 1
+        self._count("rejected_full")
         return None
 
     def serve(self, requests=None) -> list:
@@ -1235,6 +1523,8 @@ class FaultAwareRouter:
                     continue
                 if not (self._assigned[idx] or eng.queue_depth()):
                     continue
+                trace_t0 = (self._tracer.now_us()
+                            if self._tracer is not None else 0.0)
                 t0 = self._clock()
                 try:
                     eng.serve()
@@ -1242,10 +1532,20 @@ class FaultAwareRouter:
                     self._on_crash(idx)
                     continue
                 dt = self._clock() - t0
+                if self._tracer is not None:
+                    self._tracer.complete(
+                        "replica_drain", trace_t0,
+                        self._tracer.now_us() - trace_t0, cat="router",
+                        replica=idx, drain_s=dt)
                 to = self.retry.attempt_timeout_s
                 if to is not None and dt > to:
-                    self.counters["timeouts"] += 1
+                    self._count("timeouts")
                     self._slow.add(idx)
+                    if self._tracer is not None:
+                        self._tracer.instant("replica_slow", cat="router",
+                                             replica=idx, drain_s=dt,
+                                             timeout_s=to)
+                    self._health_gauges()
                 self._assigned[idx] = [
                     r for r in self._assigned[idx]
                     if r.logits is None and r.status == "pending"]
@@ -1256,10 +1556,14 @@ class FaultAwareRouter:
         """A crashed replica leaves the rotation; its incomplete requests
         are re-routed with backoff.  Requests it completed keep their
         results: each request's result attaches on exactly one replica."""
-        self.counters["crashes"] += 1
+        self._count("crashes")
         self._down.add(idx)
+        self._health_gauges()
         victims = [r for r in self._assigned[idx]
                    if r.logits is None and r.status == "pending"]
+        if self._tracer is not None:
+            self._tracer.instant("replica_crash", cat="router", replica=idx,
+                                 victims=len(victims))
         self._assigned[idx] = []
         # empty the dead replica's queues: its pending requests are the
         # victims being re-routed (exactly once depends on this)
@@ -1267,11 +1571,12 @@ class FaultAwareRouter:
         eng._pending.clear()
         eng._pending_events.clear()
         eng._inflight.clear()
+        eng._obs_abandon(victims)
         for r in victims:
             r.attempts += 1
             if r.attempts >= self.retry.max_attempts:
                 r.status = "failed"
-                self.counters["failed"] += 1
+                self._count("failed")
                 continue
             self._backoff_counter += 1
             self._sleep(self.retry.backoff_s(r.attempts,
@@ -1280,10 +1585,14 @@ class FaultAwareRouter:
                 dest = self.route(r, exclude={idx})
             except AllReplicasDownError:
                 r.status = "failed"
-                self.counters["failed"] += 1
+                self._count("failed")
                 continue
             if dest is not None:
-                self.counters["retries"] += 1
+                self._count("retries")
+                if self._tracer is not None:
+                    self._tracer.instant("reroute", cat="router",
+                                         from_replica=idx, to_replica=dest,
+                                         attempt=r.attempts)
 
     def stats(self) -> dict:
         per_engine = [

@@ -27,11 +27,9 @@ latency, which is exactly what this module measures:
     deadline-miss counts, and goodput-under-SLO (completed within the SLO
     per offered request — the number an edge deployment actually ships).
     ``schedule=`` takes a ``build_requests`` result the caller keeps, to
-    read the served requests afterwards.
-
-The reference's observability hooks (``observability=``, the report's
-metrics snapshot) wait for the port's observability plane; ``metrics`` is
-None here.
+    read the served requests afterwards; ``observability=`` brackets the
+    run with trace instants and folds the metrics snapshot into the
+    report.
 """
 
 from __future__ import annotations
@@ -193,8 +191,8 @@ class TrafficReport:
     backpressure_events: int = 0
     ladder_transitions: int = 0
     max_degradation_level: int = 0
-    #: the reference's metrics-registry snapshot; None until the port's
-    #: observability plane is ported
+    #: metrics-registry snapshot (``Registry.snapshot()``) when the run was
+    #: driven with an observability handle; None otherwise
     metrics: Optional[dict] = None
 
     def to_dict(self) -> dict:
@@ -213,6 +211,7 @@ def run_open_loop(server, cfg: TrafficConfig, *,
                   slo_s: Optional[float] = None,
                   chaos: Optional[ChaosConfig] = None,
                   schedule=None,
+                  observability=None,
                   clock=time.monotonic, sleep=time.sleep,
                   max_wall_s: float = 120.0) -> TrafficReport:
     """Drive ``server`` (a ``SpikeEngine`` or ``FaultAwareRouter``) with the
@@ -225,6 +224,11 @@ def run_open_loop(server, cfg: TrafficConfig, *,
     completion minus nominal arrival.  ``schedule`` is
     ``build_requests(cfg, chaos=chaos)``'s ``(requests, arrivals)`` when
     the caller wants the served requests; by default it is built here.
+
+    ``observability`` (an ``obs.Observability``, typically the handle the
+    engines were built with) brackets the run with ``traffic_start`` and
+    ``traffic_end`` instants and folds the metrics-registry snapshot into
+    ``TrafficReport.metrics``; the engines emit the real spans.
     """
     is_router = isinstance(server, FaultAwareRouter)
     engines = server.engines if is_router else [server]
@@ -233,6 +237,10 @@ def run_open_loop(server, cfg: TrafficConfig, *,
     reqs, arr = (schedule if schedule is not None
                  else build_requests(cfg, chaos=chaos))
     n = len(reqs)
+    tracer = observability.tracer if observability is not None else None
+    if tracer is not None:
+        tracer.instant("traffic_start", cat="traffic", n_offered=n,
+                       rate_hz=cfg.rate_hz, p_event=cfg.p_event)
     t0 = clock()
     completed_at = np.full(n, np.nan)
     done = [False] * n
@@ -291,6 +299,13 @@ def run_open_loop(server, cfg: TrafficConfig, *,
         retries, crashes = st["retries"], st["crashes"]
         timeouts, degraded = st["timeouts"], st["degraded_route"]
     estats = [e.stats() for e in engines]
+    if tracer is not None:
+        tracer.instant("traffic_end", cat="traffic",
+                       n_completed=int(completed.sum()),
+                       duration_s=duration)
+    metrics_snapshot = (observability.metrics.snapshot()
+                        if observability is not None
+                        and observability.metrics is not None else None)
     return TrafficReport(
         n_offered=n,
         n_completed=int(completed.sum()),
@@ -310,4 +325,5 @@ def run_open_loop(server, cfg: TrafficConfig, *,
         max_degradation_level=max(
             (max((tr["to_level"] for tr in s["ladder_transition_log"]),
                  default=0) for s in estats), default=0),
+        metrics=metrics_snapshot,
     )

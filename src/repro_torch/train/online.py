@@ -23,6 +23,10 @@ weights, accuracies and update counts are the reference's bit for bit.
 the prefix runs through the faulted plan, and each epoch learns on the
 readout as the faulted array reads it (``faults.clamp_readout_t`` at 4
 ports); only the writes that land are folded back into the programmed bits.
+
+``observability=`` (an ``obs.Observability``) traces each epoch as a
+``train_epoch`` span and books epochs, column updates, the latest accuracy
+and the epoch wall into the registry, as the reference does.
 """
 
 from __future__ import annotations
@@ -83,6 +87,7 @@ def train_online(
     checkpoint_every: int = 0,
     resume: bool = False,
     faults: faults_mod.FaultModel | None = None,
+    observability=None,
 ) -> OnlineTrainResult:
     """Supervised-STDP training of the readout tile over several epochs.
 
@@ -98,7 +103,14 @@ def train_online(
     not take, reads see the disturb flips).  The result carries the
     *programmed* bits: evaluate it under the same ``FaultModel`` for the
     deployed accuracy, which equals the last epoch's.
+
+    ``observability`` (an ``obs.Observability``) traces each epoch as a
+    complete span (accuracy and updates in its args) and books the epoch's
+    wall, column updates and accuracy into the registry: off by default,
+    and inert for the math (spans observe, never perturb).
     """
+    tracer = observability.tracer if observability is not None else None
+    metrics = observability.metrics if observability is not None else None
     if key is None:
         key = prng.PRNGKey(0)
     if (eval_spikes is None) != (eval_labels is None):
@@ -145,6 +157,7 @@ def train_online(
     n_updates: list[int] = []
     epoch_s: list[float] = []
     for epoch in range(start_epoch, epochs):
+        ep_t0 = tracer.now_us() if tracer is not None else 0.0
         t0 = time.perf_counter()
         ep_key = prng.fold_in(key, epoch)
         if shuffle:
@@ -174,7 +187,25 @@ def train_online(
         accuracy.append(_readout_accuracy(
             eval_bits, eval_pre, eval_labels, network.out_offset))
         n_updates.append(int(n))
+        # taken after the accuracy's float() has waited for the device
         epoch_s.append(time.perf_counter() - t0)
+        if tracer is not None:
+            tracer.complete("train_epoch", ep_t0, tracer.now_us() - ep_t0,
+                            cat="train", epoch=epoch,
+                            accuracy=accuracy[-1], n_updates=n_updates[-1])
+        if metrics is not None:
+            metrics.counter(
+                "esam_train_epochs_total",
+                "online-learning epochs completed").inc()
+            metrics.counter(
+                "esam_train_column_updates_total",
+                "STDP column updates applied").inc(n_updates[-1])
+            metrics.gauge(
+                "esam_train_accuracy",
+                "readout accuracy after the latest epoch").set(accuracy[-1])
+            metrics.histogram(
+                "esam_train_epoch_seconds",
+                "wall time per online-learning epoch").observe(epoch_s[-1])
         at_end = epoch + 1 == epochs
         if checkpoint_dir is not None and (
             at_end or (checkpoint_every and (epoch + 1) % checkpoint_every == 0)
