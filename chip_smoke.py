@@ -169,7 +169,28 @@ Phases; any failure raises, so the exit code is non-zero:
     for 2 epochs equal to a run without it, a span and the counters an
     epoch; ``launch.bench_serving`` at the reference's sizes with the
     reference CI's assertions on its rows (``overhead_pct`` reported);
-12. one JSON line of the kernels (21: the 13 Pallas kernels' ports, the
+12. the paper benches (``paper_bench`` lines): ``launch.bench_run``'s
+    twins at the reference's sizes, in its order, each with its
+    ``phase_wall`` and under ``PlainForbidden``, its launches held to the
+    ones it books (B8's 4 calls in ``bench_timing``; B5's 88 in
+    ``bench_system``: 20 simulated drains, 4 sweeps of 16, 4 plane calls;
+    the learning epochs' 3 and 2 launches and B9 a hidden tile; B3 and the
+    scan a temporal call, ``tile_loads`` and ``request_stats`` in the
+    stream lanes) and its assertions raising: Fig 8's headline and the
+    plane's >= 10x floor over the scan oracle, the temporal plan at T 32,
+    B 256 and thresholds 0-11 bit for bit the per-step loop with the >= 5x
+    floor, the learning epoch bit for bit the column-scheme loop, the
+    conversion exact; then the temporal twin's stream lanes (T 4-32, B
+    256: logits, every tile's loads, the request stats) and encoder lanes
+    (T 8, B 4096: logits) run again through the same plans on the CPU, the
+    kernels' plain versions, and held equal bit for bit at the bench's own
+    sizes; kernels and faults are phases 9 and 10;
+    ``launch.online_learning`` (6 epochs, 2 launches each) against the
+    same call on the CPU (``paper_learning``); the launcher twice in
+    subprocesses with ``--esam --smoke --warmup --compile-cache`` on a
+    fresh directory, the first building every library, the second none
+    (``BUILD ... built=0``), both ``cache=on`` (``compile_cache``);
+13. one JSON line of the kernels (21: the 13 Pallas kernels' ports, the
     column-event epoch's two kernels, the matrix-RNG epoch's three, the
     event round's scan, and the round telemetry's two), then the result
     line.
@@ -3962,6 +3983,156 @@ def obs_phase() -> None:
     lap("11e bench_serving")
 
 
+# ------------------------------------------------------------------ #
+# the paper benches (phase 12)
+# ------------------------------------------------------------------ #
+#: bench_run's twins that phases 9 and 10 already run uncut on the card
+PAPER_SKIPPED_TWINS = ("kernels", "faults")
+#: each --compile-cache launcher subprocess's time limit
+COMPILE_CACHE_TIMEOUT_S = 300.0
+
+
+def paper_twins_check() -> dict:
+    """``launch.bench_run``'s twins at the reference's sizes, in its order
+    (kernels and faults are phases 9 and 10), each under ``PlainForbidden``
+    with its launches held to the ones it books.  ``PlainForbidden``
+    replaces the plain versions the wrappers dispatch to, by their names
+    in the kernel ops modules.  The oracles the reference's benches run
+    are allowed and not seen by it: the per-step loop and the scan plane's
+    arbiter rounds call no wrapper, and the learning bench's column-scheme
+    loop draws through ``stdp.ref.column_event_uniforms``, which
+    ``core/esam/learning.py`` imports directly.  After the temporal twin,
+    :func:`bench_temporal.replay_on_cpu` holds its stream and encoder
+    lanes against the same plans on the CPU, bit for bit."""
+    from repro_torch.launch import bench_run, bench_temporal
+
+    lap = phase_timer()
+    out = {}
+    for name, module in bench_run.TWINS:
+        if name in PAPER_SKIPPED_TWINS:
+            continue
+        with PlainForbidden() as guard:
+            t0 = time.perf_counter()
+            rec = bench_run.run_twin(name, module, "cuda")
+            wall = time.perf_counter() - t0
+        guard.expect(f"paper bench {name}", dict(rec.launches))
+        out[name] = {"wall_s": wall, "launches": dict(rec.launches),
+                     "rows": {r["name"]: (r["us_per_call"], r["derived"])
+                              for r in rec.rows}}
+        if name == "temporal":
+            t0 = time.perf_counter()
+            out[name]["cpu_replay_values"] = bench_temporal.replay_on_cpu(rec)
+            out[name]["cpu_replay_s"] = time.perf_counter() - t0
+        print("paper_bench " + json.dumps({"twin": name, **out[name]}),
+              flush=True)
+        lap(f"12 {name}")
+    return out
+
+
+def paper_learning_check() -> dict:
+    """``launch.online_learning`` (the example's twin) on the card, 2
+    launches an epoch, against the same call on the CPU: accuracy before
+    and after each epoch, column updates and learned bits equal."""
+    import torch
+
+    from repro_torch.launch import online_learning
+
+    with PlainForbidden() as guard:
+        t0 = time.perf_counter()
+        acc0, res = online_learning.run(device="cuda")
+        wall = time.perf_counter() - t0
+    epochs = online_learning.EPOCHS
+    guard.expect("online_learning example", {"stdp_epoch_masks": epochs,
+                                             "stdp_column_epoch": epochs})
+    want0, want = online_learning.run(device="cpu")
+    if not (acc0 == want0 and res.accuracy == want.accuracy
+            and res.n_updates == want.n_updates
+            and torch.equal(res.network.weight_bits[0].cpu(),
+                            want.network.weight_bits[0])):
+        raise AssertionError("launch.online_learning on the card differs "
+                             "from its CPU twin")
+    row = {"wall_s": wall, "accuracy_before": acc0,
+           "accuracy": res.accuracy, "n_updates": res.n_updates,
+           "epoch_s": res.epoch_s}
+    print("paper_learning " + json.dumps(row), flush=True)
+    return row
+
+
+def _launcher_run(cache_dir: str) -> dict:
+    """One ``launch.serve --esam --smoke --warmup --compile-cache DIR`` in a
+    subprocess: its wall, and its BUILD and COLDSTART lines parsed."""
+    import os
+
+    cmd = [sys.executable, "-m", "repro_torch.launch.serve", "--esam",
+           "--smoke", "--warmup", "--device", "cuda", "--compile-cache",
+           cache_dir]
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
+    t0 = time.perf_counter()
+    proc = subprocess.run(cmd, cwd=ROOT, env=env, capture_output=True,
+                          text=True, timeout=COMPILE_CACHE_TIMEOUT_S)
+    wall = time.perf_counter() - t0
+    lines = proc.stdout.splitlines()
+    if proc.returncode != 0:
+        raise AssertionError(f"launcher rc {proc.returncode}:\n"
+                             + "\n".join((lines + proc.stderr.splitlines())
+                                          [-30:]))
+
+    def parsed(prefix):
+        line = next((ln for ln in lines if ln.startswith(prefix)), None)
+        if line is None:
+            raise AssertionError(f"launcher printed no {prefix} line:\n"
+                                 + "\n".join(lines[-30:]))
+        return line, dict(kv.split("=", 1) for kv in line.split()[1:])
+
+    build_line, build = parsed("BUILD ")
+    cold_line, cold = parsed("COLDSTART ")
+    print(build_line, flush=True)
+    print(cold_line, flush=True)
+    return {"wall_s": wall, "build": build, "coldstart": cold}
+
+
+def compile_cache_check() -> dict:
+    """The launcher twice with ``--compile-cache`` on a fresh directory:
+    the first run builds every kernel library, the second builds none
+    (every ``build_s`` 0.0: ``built=0``, ``nvcc_s=0.00``); both print
+    ``cache=on``."""
+    import tempfile
+
+    from repro_torch.kernels import _build
+
+    with tempfile.TemporaryDirectory(prefix="repro-torch-cache-") as d:
+        first = _launcher_run(d)
+        second = _launcher_run(d)
+    n_libs = str(len(_build.LIBRARIES))
+    if not (first["build"]["libraries"] == n_libs
+            and first["build"]["built"] == n_libs
+            and float(first["build"]["nvcc_s"]) > 0.0):
+        raise AssertionError(f"the first --compile-cache run: {first}")
+    if not (second["build"]["built"] == "0"
+            and second["build"]["nvcc_s"] == "0.00"):
+        raise AssertionError(f"the second --compile-cache run built: "
+                             f"{second}")
+    for run in (first, second):
+        if run["coldstart"].get("cache") != "on":
+            raise AssertionError(f"COLDSTART without cache=on: {run}")
+    row = {"first": first, "second": second}
+    print("compile_cache " + json.dumps(row), flush=True)
+    return row
+
+
+def paper_benches_phase() -> dict:
+    """Phase 12: the paper bench twins, the online-learning example and
+    the launcher's compile cache."""
+    lap = phase_timer()
+    twins = paper_twins_check()
+    lap("12 twins")
+    learning = paper_learning_check()
+    lap("12 online_learning")
+    cache = compile_cache_check()
+    lap("12 compile cache")
+    return {"twins": twins, "learning": learning, "cache": cache}
+
+
 def main() -> int:
     import torch
 
@@ -4382,7 +4553,11 @@ def main() -> int:
     obs_phase()
     lap("11 observability")
 
-    # 12. each kernel at its path's shape, then the result
+    # 12. the paper benches, the online-learning example, the compile cache
+    paper_benches_phase()
+    lap("12 paper benches")
+
+    # 13. each kernel at its path's shape, then the result
     def line(name, source, replaces, row, launches):
         return {"name": name, "route": "cuda",
                 "source": f"src/repro_torch/kernels/{source}",

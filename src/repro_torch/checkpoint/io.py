@@ -3,7 +3,9 @@
 ``directory/step_%08d/leaves.npz`` holds every leaf under its path (dict
 keys in sorted order, list and tuple indices: ``weight_bits/0``,
 ``weight_bits/1``, ...), ``manifest.json`` its step, shapes, dtypes and the
-caller's ``extra``.  Writes are atomic (a ``.tmp`` directory, then a rename).
+caller's ``extra``.  Writes are atomic (a ``.tmp`` directory, then a rename); ``async_=True``
+hands the write to a daemon thread, so a training loop does not wait on
+the disk.
 The JAX package's ``repro.checkpoint.io`` writes and reads the same files,
 so each package restores the other's checkpoints.
 
@@ -17,6 +19,7 @@ from __future__ import annotations
 import json
 import os
 import shutil
+import threading
 from typing import Any, Optional
 
 import numpy as np
@@ -61,25 +64,38 @@ def _step_dirs(directory: str) -> list[int]:
                   if d.startswith("step_") and not d.endswith(".tmp"))
 
 
-def save(tree, directory: str, step: int, *,
-         extra: Optional[dict] = None) -> None:
-    """Write checkpoint ``directory/step_<N>``."""
-    flat = {k: _to_numpy(v) for k, v in _flatten(tree).items()}
-    final = os.path.join(directory, f"step_{step:08d}")
-    tmp = final + ".tmp"
-    os.makedirs(tmp, exist_ok=True)
-    np.savez(os.path.join(tmp, "leaves.npz"), **flat)
-    manifest = {
-        "step": step,
-        "leaves": {k: {"shape": list(v.shape), "dtype": str(v.dtype)}
-                   for k, v in flat.items()},
-        "extra": extra or {},
-    }
-    with open(os.path.join(tmp, "manifest.json"), "w") as f:
-        json.dump(manifest, f)
-    if os.path.exists(final):
-        shutil.rmtree(final)
-    os.rename(tmp, final)
+def save(tree, directory: str, step: int, *, extra: Optional[dict] = None,
+         async_: bool = False) -> Optional[threading.Thread]:
+    """Write checkpoint ``directory/step_<N>``.  The leaves are copied to
+    the host before this returns; with ``async_`` the files are written by
+    a daemon thread, which is returned (join it before the process exits
+    or the checkpoint is read)."""
+    # copies: a CPU tensor's numpy() is a view the caller may write to
+    flat = {k: np.array(_to_numpy(v)) for k, v in _flatten(tree).items()}
+
+    def _write():
+        final = os.path.join(directory, f"step_{step:08d}")
+        tmp = final + ".tmp"
+        os.makedirs(tmp, exist_ok=True)
+        np.savez(os.path.join(tmp, "leaves.npz"), **flat)
+        manifest = {
+            "step": step,
+            "leaves": {k: {"shape": list(v.shape), "dtype": str(v.dtype)}
+                       for k, v in flat.items()},
+            "extra": extra or {},
+        }
+        with open(os.path.join(tmp, "manifest.json"), "w") as f:
+            json.dump(manifest, f)
+        if os.path.exists(final):
+            shutil.rmtree(final)
+        os.rename(tmp, final)
+
+    if async_:
+        t = threading.Thread(target=_write, daemon=True)
+        t.start()
+        return t
+    _write()
+    return None
 
 
 def latest_step(directory: str) -> Optional[int]:

@@ -158,7 +158,7 @@ def adam_update(params, opt_state, grads_, lr: float):
         for k in p_l:
             ml[k] = ADAM_B1 * m_l[k] + (1 - ADAM_B1) * g_l[k]
             vl[k] = ADAM_B2 * v_l[k] + (1 - ADAM_B2) * g_l[k] * g_l[k]
-            step = lr * (ml[k] / c1) / (torch.sqrt(vl[k] / c2) + ADAM_EPS)
+            step = lr * (ml[k] / c1) / (prng.sqrt32(vl[k] / c2) + ADAM_EPS)
             pl[k] = torch.clamp(p_l[k] - step, -LATENT_CLIP, LATENT_CLIP)
         new_p.append(pl)
         new_m.append(ml)
@@ -180,8 +180,9 @@ def fit(key: torch.Tensor, topology: Sequence[int], x01, labels, *,
         device="cuda"):
     """Train a BNN on ``device``; returns (params, final batch accuracy).
 
-    Each step draws ``batch`` sample indices, with replacement, from the
-    key's bits (``prng.bits`` mod n)."""
+    Each step splits the key and draws ``batch`` sample indices, with
+    replacement, as ``prng.randint(sub, (batch,), 0, n)``: the reference's
+    ``jax.random.randint`` draw, so both train on the same samples."""
     dev = resolve_device(device)
     x = torch.as_tensor(x01, dtype=torch.float32, device=dev)
     y = torch.as_tensor(labels, device=dev).long()
@@ -192,6 +193,6 @@ def fit(key: torch.Tensor, topology: Sequence[int], x01, labels, *,
     acc = torch.zeros(())
     for _ in range(steps):
         key, sub = prng.split(key)
-        idx = prng.bits(sub, (batch,)) % n
+        idx = prng.randint(sub, (batch,), 0, n).long()
         params, opt, _, acc = train_step(params, opt, x[idx], y[idx], lr)
     return params, float(acc)

@@ -105,6 +105,14 @@ class EsamNetwork(nn.Module):
         ws = self.weight_bits
         return tuple([ws[0].shape[0]] + [w.shape[1] for w in ws])
 
+    @property
+    def n_neurons(self) -> int:
+        return sum(w.shape[1] for w in self.weight_bits)
+
+    @property
+    def n_synapses(self) -> int:
+        return sum(w.shape[0] * w.shape[1] for w in self.weight_bits)
+
     def plan(self, *, mode: str = "packed", collect: bool = False,
              telemetry: bool = False,
              read_ports: int | tuple[int, ...] = 4,

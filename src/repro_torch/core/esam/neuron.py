@@ -13,6 +13,8 @@ import dataclasses
 
 import torch
 
+from repro_torch.kernels.common import resolve_device
+
 
 @dataclasses.dataclass
 class NeuronState:
@@ -20,6 +22,15 @@ class NeuronState:
 
     vmem: torch.Tensor    # int32[..., n_out] membrane potentials
     fired: torch.Tensor   # bool[..., n_out] output spike request register r
+
+    @staticmethod
+    def zeros(n_out: int, device="cuda") -> "NeuronState":
+        """The reset state of ``n_out`` neurons, on the card unless
+        ``device`` says otherwise (with no GPU the default raises)."""
+        dev = resolve_device(device)
+        return NeuronState(
+            vmem=torch.zeros((n_out,), dtype=torch.int32, device=dev),
+            fired=torch.zeros((n_out,), dtype=torch.bool, device=dev))
 
 
 def accumulate(state: NeuronState, port_values: torch.Tensor,

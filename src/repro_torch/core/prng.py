@@ -26,6 +26,10 @@ device, CPU or CUDA alike:
   XLA's, so about one draw in a hundred sits a few ulp from JAX's
   (``tests/test_torch_faults.py`` states the bound);
 * ``bernoulli(k, p) = uniform < p`` (p rounded to float32, as JAX does);
+* ``randint(k, shape, lo, hi)`` (int32): ``k1, k2 = split(k)``, two words
+  ``bits(k1)``, ``bits(k2)`` folded into ``[lo, hi)`` by uint32 remainders
+  (``span = uint32(hi - lo)``, 1 where ``hi <= lo``; every product and sum
+  wraps at 32 bits);
 * ``permutation(k, n)``: ``ceil(3 ln n / ln(2^32 - 1))`` rounds of
   ``k, sub = split(k)`` and a stable sort of the order by ``bits(sub, (n,))``.
 """
@@ -125,6 +129,16 @@ def fma32(a: torch.Tensor, b, c) -> torch.Tensor:
                        s).to(torch.float32)
 
 
+def sqrt32(x: torch.Tensor) -> torch.Tensor:
+    """float32 ``sqrt`` correctly rounded, as XLA's: taken in float64 and
+    rounded to float32, which for a float32 input is the correctly rounded
+    root.  torch's float32 ``sqrt`` on the CPU is not: about 0.7 % of its
+    results are an ulp off, and in some processes a share of a large
+    call's elements (a block of indices, so one thread's chunk) came back
+    ~1e-4 off, so a draw or a fit differed between runs."""
+    return torch.sqrt(x.to(torch.float64)).to(torch.float32)
+
+
 def uniform(key: torch.Tensor, shape, minval: float = 0.0,
             maxval: float = 1.0) -> torch.Tensor:
     """``jax.random.uniform`` (float32, [minval, maxval)): ``[..., *shape]``.
@@ -152,12 +166,12 @@ _ERFINV_TAIL = (-0.000200214257, 0.000100950558, 0.00134934322,
 
 def erf_inv(x: torch.Tensor) -> torch.Tensor:
     """float32 ``lax.erf_inv``: ``w = -log1p(-x^2)``, Horner in ``w - 2.5``
-    (w < 5) or ``sqrt(w) - 3`` with each step one fused multiply-add (as XLA
-    contracts it), times x; +-inf at +-1.  Only ``torch.log1p`` differs from
-    XLA's, by an ulp now and then."""
+    (w < 5) or ``sqrt(w) - 3`` (:func:`sqrt32`) with each step one fused
+    multiply-add (as XLA contracts it), times x; +-inf at +-1.  Only
+    ``torch.log1p`` differs from XLA's, by an ulp now and then."""
     w = -torch.log1p(x * -x)
     central = w < 5.0
-    w = torch.where(central, w - 2.5, torch.sqrt(w) - 3.0)
+    w = torch.where(central, w - 2.5, sqrt32(w) - 3.0)
     coef = [torch.where(central, np.float32(c), np.float32(t))
             for c, t in zip(_ERFINV_CENTRAL, _ERFINV_TAIL)]
     p = coef[0].expand_as(x)
@@ -177,6 +191,48 @@ def bernoulli(key: torch.Tensor, p: float, shape) -> torch.Tensor:
     """``jax.random.bernoulli``: bool ``[..., *shape]``, True where the
     uniform is below ``p`` rounded to float32."""
     return uniform(key, shape) < float(np.float32(p))
+
+
+I32_MIN, I32_MAX = -(2**31), 2**31 - 1
+
+
+def _mul32(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """``uint32(a * b)`` of uint32 values in int64, without overflowing the
+    int64 product: ``a``'s 16-bit halves times ``b``."""
+    lo = (a & 0xFFFF) * b
+    hi = (((a >> 16) * b) & 0xFFFF) << 16
+    return _u32(lo + hi)
+
+
+def randint(key: torch.Tensor, shape, minval, maxval) -> torch.Tensor:
+    """``jax.random.randint`` for int32: int32 ``[..., *shape]`` in
+    ``[minval, maxval)``, bit for bit (jax's ``_randint``).
+
+    ``minval``/``maxval`` are ints or integer tensors that broadcast against
+    ``shape``, inside the int32 range (JAX, with 64-bit types off, raises
+    ``OverflowError`` outside it; so does this).  Two 32-bit draws a value,
+    ``higher`` from ``split(key)[0]`` and ``lower`` from ``split(key)[1]``,
+    give ``(higher % span * (2^16 % span)^2 % span + lower % span) % span``
+    with ``span = uint32(maxval - minval)`` (1 where ``maxval <= minval``),
+    every product and sum wrapping at 32 bits as the reference's uint32
+    ``lax.mul`` and ``lax.add`` do; the offset is added to ``minval`` in
+    int32."""
+    shape = (shape,) if isinstance(shape, int) else tuple(shape)
+    # checked where the bounds are (the host for ints: no device sync)
+    lo, hi = (torch.as_tensor(v, dtype=torch.int64) for v in (minval, maxval))
+    for bound in (lo, hi):
+        if bool(((bound < I32_MIN) | (bound > I32_MAX)).any()):
+            raise OverflowError(f"randint bounds ({minval}, {maxval}) are "
+                                "outside the int32 range")
+    lo, hi = lo.to(key.device), hi.to(key.device)
+    k = split(key)
+    higher, lower = bits(k[..., 0, :], shape), bits(k[..., 1, :], shape)
+    span = torch.where(hi <= lo, 1, _u32(hi - lo))
+    multiplier = 2**16 % span
+    multiplier = _mul32(multiplier, multiplier) % span
+    offset = _u32(_mul32(higher % span, multiplier) + lower % span) % span
+    # int32 add with wraparound
+    return (_u32(lo + offset) ^ 2**31).sub(2**31).to(torch.int32)
 
 
 def permutation(key: torch.Tensor, n: int) -> torch.Tensor:

@@ -4,9 +4,11 @@ library -> ctypes).
 Each kernel library (``LIBRARIES``) is the ``*.cu`` sources of one kernel
 package, compiled with ``nvcc`` for ``sm_90a`` into a shared library with a
 plain C interface, cached under ``build/repro_torch/`` at the repository
-root on a hash of the sources, the headers it may include (its own
-``csrc/*.cuh`` and the shared ``kernels/csrc/*.cuh``, passed with ``-I``)
-and the flags, and loaded with ``ctypes``.  Every
+root (or in the directory ``$REPRO_TORCH_CACHE_DIR`` names, the port's
+persistent compile cache: ``launch/env.py``) on a hash of the sources, the
+headers it may include (its own ``csrc/*.cuh`` and the shared
+``kernels/csrc/*.cuh``, passed with ``-I``) and the flags, and loaded with
+``ctypes``.  Every
 library exports ``<name>_error_string(int)`` for :func:`check`.
 
 Nothing here runs at import time: this module imports on a machine with no
@@ -41,8 +43,17 @@ NVCC_FLAGS = (
 )
 
 
+#: names the kernel library cache's directory when set (``launch/env.py``
+#: sets it), as ``JAX_COMPILATION_CACHE_DIR`` names the reference's cache
+CACHE_ENV = "REPRO_TORCH_CACHE_DIR"
+
+
 def build_dir() -> Path:
-    """``<repo>/build/repro_torch`` (listed in ``.gitignore``)."""
+    """``$REPRO_TORCH_CACHE_DIR`` when set, else ``<repo>/build/repro_torch``
+    (listed in ``.gitignore``)."""
+    cache = os.environ.get(CACHE_ENV)
+    if cache:
+        return Path(cache)
     return KERNELS.parents[2] / "build" / "repro_torch"
 
 

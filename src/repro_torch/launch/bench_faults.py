@@ -58,6 +58,7 @@ from repro_torch.core.esam import learning
 from repro_torch.core.esam.faults import FaultModel
 from repro_torch.data import digits
 from repro_torch.kernels.common import resolve_device
+from repro_torch.launch.bench_common import sync
 from repro_torch.train import online as online_train
 
 READ_PORTS = 4
@@ -88,20 +89,15 @@ class FaultBench:
     claims: dict[str, tuple[bool, str]]
 
 
-def _sync(dev: torch.device) -> None:
-    if dev.type == "cuda":
-        torch.cuda.synchronize(dev)
-
-
 def _timed(fn, dev: torch.device, warmup: int = 1):
     """Wall microseconds of one call of ``fn`` (after ``warmup`` untimed
     calls), its result on the device synchronised."""
     for _ in range(warmup):
         fn()
-    _sync(dev)
+    sync(dev)
     t0 = time.perf_counter()
     out = fn()
-    _sync(dev)
+    sync(dev)
     return (time.perf_counter() - t0) * 1e6, out
 
 

@@ -53,6 +53,7 @@ from repro_torch.kernels.cim_popcount import ops as pop_ops
 from repro_torch.kernels.common import resolve_device
 from repro_torch.kernels.if_neuron import ops as if_ops
 from repro_torch.kernels.stdp import ops as stdp_ops
+from repro_torch.launch.bench_common import Recorder
 from repro_torch.obs.metrics import Registry
 from repro_torch.obs.profile import call_ms, graph_ms, kernel_timer
 
@@ -94,18 +95,6 @@ class BenchRun:
     rows: list                      # {"name", "us_per_call", "derived"}
     launches: dict                  # kernel launches made, by counter name
     speedups: dict                  # the floor's ratios, per lane and timing
-
-
-class Recorder:
-    """Collects emitted rows (``name,us,derived`` on stdout) for the JSON."""
-
-    def __init__(self):
-        self.rows: list[dict] = []
-
-    def emit(self, name: str, us: float, derived: str) -> None:
-        print(f"{name},{us:.1f},{derived}", flush=True)
-        self.rows.append({"name": name, "us_per_call": us,
-                          "derived": derived})
 
 
 def _roofline(datapath: str, B: int, K: int, N: int) -> str:

@@ -17,8 +17,13 @@ traffic through the paper network (768:256:256:256:10, the reference's
 ``serving_sharded_skipped`` the data-parallel lanes need sharded serving
     plans (ROADMAP.md, multi-device), as the reference reports one device.
 ``serving_cold_start``     the first request of a cold engine and of a
-    warmed one, each on a fresh network (seeds 101 and 102); the port has
-    no persistent compile cache, so ``compilation_cache=off``.
+    warmed one, each on a fresh network (seeds 101 and 102);
+    ``compilation_cache=on`` where ``$REPRO_TORCH_CACHE_DIR`` names the
+    port's persistent kernel library cache (``launch/env.py``), as the
+    reference reads ``JAX_COMPILATION_CACHE_DIR``.  ``off`` is not the
+    reference's compile at every start: the libraries are then kept in
+    the repo's own build directory (``<repo>/build/repro_torch``), which
+    persists across processes as well.
 ``serving_obs_overhead``   1024 requests (``--smoke``: 256) drained warmed
     with the tracing and metrics plane off and on, best of 3 each side;
     ``overhead_pct`` is reported beside the reference's ``gate=5%``, which
@@ -42,6 +47,7 @@ from __future__ import annotations
 
 import argparse
 import json
+import os
 import time
 
 import numpy as np
@@ -51,8 +57,9 @@ from repro_torch.core import prng
 from repro_torch.core.esam import cost_model as cm
 from repro_torch.core.esam.network import EsamNetwork
 from repro_torch.data import digits
+from repro_torch.kernels import _build
 from repro_torch.kernels.common import resolve_device
-from repro_torch.launch.bench_kernels import Recorder
+from repro_torch.launch.bench_common import Recorder, fields, sync
 from repro_torch.obs import Observability, Registry
 from repro_torch.serve import traffic as traffic_mod
 from repro_torch.serve.engine import (FaultAwareRouter, SpikeEngine,
@@ -75,17 +82,6 @@ def paper_net(seed: int = 0, device="cuda") -> EsamNetwork:
     return EsamNetwork(bits, vth, torch.zeros((topo[-1],)), device=device)
 
 
-def fields(row: dict) -> dict:
-    """A row's ``derived`` string as a dict (``k=v;...``)."""
-    return dict(kv.split("=", 1) for kv in row["derived"].split(";")
-                if "=" in kv)
-
-
-def _sync(dev: torch.device) -> None:
-    if dev.type == "cuda":
-        torch.cuda.synchronize(dev)
-
-
 def _serve_once(rec: Recorder, tag: str, net, reqs_np,
                 dev: torch.device) -> float:
     """One throughput lane on the fused, overlapped engine, warmed first,
@@ -95,7 +91,7 @@ def _serve_once(rec: Recorder, tag: str, net, reqs_np,
                       fuse_rounds="auto", overlap=True, device=dev)
     eng.warmup()
     reqs = [SpikeRequest(spikes=r) for r in reqs_np]
-    _sync(dev)
+    sync(dev)
     t0 = time.perf_counter()
     eng.serve(reqs)           # ends in the flush, after the copies out
     wall_s = time.perf_counter() - t0
@@ -143,7 +139,7 @@ def _overload_lanes(rec: Recorder, net, dev: torch.device,
                                                               **blend))
     timed = traffic_mod.build_requests(
         traffic_mod.TrafficConfig(rate_hz=1.0, seed=22, **blend))[0]
-    _sync(dev)
+    sync(dev)
     t0 = time.perf_counter()
     warm.serve(timed)
     rate_sust = len(timed) / (time.perf_counter() - t0)
@@ -218,7 +214,7 @@ def _obs_overhead_lane(rec: Recorder, net, dev: torch.device,
                           observability=obs, device=dev)
         eng.warmup()
         reqs = [SpikeRequest(spikes=r) for r in x]
-        _sync(dev)
+        sync(dev)
         t0 = time.perf_counter()
         eng.serve(reqs)
         wall = time.perf_counter() - t0
@@ -251,7 +247,7 @@ def _cold_start_lane(rec: Recorder, dev: torch.device) -> None:
             warmup_s = time.perf_counter() - t0
         spikes = (np.random.default_rng(seed).random(net.topology[0])
                   < 0.3).astype(np.uint8)
-        _sync(dev)
+        sync(dev)
         t0 = time.perf_counter()
         eng.serve([SpikeRequest(spikes=spikes)])
         return (time.perf_counter() - t0) * 1e3, warmup_s
@@ -264,7 +260,8 @@ def _cold_start_lane(rec: Recorder, dev: torch.device) -> None:
         f"warm_first_request_ms={warm_ms:.1f};"
         f"warmup_s={warmup_s:.2f};"
         f"speedup={cold_ms / max(warm_ms, 1e-9):.1f}x;"
-        f"compilation_cache=off",
+        f"compilation_cache="
+        f"{'on' if os.environ.get(_build.CACHE_ENV) else 'off'}",
     )
 
 

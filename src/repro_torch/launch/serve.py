@@ -14,8 +14,26 @@ next to the modeled paper-unit operating point (MInf/s and pJ/Inf of the
 overlapped host packer on (``--no-overlap`` for the synchronous drain).
 ``--warmup`` runs the engine's whole bucket ladder first (on the card, one
 CUDA graph a bucket), then times the first request alone and prints the
-reference's ``COLDSTART first_request_ms=... warmup_s=... buckets=...``
-line before serving the rest.
+reference's ``COLDSTART first_request_ms=... warmup_s=... buckets=...
+cache=on|off`` line before serving the rest.
+
+``--compile-cache [DIR]`` keeps the kernel libraries in a persistent cache
+(``launch/env.py``; default ``~/.cache/repro-torch-kernels``), so a restart
+runs no ``nvcc``.  On the card every mode first builds, or loads from the
+cache, all kernel libraries at once and prints ``BUILD dir=...
+libraries=... built=... nvcc_s=...`` (this process's compiles; ``built=0``
+on a warm cache).  CUDA graphs do not persist: ``--warmup`` captures them
+at every start.
+
+``COLDSTART``'s ``cache=`` is the reference's: ``on`` where
+``--compile-cache`` was given.  Unlike JAX without its cache, ``off`` does
+not mean that every start compiles anew: the libraries are then kept,
+hash-keyed, in the repo's own build directory (``<repo>/build/repro_torch``)
+and loaded from there at a restart.  ``cache_dir=`` beside it names the
+directory the libraries came from, and the ``BUILD`` line's ``built=`` what
+this process compiled.
+
+    python -m repro_torch.launch.serve --esam --smoke --warmup --compile-cache
 
 Event mode (``--events``): rate-encoded digit streams of mixed length T
 (4, 8, 16; with ``--smoke`` 2, 4) through ``SpikeEngine.submit_events`` and
@@ -73,7 +91,9 @@ from repro_torch.core.esam.network import EsamNetwork
 from repro_torch.core.esam.temporal import TemporalConfig
 from repro_torch.data import digits
 from repro_torch.data import events as events_mod
+from repro_torch.kernels import _build
 from repro_torch.kernels.common import resolve_device
+from repro_torch.launch import env as env_mod
 from repro_torch.obs import DeviceProfiler, Observability, Registry, Tracer
 from repro_torch.obs.http import MetricsServer
 from repro_torch.obs.trace import validate_trace
@@ -219,7 +239,9 @@ def esam_main(args, obs=None) -> EsamServeRun:
         first_ms = (time.perf_counter() - t0) * 1e3
         print(f"COLDSTART first_request_ms={first_ms:.2f} "
               f"warmup_s={wt['total_s']:.2f} "
-              f"buckets={len(eng._buckets)} graphs={wt['graphs']}")
+              f"buckets={len(eng._buckets)} graphs={wt['graphs']} "
+              f"cache={'on' if args.compile_cache is not None else 'off'} "
+              f"cache_dir={_build.build_dir()}")
         reqs_timed = reqs[1:]
     else:
         # warm on a throwaway engine serving the same workload shape (the
@@ -412,6 +434,24 @@ def traffic_main(args, obs=None) -> TrafficRun:
                       rate_sustainable=rate_sust)
 
 
+def build_kernels(device) -> list:
+    """On the card, build every kernel library this process lacks (one
+    ``nvcc`` each, all at once; a library in the cache is loaded as it is)
+    and print the ``BUILD`` line: this process's nvcc seconds, summed over
+    the libraries it compiled.  Returns the build reports (none on the
+    CPU, which runs the plain versions)."""
+    if resolve_device(device).type != "cuda":
+        return []
+    t0 = time.perf_counter()
+    reports = _build.build_all()
+    built = [r for r in reports if r.build_s > 0.0]
+    print(f"BUILD dir={_build.build_dir()} libraries={len(reports)} "
+          f"built={len(built)} "
+          f"nvcc_s={sum(r.build_s for r in reports):.2f} "
+          f"wall_s={time.perf_counter() - t0:.2f}", flush=True)
+    return reports
+
+
 def _fuse_arg(args):
     """Resolve --fuse: "auto" (default) | "off" | an integer factor."""
     if args.fuse in ("off", "none", "0"):
@@ -478,6 +518,11 @@ def main(argv=None):
                          "every replica's (bucket, T) shapes first")
     ap.add_argument("--device", default="cuda",
                     help="cuda (default; raises without a GPU) or cpu")
+    ap.add_argument("--compile-cache", nargs="?", const="", default=None,
+                    metavar="DIR",
+                    help="keep the CUDA kernel libraries in a persistent "
+                         "cache (optional directory; default "
+                         "~/.cache/repro-torch-kernels)")
     ap.add_argument("--metrics-port", type=int, default=None, metavar="PORT",
                     help="serve Prometheus /metrics on 127.0.0.1 at this "
                          "port (0 = a free one; prints 'METRICS port=...')")
@@ -506,6 +551,9 @@ def main(argv=None):
     if not (args.traffic or args.events or args.esam):
         ap.error("only --esam, --events and --traffic serving are ported "
                  "to repro_torch; the LM mode is not")
+    if args.compile_cache is not None:
+        env_mod.enable_compilation_cache(args.compile_cache or None)
+    build_kernels(args.device)
     obs, metrics_server = _build_observability(args)
     try:
         if args.traffic:
